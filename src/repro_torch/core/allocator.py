@@ -1,0 +1,131 @@
+"""Allocator registry — the one interface every policy solves Sub2 through.
+
+Port of ``repro.core.allocator`` with three entries:
+
+* ``waterfilling`` — the rho -> 0 limit (``bandwidth.min_time_allocation``);
+* ``pgd`` — tangent-space projected gradient (``bandwidth.pgd_allocation``);
+* ``fused_pgd`` — the water-filling start, then the whole double descent
+  in one launch of the ``sub2_pgd`` CUDA kernel (its plain PyTorch
+  version on CPU tensors).
+
+``solve(selected, t_train, gains, tx_power, cfg, alpha0=None,
+data_sizes=None, payload_bits=None) -> (alpha, objective)``; ``alpha0``
+is the warm-start contract (``das_schedule`` passes the previous outer
+iteration's allocation).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Protocol, runtime_checkable
+
+import torch
+
+from repro_torch.core import bandwidth as bw
+from repro_torch.core import wireless
+from repro_torch.kernels import sub2_pgd as sub2_pgd_kernel
+
+Tensor = torch.Tensor
+
+
+@runtime_checkable
+class Allocator(Protocol):
+    """Sub2 solver interface consumed by every scheduling policy."""
+
+    params: bw.Sub2Params
+
+    def solve(self, selected: Tensor, t_train: Tensor, gains: Tensor,
+              tx_power: Tensor, cfg: wireless.WirelessConfig,
+              alpha0: Optional[Tensor] = None,
+              data_sizes: Optional[Tensor] = None,
+              payload_bits: Optional[Tensor] = None
+              ) -> tuple[Tensor, Tensor]:
+        """Return (alpha, objective) for the given selection."""
+        ...
+
+
+@dataclasses.dataclass(frozen=True)
+class WaterFilling:
+    """rho -> 0 limit: every selected device finishes at T*.  Objective
+    reported at the caller's rho so allocators are comparable."""
+
+    params: bw.Sub2Params = bw.Sub2Params()
+
+    def solve(self, selected, t_train, gains, tx_power, cfg, alpha0=None,
+              data_sizes=None, payload_bits=None):
+        del data_sizes
+        alpha, _ = bw.min_time_allocation(selected, t_train, gains,
+                                          tx_power, cfg, self.params,
+                                          alpha0=alpha0,
+                                          payload_bits=payload_bits)
+        obj = bw.sub2_objective(alpha, selected, t_train, gains, tx_power,
+                                cfg, self.params.rho,
+                                payload_bits=payload_bits)
+        return alpha, obj
+
+
+@dataclasses.dataclass(frozen=True)
+class PGD:
+    """Tangent-space projected gradient (plain PyTorch)."""
+
+    params: bw.Sub2Params = bw.Sub2Params()
+
+    def solve(self, selected, t_train, gains, tx_power, cfg, alpha0=None,
+              data_sizes=None, payload_bits=None):
+        del data_sizes
+        return bw.pgd_allocation(selected, t_train, gains, tx_power, cfg,
+                                 self.params, alpha0=alpha0,
+                                 payload_bits=payload_bits)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPGD:
+    """The PGD double descent in one ``sub2_pgd`` kernel launch.
+
+    The joint-bisection water-filling solve supplies the first start
+    (and consumes the warm start); the uniform share is the second.
+    """
+
+    params: bw.Sub2Params = bw.Sub2Params()
+
+    def solve(self, selected, t_train, gains, tx_power, cfg, alpha0=None,
+              data_sizes=None, payload_bits=None):
+        del data_sizes
+        mask = (selected > 0.0).to(torch.float32)
+        n_act = torch.clamp_min(torch.sum(mask), 1.0)
+        bits = cfg.model_bits if payload_bits is None else payload_bits
+        wf, _ = bw.min_time_allocation(selected, t_train, gains, tx_power,
+                                       cfg, self.params, alpha0=alpha0,
+                                       payload_bits=payload_bits)
+        starts = torch.stack([wf, mask / n_act])
+        p = self.params
+        return sub2_pgd_kernel.sub2_pgd_solve(
+            mask, t_train, gains, tx_power, starts, rho=p.rho,
+            lr=p.pgd_lr, tau=p.smooth_tau, iters=p.pgd_iters,
+            bandwidth_hz=cfg.bandwidth_hz, noise_psd=cfg.noise_psd,
+            model_bits=bits, min_alpha=cfg.min_alpha)
+
+
+_REGISTRY: Dict[str, Callable[[bw.Sub2Params], Allocator]] = {
+    "waterfilling": WaterFilling,
+    "pgd": PGD,
+    "fused_pgd": FusedPGD,
+}
+
+
+def names() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def get(name: str, params: bw.Sub2Params = bw.Sub2Params()) -> Allocator:
+    """Build the named allocator around ``params``."""
+    if name == "importance":
+        raise NotImplementedError(
+            "the 'importance' allocator is not ported yet "
+            "(ROADMAP.md queue 1, item 5)")
+    try:
+        factory = _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown allocator {name!r}; registered: {names()}") from None
+    return factory(params)

@@ -1,0 +1,276 @@
+"""Scheduling policies for FEEL rounds (paper Alg. 2 + §VI baselines).
+
+Port of ``repro.core.scheduler``: :func:`das_schedule` (Data-Aware
+Scheduling, Sub1 <-> Sub2 until the (x, alpha) pair stabilises),
+:func:`abs_schedule` (age-based), :func:`random_schedule`,
+:func:`full_schedule` and :func:`topn_schedule`, behind one entry,
+:func:`schedule_impl`.  Every policy solves Sub2 through the
+``core.allocator`` registry.
+
+The reference's DAS ``while_loop`` with a frozen carry is, for one
+scenario, a loop that stops on convergence; here it is a Python loop
+with one host sync per outer iteration (the convergence test).  The
+uniform draw the abs/random policies rank on is an input (``sched_u``),
+so a test can feed the reference's draw.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import allocator as alloc_lib
+from repro_torch.core import bandwidth as bw
+from repro_torch.core import selection as sel
+from repro_torch.core import wireless
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerConfig:
+    method: str = "das"              # das | abs | random | full
+    n_min: int = 1                   # N in (13e)
+    n_fixed: Optional[int] = None    # paper Fig. 2/3 stress mode
+    iterations_max: int = 8          # Alg. 2 outer iterations
+    local_epochs: int = 1            # E, enters t_train (Eq. 8)
+    sub1: sel.Sub1Params = sel.Sub1Params()
+    sub2: bw.Sub2Params = bw.Sub2Params()
+    allocator: str = "pgd"           # Sub2 solver (core.allocator registry)
+    x_tol: float = 0.5               # convergence: selection unchanged
+    alpha_tol: float = 1e-4          # convergence: allocation stable
+    # Streaming / fault hooks of the reference (staleness boost,
+    # reliability discount).  Their signals come from subsystems not
+    # ported yet, so in this port they are identities whatever the
+    # weight, as in the reference when no signal is supplied.
+    staleness_weight: float = 0.0
+    reliability_weight: float = 0.0
+    # How Sub1 prices a currently-unselected device's energy: "strict"
+    # uses its current (~zero) share, "mean" the mean selected share.
+    reentry: str = "strict"          # strict | mean
+
+
+@dataclasses.dataclass
+class ScheduleResult:
+    selected: Tensor     # (K,) {0,1}
+    alpha: Tensor        # (K,) bandwidth shares, sum <= 1
+    t_train: Tensor      # (K,) seconds
+    t_up: Tensor         # (K,) seconds (inf if unselected)
+    energy: Tensor       # (K,) joules (0 if unselected)
+    round_time: Tensor   # scalar, Eq. 7
+    iterations: int      # DAS outer iterations used
+
+
+def _finalize(selected: Tensor, alpha: Tensor, t_train: Tensor,
+              gains: Tensor, net: wireless.NetworkState,
+              cfg: wireless.WirelessConfig, iterations: int = 0,
+              payload_bits: Optional[Tensor] = None) -> ScheduleResult:
+    sel_mask = selected > 0.0
+    t_up = wireless.upload_time(alpha, gains, net.tx_power, cfg,
+                                payload_bits)
+    t_up = torch.where(sel_mask, t_up, torch.full_like(t_up, float("inf")))
+    t_up_fin = torch.where(torch.isinf(t_up), torch.zeros_like(t_up), t_up)
+    energy = torch.where(sel_mask, net.tx_power * t_up_fin,
+                         torch.zeros_like(t_up))
+    t_round = wireless.round_time(selected, t_train, t_up_fin)
+    return ScheduleResult(selected, alpha, t_train, t_up, energy, t_round,
+                          int(iterations))
+
+
+# ---------------------------------------------------------------------------
+# DAS — Algorithm 2
+# ---------------------------------------------------------------------------
+
+def das_schedule(index: Tensor, data_sizes: Tensor, gains: Tensor,
+                 net: wireless.NetworkState, cfg: wireless.WirelessConfig,
+                 sch: SchedulerConfig,
+                 alloc: Optional[alloc_lib.Allocator] = None,
+                 payload_bits: Optional[Tensor] = None) -> ScheduleResult:
+    """Data-aware scheduling: iterate Sub1 <-> Sub2 (paper Alg. 2).
+
+    Sub1 prices every device at the current allocation (floored, or
+    re-priced at the mean share with ``reentry="mean"``); Sub2 runs
+    through ``alloc`` warm-started with the previous allocation.  The
+    loop stops once the selection and allocation stop moving, or after
+    ``iterations_max`` iterations.
+    """
+    alloc = alloc or alloc_lib.get(sch.allocator, sch.sub2)
+    k = index.shape[0]
+    t_train = wireless.train_time(data_sizes, net, cfg, sch.local_epochs)
+    sub1 = dataclasses.replace(sch.sub1, n_min=sch.n_min)
+
+    x = torch.ones((k,), dtype=torch.float32, device=index.device)
+    alpha = torch.full((k,), 1.0 / k, dtype=torch.float32,
+                       device=index.device)
+    x_prev, alpha_prev = torch.zeros_like(x), torch.zeros_like(alpha)
+    it = 0
+    while it < sch.iterations_max:
+        if it > 0:
+            # One host sync per outer iteration: the convergence test.
+            changed = ((torch.sum(torch.abs(x - x_prev)) >= sch.x_tol)
+                       | (torch.max(torch.abs(alpha - alpha_prev))
+                          >= sch.alpha_tol))
+            if not bool(changed):
+                break
+        if sch.reentry == "mean":
+            n_sel = torch.clamp_min(torch.sum(x), 1.0)
+            mean_share = torch.sum(alpha) / n_sel
+            alpha_eval = torch.where(
+                alpha > cfg.min_alpha, alpha,
+                torch.clamp_min(mean_share, 1.0 / k))
+        else:  # strict: dropped devices keep their ~zero allocation
+            alpha_eval = torch.clamp_min(alpha, cfg.min_alpha)
+        t_up = wireless.upload_time(alpha_eval, gains, net.tx_power, cfg,
+                                    payload_bits)
+        energy = net.tx_power * t_up
+        x_new, _, _ = sel.solve_sub1(energy, t_train + t_up, index, sub1)
+        alpha_new, _ = alloc.solve(x_new, t_train, gains, net.tx_power,
+                                   cfg, alpha0=alpha,
+                                   data_sizes=data_sizes,
+                                   payload_bits=payload_bits)
+        x_prev, alpha_prev = x, alpha
+        x, alpha = x_new, alpha_new
+        it += 1
+    return _finalize(x, alpha, t_train, gains, net, cfg, it, payload_bits)
+
+
+# ---------------------------------------------------------------------------
+# Priority-based baselines (ABS / random / fixed-n)
+# ---------------------------------------------------------------------------
+
+def _topn_by_priority(priority: Tensor, n: int) -> Tensor:
+    return torch.zeros_like(priority).scatter_(
+        0, sel.top_indices(priority, n), 1.0)
+
+
+def topn_schedule(priority: Tensor, n: int, data_sizes: Tensor,
+                  gains: Tensor, net: wireless.NetworkState,
+                  cfg: wireless.WirelessConfig, sch: SchedulerConfig,
+                  alloc: Optional[alloc_lib.Allocator] = None,
+                  payload_bits: Optional[Tensor] = None) -> ScheduleResult:
+    """Select exactly ``n`` devices by ``priority``, then run Sub2."""
+    alloc = alloc or alloc_lib.get(sch.allocator, sch.sub2)
+    t_train = wireless.train_time(data_sizes, net, cfg, sch.local_epochs)
+    x = _topn_by_priority(priority, n)
+    alpha, _ = alloc.solve(x, t_train, gains, net.tx_power, cfg,
+                           data_sizes=data_sizes, payload_bits=payload_bits)
+    return _finalize(x, alpha, t_train, gains, net, cfg,
+                     payload_bits=payload_bits)
+
+
+def _median(t: Tensor) -> Tensor:
+    """``jnp.median``: the mean of the two middle values for even K
+    (``torch.median`` returns the lower one)."""
+    s = torch.sort(t).values
+    n = t.shape[0]
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+
+
+def abs_schedule(ages: Tensor, data_sizes: Tensor, gains: Tensor,
+                 net: wireless.NetworkState, cfg: wireless.WirelessConfig,
+                 sch: SchedulerConfig, sched_u: Optional[Tensor] = None,
+                 deadline: Optional[float] = None,
+                 alloc: Optional[alloc_lib.Allocator] = None,
+                 payload_bits: Optional[Tensor] = None) -> ScheduleResult:
+    """Age-based scheduling (paper §VI baselines, Yang et al. f(k)).
+
+    Priority ``log(1 + age)`` plus ``1e-4 * sched_u`` as a tiebreak.
+    With ``n_fixed`` a top-n policy; otherwise devices are admitted in
+    priority order while the deadline's minimal bandwidth fits the band
+    (the top ``n_min`` always, their infeasible shares kept out of the
+    budget).
+    """
+    alloc = alloc or alloc_lib.get(sch.allocator, sch.sub2)
+    t_train = wireless.train_time(data_sizes, net, cfg, sch.local_epochs)
+    priority = torch.log1p(ages.to(torch.float32))
+    if sched_u is not None:
+        priority = priority + 1e-4 * sched_u
+    if sch.n_fixed is not None:
+        return topn_schedule(priority, sch.n_fixed, data_sizes, gains, net,
+                             cfg, sch, alloc, payload_bits)
+    if deadline is None:
+        # Default deadline: median device at an equal 1/8 band share.
+        a_ref = torch.full_like(priority, 1.0 / 8.0)
+        t_ref = t_train + wireless.upload_time(a_ref, gains, net.tx_power,
+                                               cfg, payload_bits)
+        deadline_t = _median(t_ref)
+    else:
+        deadline_t = torch.tensor(deadline, dtype=torch.float32,
+                                  device=priority.device)
+    ones = torch.ones_like(priority)
+    a_min = bw.alpha_for_deadline(deadline_t, ones, t_train, gains,
+                                  net.tx_power, cfg,
+                                  rate_iters=sch.sub2.newton_iters,
+                                  payload_bits=payload_bits)
+    # jnp.argsort is stable: equal priorities keep device order.
+    order = torch.sort(-priority, stable=True).indices
+    a_sorted = a_min[order]
+    forced = torch.arange(priority.shape[0],
+                          device=priority.device) < sch.n_min
+    a_budget = torch.where(forced & (a_sorted > 1.0),
+                           torch.zeros_like(a_sorted), a_sorted)
+    admit_sorted = (torch.cumsum(a_budget, dim=0) <= 1.0) | forced
+    x = torch.zeros_like(priority)
+    x[order] = admit_sorted.to(torch.float32)
+    alpha, _ = alloc.solve(x, t_train, gains, net.tx_power, cfg,
+                           data_sizes=data_sizes, payload_bits=payload_bits)
+    return _finalize(x, alpha, t_train, gains, net, cfg,
+                     payload_bits=payload_bits)
+
+
+def random_schedule(sched_u: Tensor, data_sizes: Tensor, gains: Tensor,
+                    net: wireless.NetworkState,
+                    cfg: wireless.WirelessConfig, sch: SchedulerConfig,
+                    alloc: Optional[alloc_lib.Allocator] = None,
+                    payload_bits: Optional[Tensor] = None
+                    ) -> ScheduleResult:
+    """Uniform-random selection baseline (paper §VI-B): the top n of the
+    uniform draw ``sched_u``."""
+    n = sch.n_fixed if sch.n_fixed is not None else sch.n_min
+    return topn_schedule(sched_u, n, data_sizes, gains, net, cfg, sch,
+                         alloc, payload_bits)
+
+
+def full_schedule(data_sizes: Tensor, gains: Tensor,
+                  net: wireless.NetworkState, cfg: wireless.WirelessConfig,
+                  sch: SchedulerConfig,
+                  alloc: Optional[alloc_lib.Allocator] = None,
+                  payload_bits: Optional[Tensor] = None) -> ScheduleResult:
+    """Paper's baseline: all devices participate; Sub2 optimizes alpha."""
+    alloc = alloc or alloc_lib.get(sch.allocator, sch.sub2)
+    t_train = wireless.train_time(data_sizes, net, cfg, sch.local_epochs)
+    x = torch.ones_like(t_train)
+    alpha, _ = alloc.solve(x, t_train, gains, net.tx_power, cfg,
+                           data_sizes=data_sizes, payload_bits=payload_bits)
+    return _finalize(x, alpha, t_train, gains, net, cfg,
+                     payload_bits=payload_bits)
+
+
+def schedule_impl(sched_u: Optional[Tensor], index: Tensor, ages: Tensor,
+                  data_sizes: Tensor, gains: Tensor,
+                  net: wireless.NetworkState,
+                  cfg: wireless.WirelessConfig, sch: SchedulerConfig,
+                  payload_bits: Optional[Tensor] = None) -> ScheduleResult:
+    """Dispatch on ``sch.method``.  ``sched_u`` is the round's (K,)
+    uniform draw, read by abs (tiebreak) and random (priority) only."""
+    alloc = alloc_lib.get(sch.allocator, sch.sub2)
+    if sch.method == "das":
+        if sch.n_fixed is not None:
+            return topn_schedule(index, sch.n_fixed, data_sizes, gains, net,
+                                 cfg, sch, alloc, payload_bits)
+        return das_schedule(index, data_sizes, gains, net, cfg, sch, alloc,
+                            payload_bits)
+    if sch.method == "abs":
+        return abs_schedule(ages, data_sizes, gains, net, cfg, sch, sched_u,
+                            alloc=alloc, payload_bits=payload_bits)
+    if sch.method == "random":
+        if sched_u is None:
+            raise ValueError("random scheduling needs the sched_u draw")
+        return random_schedule(sched_u, data_sizes, gains, net, cfg, sch,
+                               alloc, payload_bits)
+    if sch.method == "full":
+        return full_schedule(data_sizes, gains, net, cfg, sch, alloc,
+                             payload_bits)
+    raise ValueError(f"unknown scheduling method: {sch.method!r}")

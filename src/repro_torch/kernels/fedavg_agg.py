@@ -1,0 +1,46 @@
+"""FedAvg weighted aggregation (Alg. 1 line 12): (K, P) x (K,) -> (P,).
+
+Replaces the TPU kernel ``fedavg_agg_kernel`` of
+``src/repro/kernels/fedavg_agg.py``.  CUDA source:
+``csrc/fedavg_agg.cu`` — one thread per coordinate p, a loop over the K
+clients in order, f32 accumulation, the ragged tail masked.  Bound on
+the H100 by bytes: the (K, P) f32 matrix is read once at HBM rate.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, _check
+
+
+def fedavg_agg_plain(updates: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """Plain version (port of ``kernels/ref.py::fedavg_agg``)."""
+    out = torch.einsum("kp,k->p", updates.to(torch.float32),
+                       weights.to(torch.float32))
+    return out.to(updates.dtype)
+
+
+def fedavg_agg(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``out[p] = sum_k weights[k] * updates[k, p]`` in f32.
+
+    CPU tensors take :func:`fedavg_agg_plain`; CUDA tensors launch the
+    kernel (f32, contiguous) or raise.
+    """
+    if updates.device.type == "cpu":
+        return fedavg_agg_plain(updates, weights)
+    k, p = updates.shape
+    dev = updates.device
+    _check.cuda_operand("updates", updates, torch.float32, (k, p), dev)
+    _check.cuda_operand("weights", weights, torch.float32, (k,), dev)
+    out = torch.empty((p,), dtype=torch.float32, device=dev)
+    code = _build.library().fedavg_agg_f32(
+        updates.data_ptr(), weights.data_ptr(), out.data_ptr(), k, p,
+        _check.stream_handle(dev))
+    _build.check(code, "fedavg_agg")
+    fedavg_agg.launches += 1
+    return out
+
+
+fedavg_agg.launches = 0

@@ -1,0 +1,184 @@
+"""Fused Sub2 projected-gradient descent (paper Eq. 15 inner solve).
+
+Replaces the TPU kernel ``sub2_pgd_kernel`` of
+``src/repro/kernels/sub2_pgd.py``.  CUDA source: ``csrc/sub2_pgd.cu`` —
+one block per instance (grid = S), one thread per device coordinate
+(K <= 1024), both starting points carried as a pair, every reduction a
+block reduction, the simplex projection a 32-trip theta bisection, the
+better start picked in the kernel.  Bound on the H100 by operations and
+latency: a chain of ``iters * ~40`` dependent block reductions.
+
+Rows are ``(S, K)`` from the start (the scenario-batched driver needs no
+other kernel); :func:`sub2_pgd_solve` is the single-instance entry the
+``fused_pgd`` allocator calls.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Union
+
+import torch
+
+from repro_torch.kernels import _build, _check
+
+N_STARTS = 2          # water-filling + uniform
+DEFAULT_PROJ_ITERS = 32
+MAX_K = 1024
+
+
+def sub2_pgd_plain(selected: torch.Tensor, t_train: torch.Tensor,
+                   snr_coeff: torch.Tensor, tx_power: torch.Tensor,
+                   payload_bits: torch.Tensor, alpha0: torch.Tensor, *,
+                   rho: float, lr: float, tau: float, iters: int,
+                   bandwidth_hz: float, min_alpha: float,
+                   proj_iters: int = DEFAULT_PROJ_ITERS
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version (port of ``kernels/ref.py::sub2_pgd``), batched.
+
+    ``(S, K)`` rows and ``(S, 2, K)`` starts -> ``((S, K) alpha, (S,)
+    objective)``.  As in the reference oracle, the gradient is derived
+    independently of the kernel's analytic one: autograd of the
+    logsumexp-smoothed objective at the floored point.
+    """
+    mask = selected[:, None, :]
+    tt, c, pw, bits = (x[:, None, :] for x in (t_train, snr_coeff,
+                                               tx_power, payload_bits))
+    act = mask > 0.0
+    msum = torch.sum(selected, dim=-1)[:, None, None]
+    n_act = torch.clamp_min(msum, 1.0)
+    any_act = msum > 0.5
+    scale = bandwidth_hz / math.log(2.0)
+    zero = torch.zeros((), dtype=selected.dtype, device=selected.device)
+
+    def upload(av):
+        rate = scale * av * torch.log1p(c / av)
+        return torch.where(act, bits / torch.clamp_min(rate, 1e-12), zero)
+
+    def exact_obj(av):                                  # (S, 2, K) -> (S, 2)
+        tu = upload(torch.clamp_min(av, min_alpha))
+        tot = torch.where(act, tt + tu, zero)
+        return (rho * torch.sum(pw * tu, dim=-1)
+                + (1.0 - rho) * torch.amax(tot, dim=-1))
+
+    def smooth_obj(av):
+        tu = upload(av)
+        tot = torch.where(act, tt + tu, zero)
+        return (rho * torch.sum(pw * tu, dim=-1)
+                + (1.0 - rho) * tau * torch.logsumexp(tot / tau, dim=-1))
+
+    def tangent_grad(av):
+        x = torch.clamp_min(av, min_alpha).detach().requires_grad_(True)
+        with torch.enable_grad():
+            (g,) = torch.autograd.grad(smooth_obj(x).sum(), x)
+        g = g * mask
+        return (g - torch.sum(g, dim=-1, keepdim=True) / n_act) * mask
+
+    def project(v):
+        vm = torch.where(act, v, zero)
+        lo = torch.amin(torch.where(act, vm, math.inf), dim=-1,
+                        keepdim=True) - 1.0
+        hi = torch.amax(torch.where(act, vm, -math.inf), dim=-1,
+                        keepdim=True)
+        for _ in range(proj_iters):
+            mid = 0.5 * (lo + hi)
+            s = torch.sum(torch.where(act, torch.clamp_min(vm - mid, 0.0),
+                                      zero), dim=-1, keepdim=True)
+            over = s >= 1.0
+            lo, hi = torch.where(over, mid, lo), torch.where(over, hi, mid)
+        out = torch.clamp_min(vm - 0.5 * (lo + hi), 0.0)
+        out = torch.where(act, out, zero)
+        return torch.where(any_act, out, zero)
+
+    a = project(alpha0)
+    best_a, best_o = a, exact_obj(a)
+    for i in range(iters):
+        gt = tangent_grad(a)
+        gmax = torch.amax(torch.abs(gt), dim=-1, keepdim=True)
+        frac = torch.tensor(float(i)) / iters
+        lr_i = (lr * (0.5 * (1.0 + torch.cos(math.pi * frac)))).item()
+        a = project(a - lr_i * gt / torch.clamp_min(gmax, 1e-12))
+        o = exact_obj(a)
+        better = o < best_o
+        best_a = torch.where(better[..., None], a, best_a)
+        best_o = torch.where(better, o, best_o)
+    pick = best_o[:, 0] <= best_o[:, 1]
+    return (torch.where(pick[:, None], best_a[:, 0], best_a[:, 1]),
+            torch.where(pick, best_o[:, 0], best_o[:, 1]))
+
+
+def sub2_pgd(selected: torch.Tensor, t_train: torch.Tensor,
+             snr_coeff: torch.Tensor, tx_power: torch.Tensor,
+             payload_bits: torch.Tensor, alpha0: torch.Tensor, *,
+             rho: float, lr: float, tau: float, iters: int,
+             bandwidth_hz: float, min_alpha: float,
+             proj_iters: int = DEFAULT_PROJ_ITERS
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched fused PGD: ``(S, K)`` rows + ``(S, 2, K)`` starts ->
+    ``((S, K) alpha, (S,) objective)``.
+
+    ``snr_coeff`` is c = g P / (B N0).  CPU tensors take
+    :func:`sub2_pgd_plain`; CUDA tensors launch the kernel (f32,
+    contiguous, K <= 1024) or raise.
+    """
+    kw = dict(rho=rho, lr=lr, tau=tau, iters=iters,
+              bandwidth_hz=bandwidth_hz, min_alpha=min_alpha,
+              proj_iters=proj_iters)
+    if selected.device.type == "cpu":
+        return sub2_pgd_plain(selected, t_train, snr_coeff, tx_power,
+                              payload_bits, alpha0, **kw)
+    s, k = selected.shape
+    if k > MAX_K:
+        raise ValueError(f"sub2_pgd kernel takes K <= {MAX_K}, got {k}")
+    dev = selected.device
+    rows = (("selected", selected), ("t_train", t_train),
+            ("snr_coeff", snr_coeff), ("tx_power", tx_power),
+            ("payload_bits", payload_bits))
+    for name, t in rows:
+        _check.cuda_operand(name, t, torch.float32, (s, k), dev)
+    _check.cuda_operand("alpha0", alpha0, torch.float32, (s, N_STARTS, k),
+                        dev)
+    alpha = torch.empty((s, k), dtype=torch.float32, device=dev)
+    obj = torch.empty((s,), dtype=torch.float32, device=dev)
+    code = _build.library().sub2_pgd(
+        *(t.data_ptr() for _, t in rows), alpha0.data_ptr(),
+        alpha.data_ptr(), obj.data_ptr(), s, k, rho, 1.0 - rho, lr, tau,
+        iters, bandwidth_hz / math.log(2.0), min_alpha, proj_iters,
+        _check.stream_handle(dev))
+    _build.check(code, "sub2_pgd")
+    sub2_pgd.launches += 1
+    return alpha, obj
+
+
+sub2_pgd.launches = 0
+
+
+def sub2_pgd_solve(selected: torch.Tensor, t_train: torch.Tensor,
+                   gains: torch.Tensor, tx_power: torch.Tensor,
+                   alpha0: torch.Tensor, *, rho: float, lr: float,
+                   tau: float, iters: int, bandwidth_hz: float,
+                   noise_psd: float,
+                   model_bits: Union[float, torch.Tensor],
+                   min_alpha: float,
+                   proj_iters: int = DEFAULT_PROJ_ITERS
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-instance entry: ``(K,)`` rows + ``(2, K)`` starts ->
+    ``((K,) alpha, () objective)`` (port of ``ops.sub2_pgd``).
+
+    Gains and power fold into the SNR coefficient here; ``model_bits``
+    (scalar or ``(K,)``) is materialised as a bits row.
+    """
+    f32 = torch.float32
+    c = gains * tx_power / (bandwidth_hz * noise_psd)
+    if isinstance(model_bits, torch.Tensor):
+        bits = torch.broadcast_to(model_bits, selected.shape)
+    else:   # a fill, not a host-to-device copy of the scalar
+        bits = torch.full(selected.shape, model_bits, dtype=f32,
+                          device=selected.device)
+    rows = [x.to(f32)[None].contiguous()
+            for x in (selected, t_train, c, tx_power, bits)]
+    alpha, obj = sub2_pgd(*rows, alpha0.to(f32)[None].contiguous(),
+                          rho=rho, lr=lr, tau=tau, iters=iters,
+                          bandwidth_hz=bandwidth_hz, min_alpha=min_alpha,
+                          proj_iters=proj_iters)
+    return alpha[0], obj[0]
