@@ -5,6 +5,9 @@
         [--devices 40] [--n-fixed 7] [--epochs 1] [--model-bits 100e3]
         [--full-data] [--seed 0] [--allocator fused_pgd]
         [--kernel-agg | --no-kernel-agg] [--device cuda|cpu]
+        [--stream poisson|drift|shift|evict|static] [--stream-rate 25]
+        [--staleness-weight 0.25] [--codec none|quant|topk|adaptive]
+        [--bit-width 8]
 
 The port's counterpart of ``examples/federated_mnist.py``: K devices with
 shard-partitioned synthetic MNIST-like data, DAS/ABS/random/full
@@ -13,13 +16,18 @@ scheduling and FedAvg training through
 line.  It runs on the CUDA card by default (the ``diversity``,
 ``sub2_pgd`` and ``fedavg_agg`` kernels on the DAS + ``fused_pgd`` +
 kernel-FedAvg path); ``--device cpu`` runs the plain PyTorch versions.
+``--stream`` turns on streaming data (the ``stream_update`` kernel
+refreshes the per-device statistics every round) and ``--codec``
+compressed uplinks (the ``compress_update`` kernel), with the JAX
+example's flags and defaults.
 """
 
 import argparse
 
 import torch
 
-from repro_torch.core import federated, scheduler, wireless
+from repro_torch.core import compression, federated, scheduler, \
+    streaming, wireless
 from repro_torch.data import partition, synthetic
 from repro_torch.device import resolve_device
 from repro_torch.models import paper_nets
@@ -44,6 +52,21 @@ def main() -> None:
                     default=True, help="FedAvg through the CUDA kernel")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--codec", default="",
+                    choices=["", "none", "quant", "topk", "adaptive"],
+                    help="uplink compression codec (default: "
+                         "uncompressed full-precision uploads)")
+    ap.add_argument("--bit-width", type=int, default=8,
+                    help="quantization bit width for --codec quant")
+    ap.add_argument("--stream", default="",
+                    choices=["", "static", "poisson", "drift", "shift",
+                             "evict"],
+                    help="streaming-data arrival process (default: "
+                         "static data, the paper's frozen partition)")
+    ap.add_argument("--stream-rate", type=float, default=25.0,
+                    help="mean arrivals per device per round")
+    ap.add_argument("--staleness-weight", type=float, default=0.25,
+                    help="gamma_s staleness boost for streaming runs")
     args = ap.parse_args()
     dev = resolve_device(args.device)
 
@@ -64,15 +87,24 @@ def main() -> None:
     print(f"[feel-torch] {args.model} ({n_params:,} params), "
           f"K={args.devices}, method={args.method}, E={args.epochs}, "
           f"s={args.model_bits / 1e3:.0f} kbit, allocator={args.allocator}, "
-          f"kernel_agg={args.kernel_agg}, device={dev}")
+          f"kernel_agg={args.kernel_agg}, device={dev}"
+          + (f", stream={args.stream}@{args.stream_rate:g}/round"
+             if args.stream else "")
+          + (f", codec={args.codec}" if args.codec else ""))
 
     scfg = scheduler.SchedulerConfig(
         method=args.method, n_min=1, n_fixed=args.n_fixed or None,
-        iterations_max=6, allocator=args.allocator)
+        iterations_max=6, allocator=args.allocator,
+        staleness_weight=args.staleness_weight if args.stream else 0.0)
+    stream_cfg = streaming.StreamConfig(
+        process=args.stream, rate=args.stream_rate) if args.stream else None
+    comp_cfg = compression.CompressionConfig(
+        codec=args.codec, bit_width=args.bit_width) if args.codec else None
     fcfg = federated.FLConfig(
         num_rounds=args.rounds, local_epochs=args.epochs, batch_size=50,
         learning_rate=0.1 if args.model == "mlp" else 0.05,
-        use_kernel_agg=args.kernel_agg)
+        use_kernel_agg=args.kernel_agg, stream=stream_cfg,
+        compression=comp_cfg)
     _, hist = federated.run_federated(
         model=model, data=data, net=net, wcfg=wcfg, scfg=scfg, fcfg=fcfg,
         seed=args.seed + 4, device=dev)

@@ -98,6 +98,27 @@ def invert_rate(r_req: Tensor, gains: Tensor, tx_power: Tensor,
     return _newton_refine(alpha0, r_req, c, cfg, iters)
 
 
+def effective_payload_bits(payload_bits: Optional[Tensor],
+                           airtime_mult: float,
+                           cfg: wireless.WirelessConfig,
+                           like: Tensor) -> Optional[Tensor]:
+    """Retry-priced payload for scheduling-time Sub2 solves.
+
+    The fault subsystem's expected retransmission multiplier
+    (``faults.expected_time_mult``) becomes effective uplink bits here,
+    so every deadline function and Sub2 solver prices the retry tax
+    alike.  ``airtime_mult == 1.0`` returns the input itself; with no
+    per-device payload the scalar ``cfg.model_bits`` is materialised as
+    a ``(K,)`` row shaped like ``like``.
+    """
+    if airtime_mult == 1.0:
+        return payload_bits
+    if payload_bits is None:
+        return torch.full(like.shape, cfg.model_bits * airtime_mult,
+                          dtype=torch.float32, device=like.device)
+    return payload_bits * float(np.float32(airtime_mult))
+
+
 def _required_rate(deadline: Tensor, t_train: Tensor,
                    cfg: wireless.WirelessConfig,
                    payload_bits: Optional[Tensor] = None) -> Tensor:

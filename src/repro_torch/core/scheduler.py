@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core import allocator as alloc_lib
 from repro_torch.core import bandwidth as bw
+from repro_torch.core import diversity
 from repro_torch.core import selection as sel
 from repro_torch.core import wireless
 
@@ -41,10 +42,8 @@ class SchedulerConfig:
     allocator: str = "pgd"           # Sub2 solver (core.allocator registry)
     x_tol: float = 0.5               # convergence: selection unchanged
     alpha_tol: float = 1e-4          # convergence: allocation stable
-    # Streaming / fault hooks of the reference (staleness boost,
-    # reliability discount).  Their signals come from subsystems not
-    # ported yet, so in this port they are identities whatever the
-    # weight, as in the reference when no signal is supplied.
+    # Re-ranking weights of the streaming staleness boost and the fault
+    # subsystem's reliability discount (DAS and ABS only).
     staleness_weight: float = 0.0
     reliability_weight: float = 0.0
     # How Sub1 prices a currently-unselected device's energy: "strict"
@@ -61,6 +60,28 @@ class ScheduleResult:
     energy: Tensor       # (K,) joules (0 if unselected)
     round_time: Tensor   # scalar, Eq. 7
     iterations: int      # DAS outer iterations used
+
+
+def staleness_boost(priority: Tensor, staleness: Optional[Tensor],
+                    sch: SchedulerConfig) -> Tensor:
+    """Streaming re-ranking hook: ``priority + gamma_s *
+    normalize(log1p(staleness))``, so devices sitting on data the server
+    has not trained on rise.  Identity without a signal or at weight 0."""
+    if staleness is None or sch.staleness_weight == 0.0:
+        return priority
+    boost = diversity.normalize_metric(torch.log1p(staleness))
+    return priority + sch.staleness_weight * boost
+
+
+def reliability_discount(priority: Tensor, reliability: Optional[Tensor],
+                         sch: SchedulerConfig) -> Tensor:
+    """Fault re-ranking hook: ``priority * ((1 - gamma_r) + gamma_r *
+    rel_k)`` with ``rel_k`` the per-device reliability EMA in [0, 1].
+    Identity without a signal or at weight 0."""
+    if reliability is None or sch.reliability_weight == 0.0:
+        return priority
+    w = sch.reliability_weight
+    return priority * ((1.0 - w) + w * reliability)
 
 
 def _finalize(selected: Tensor, alpha: Tensor, t_train: Tensor,
@@ -173,10 +194,13 @@ def abs_schedule(ages: Tensor, data_sizes: Tensor, gains: Tensor,
                  sch: SchedulerConfig, sched_u: Optional[Tensor] = None,
                  deadline: Optional[float] = None,
                  alloc: Optional[alloc_lib.Allocator] = None,
-                 payload_bits: Optional[Tensor] = None) -> ScheduleResult:
+                 staleness: Optional[Tensor] = None,
+                 payload_bits: Optional[Tensor] = None,
+                 reliability: Optional[Tensor] = None) -> ScheduleResult:
     """Age-based scheduling (paper §VI baselines, Yang et al. f(k)).
 
-    Priority ``log(1 + age)`` plus ``1e-4 * sched_u`` as a tiebreak.
+    Priority ``log(1 + age)``, re-ranked by :func:`staleness_boost` and
+    :func:`reliability_discount`, plus ``1e-4 * sched_u`` as a tiebreak.
     With ``n_fixed`` a top-n policy; otherwise devices are admitted in
     priority order while the deadline's minimal bandwidth fits the band
     (the top ``n_min`` always, their infeasible shares kept out of the
@@ -185,6 +209,8 @@ def abs_schedule(ages: Tensor, data_sizes: Tensor, gains: Tensor,
     alloc = alloc or alloc_lib.get(sch.allocator, sch.sub2)
     t_train = wireless.train_time(data_sizes, net, cfg, sch.local_epochs)
     priority = torch.log1p(ages.to(torch.float32))
+    priority = staleness_boost(priority, staleness, sch)
+    priority = reliability_discount(priority, reliability, sch)
     if sched_u is not None:
         priority = priority + 1e-4 * sched_u
     if sch.n_fixed is not None:
@@ -252,11 +278,17 @@ def schedule_impl(sched_u: Optional[Tensor], index: Tensor, ages: Tensor,
                   data_sizes: Tensor, gains: Tensor,
                   net: wireless.NetworkState,
                   cfg: wireless.WirelessConfig, sch: SchedulerConfig,
-                  payload_bits: Optional[Tensor] = None) -> ScheduleResult:
+                  staleness: Optional[Tensor] = None,
+                  payload_bits: Optional[Tensor] = None,
+                  reliability: Optional[Tensor] = None) -> ScheduleResult:
     """Dispatch on ``sch.method``.  ``sched_u`` is the round's (K,)
-    uniform draw, read by abs (tiebreak) and random (priority) only."""
+    uniform draw, read by abs (tiebreak) and random (priority) only.
+    ``staleness`` (streaming) and ``reliability`` (faults) re-rank DAS's
+    index and ABS's age priority; random and full ignore them."""
     alloc = alloc_lib.get(sch.allocator, sch.sub2)
     if sch.method == "das":
+        index = staleness_boost(index, staleness, sch)
+        index = reliability_discount(index, reliability, sch)
         if sch.n_fixed is not None:
             return topn_schedule(index, sch.n_fixed, data_sizes, gains, net,
                                  cfg, sch, alloc, payload_bits)
@@ -264,7 +296,9 @@ def schedule_impl(sched_u: Optional[Tensor], index: Tensor, ages: Tensor,
                             payload_bits)
     if sch.method == "abs":
         return abs_schedule(ages, data_sizes, gains, net, cfg, sch, sched_u,
-                            alloc=alloc, payload_bits=payload_bits)
+                            alloc=alloc, staleness=staleness,
+                            payload_bits=payload_bits,
+                            reliability=reliability)
     if sch.method == "random":
         if sched_u is None:
             raise ValueError("random scheduling needs the sched_u draw")

@@ -110,24 +110,35 @@ def achievable_rate(alpha: Tensor, gains: Tensor, tx_power: Tensor,
 
 def upload_time(alpha: Tensor, gains: Tensor, tx_power: Tensor,
                 cfg: WirelessConfig,
-                model_bits: Optional[Union[float, Tensor]] = None) -> Tensor:
+                model_bits: Optional[Union[float, Tensor]] = None,
+                airtime_mult: Optional[Tensor] = None) -> Tensor:
     """t_up_k = s_k / r_k (Eq. 9).  Infinite when alpha_k == 0.
 
     ``model_bits`` overrides the config's scalar payload (a ``(K,)``
-    tensor gives each device its own payload).
+    tensor gives each device its own payload).  ``airtime_mult`` scales
+    the single-shot time by a realized retransmission multiplier (the
+    fault subsystem); a multiplier of 0 — a device that dropped out
+    before transmitting — gives exactly 0 even where the single-shot
+    time is infinite.
     """
     s = cfg.model_bits if model_bits is None else model_bits
     rate = achievable_rate(alpha, gains, tx_power, cfg)
     t = s / torch.clamp_min(rate, 1e-12)
-    return torch.where(rate > 0.0, t, torch.full_like(t, float("inf")))
+    t = torch.where(rate > 0.0, t, torch.full_like(t, float("inf")))
+    if airtime_mult is None:
+        return t
+    return torch.where(airtime_mult > 0.0, t * airtime_mult,
+                       torch.zeros_like(t))
 
 
 def upload_energy(alpha: Tensor, gains: Tensor, tx_power: Tensor,
                   cfg: WirelessConfig,
-                  model_bits: Optional[Union[float, Tensor]] = None
-                  ) -> Tensor:
-    """E_k = P_k * t_up_k (Eq. 10)."""
-    return tx_power * upload_time(alpha, gains, tx_power, cfg, model_bits)
+                  model_bits: Optional[Union[float, Tensor]] = None,
+                  airtime_mult: Optional[Tensor] = None) -> Tensor:
+    """E_k = P_k * t_up_k (Eq. 10).  For retransmissions ``airtime_mult``
+    is the attempt count: the radio idles through backoff waits."""
+    return tx_power * upload_time(alpha, gains, tx_power, cfg, model_bits,
+                                  airtime_mult)
 
 
 def train_time(data_sizes: Tensor, net: NetworkState, cfg: WirelessConfig,

@@ -33,6 +33,26 @@ __device__ __forceinline__ float warp_reduce(float v) {
   return v;
 }
 
+// One reduction over the block; `scratch` holds at least 33 floats.
+template <typename Op>
+__device__ __forceinline__ float block_reduce(float v, float* scratch) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  v = warp_reduce<Op>(v);
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float t = lane < nwarps ? scratch[lane] : Op::identity();
+    t = warp_reduce<Op>(t);
+    if (lane == 0) scratch[32] = t;
+  }
+  __syncthreads();
+  const float r = scratch[32];
+  __syncthreads();
+  return r;
+}
+
 // Two independent reductions in one pass (one per PGD starting point).
 template <typename Op>
 __device__ __forceinline__ float2 block_reduce2(float2 v, float2* scratch) {

@@ -50,6 +50,22 @@ class ClientDataset:
                                for f in dataclasses.fields(self)))
 
 
+def arrival_affinity(label_hists: torch.Tensor,
+                     mix_uniform: float = 0.1) -> torch.Tensor:
+    """Per-device arrival class distribution for the streaming subsystem.
+
+    A device keeps receiving data shaped like its shard partition: its
+    initial (…, K, C) class profile, floored by a uniform mixture of
+    weight ``mix_uniform`` so every class stays reachable.  Rows sum to 1.
+    """
+    h = label_hists.to(torch.float32)
+    num_classes = h.shape[-1]
+    total = torch.sum(h, dim=-1, keepdim=True)
+    base = torch.where(total > 0.0, h / torch.clamp_min(total, 1.0),
+                       torch.full_like(h, 1.0 / num_classes))
+    return (1.0 - mix_uniform) * base + mix_uniform / num_classes
+
+
 def draw_shard_counts(rng: np.random.Generator,
                       spec: PartitionSpec) -> np.ndarray:
     """Per-device shard counts, U[min,max] rescaled to fit the shard pool."""

@@ -79,3 +79,18 @@ def generate(seed: int, samples_per_class: int,
 def to_float(images: torch.Tensor) -> torch.Tensor:
     """uint8 -> float32 in [0, 1]."""
     return images.to(torch.float32) / 255.0
+
+
+def sample_arrival_rates(u: torch.Tensor, rate: float,
+                         spread: float = 0.5) -> torch.Tensor:
+    """Per-device mean arrivals/round for the streaming subsystem.
+
+    ``rate * U[1 - spread, 1 + spread]`` — heterogeneous device activity
+    around the configured mean.  ``u`` is the (K,) draw on [0, 1) (a
+    caller makes it with ``torch.rand``, or hands over the reference's
+    ``jax.random.uniform``); it is mapped onto the interval as
+    ``jax.random.uniform`` maps its own bits.
+    """
+    lo, hi = (float(np.float32(x)) for x in (1.0 - spread, 1.0 + spread))
+    width = float(np.float32(hi - lo))      # the bounds are f32 there too
+    return rate * torch.clamp_min(u * width + lo, lo)

@@ -19,8 +19,10 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.core import bandwidth as jbw  # noqa: E402
+from repro.core import faults as jfaults  # noqa: E402
 from repro.core import federated as jfed  # noqa: E402
 from repro.core import scheduler as jsch  # noqa: E402
+from repro.core import streaming as jstreaming  # noqa: E402
 from repro.core import wireless as jw  # noqa: E402
 from repro.data import partition as jpart  # noqa: E402
 from repro.data import synthetic as jsyn  # noqa: E402
@@ -41,11 +43,36 @@ NET_FIELDS = ("distance_m", "pathloss", "tx_power", "cpu_freq",
               "cycles_per_bit")
 
 
-def replay_tape(key, net, k, rounds, capacity, max_steps, batch):
+def replay_tape(key, net, k, rounds, capacity, max_steps, batch, fcfg=None,
+                hists=None, coord_order=None):
     """The reference's draws, by its key schedule: ``split(key, 4)`` into
     carry/fade/sched/train each round, ``split(k_train, K)`` per device,
-    ``split(device_key, max_steps)`` per step, then ``randint``."""
-    gains, sched_u, idx = [], [], []
+    ``split(device_key, max_steps)`` per step, then ``randint``.
+
+    ``fcfg`` (the reference's FLConfig) adds its subsystems' draws:
+    ``stream`` splits an init key off first and a fifth key each round
+    (the ``poisson`` process: rate uniforms, then Poisson counts);
+    ``faults`` folds ``0xFA17`` into each round's carry key and splits it
+    in four uniforms, and ``0xC407`` into the original key for the
+    chronic rates; ``compression`` splits ``k_train`` into the SGD key
+    and the quantization-noise key.  ``coord_order`` maps the port's
+    flat parameter coordinates to the reference's (for the noise).
+    """
+    stream = fcfg.stream if fcfg is not None else None
+    flt = jfaults.active(fcfg.faults) if fcfg is not None else None
+    comp = fcfg.compression if fcfg is not None else None
+    extra = {}
+    if flt is not None and flt.drop_prob > 0 and flt.chronic_spread > 0:
+        extra["chronic_z"] = torch.from_numpy(np.array(jax.random.normal(
+            jax.random.fold_in(key, 0xC407), (k,))))
+    if stream is not None:
+        assert stream.process == "poisson"
+        key, k_init = jax.random.split(key)
+        extra["stream_init"] = {"u": torch.from_numpy(np.array(
+            jax.random.uniform(k_init, (k,))))}
+        st = jstreaming.get_process("poisson").init(k_init, hists, stream)
+        lam = st.rates[:, None] * st.affinity
+    gains, sched_u, idx, counts, fault_u, noise = [], [], [], [], [], []
 
     def device_idx(dk):
         return jax.vmap(lambda sk: jax.random.randint(sk, (batch,), 0,
@@ -53,14 +80,58 @@ def replay_tape(key, net, k, rounds, capacity, max_steps, batch):
             jax.random.split(dk, max_steps))
 
     for _ in range(rounds):
-        key, k_fade, k_sched, k_train = jax.random.split(key, 4)
+        sub = jax.random.split(key, 4 + (stream is not None))
+        key, k_fade, k_sched, k_train = sub[:4]
+        if stream is not None:
+            counts.append(np.asarray(jax.random.poisson(sub[4], lam),
+                                     np.float32))
+        if flt is not None:
+            kd, ko, ks, kt = jax.random.split(
+                jax.random.fold_in(key, 0xFA17), 4)
+            budget = jfaults.attempt_budget(flt)
+            fault_u.append({
+                "u_drop": jax.random.uniform(kd, (k, budget)),
+                "u_dropout": jax.random.uniform(ko, (k,)),
+                "u_strag": jax.random.uniform(ks, (k,)),
+                "u_tail": jax.random.uniform(kt, (k,), minval=1e-6,
+                                             maxval=1.0)})
+        if comp is not None:
+            k_train, k_comp = jax.random.split(k_train)
+            if comp.codec in ("quant", "adaptive"):
+                n = np.asarray(jax.random.uniform(
+                    k_comp, (k, len(coord_order))))
+                noise.append(n[:, coord_order])
         gains.append(np.asarray(jw.sample_fading(k_fade, net)))
         sched_u.append(np.asarray(jax.random.uniform(k_sched, (k,))))
         idx.append(np.asarray(jax.vmap(device_idx)(
             jax.random.split(k_train, k))))
+    if counts:
+        extra["stream"] = {"counts": torch.from_numpy(np.stack(counts))}
+    if fault_u:
+        extra["faults"] = {n: torch.from_numpy(np.stack(
+            [np.asarray(u[n]) for u in fault_u])) for n in fault_u[0]}
+    if noise:
+        extra["comp_noise"] = torch.from_numpy(np.stack(noise))
     return tfed.Draws(torch.from_numpy(np.stack(gains)),
                       torch.from_numpy(np.stack(idx)).long(),
-                      torch.from_numpy(np.stack(sched_u)))
+                      torch.from_numpy(np.stack(sched_u)), **extra)
+
+
+def coord_order(params_np, kind):
+    """Index map from the port's flat parameter order to the reference's
+    (pytree leaves sorted by name, dense weights (in, out)): the port's
+    coordinate i is the reference's ``coord_order[i]``."""
+    leaves = jax.tree_util.tree_leaves(params_np)
+    offsets, tree, start = [], [], 0
+    for leaf in leaves:
+        offsets.append(np.arange(start, start + leaf.size,
+                                 dtype=np.float32).reshape(leaf.shape))
+        start += leaf.size
+    ids = jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(params_np), offsets)
+    model = convert.paper_net_from_numpy(ids, tnets.PaperNetSpec(kind=kind))
+    return torch.cat([t.reshape(-1) for t in
+                      tnets.params_of(model).values()]).long().numpy()
 
 
 def _port_world(data, net, params, kind):
@@ -83,10 +154,16 @@ def _port_world(data, net, params, kind):
 CASES = [("mlp", 12, 0, 0.1, 1e-4), ("cnn", 16, 3, 0.05, 5e-3)]
 
 
-@pytest.fixture(scope="module", params=CASES,
-                ids=[f"{c[0]}-K{c[1]}" for c in CASES])
-def slice_runs(request):
-    kind, k, net_seed, lr, atol = request.param
+def run_pair(kind, k, net_seed, lr, jsub=None, tsub=None, sched_extra=None,
+             rounds=ROUNDS):
+    """The reference's ``make_feel_sim`` and the port's ``run_federated``
+    on one world (DAS + ``fused_pgd`` + kernel FedAvg, ``Sub2Params.fast``)
+    from one key schedule.  ``jsub``/``tsub`` are the subsystem fields of
+    the two FLConfigs (reference and port configs, same values).
+
+    Returns ``(reference params, reference metrics, port params, port
+    records)``.
+    """
     imgs, labels = jsyn.generate(0, samples_per_class=600)
     data = jpart.partition(imgs, labels, seed=1, spec=jpart.PartitionSpec(
         num_devices=k, num_shards=100, shard_size=50))
@@ -95,29 +172,63 @@ def slice_runs(request):
     spec = jnets.PaperNetSpec(kind=kind)
     params = jnets.init(jax.random.key(3), spec)
     sched = dict(method="das", n_min=2, iterations_max=4,
-                 allocator="fused_pgd")
-    fl = dict(num_rounds=ROUNDS, batch_size=50, learning_rate=lr,
+                 allocator="fused_pgd", **(sched_extra or {}))
+    fl = dict(num_rounds=rounds, batch_size=50, learning_rate=lr,
               use_kernel_agg=True)
-    jfcfg = jfed.FLConfig(**fl)
+    jfcfg = jfed.FLConfig(**fl, **(jsub or {}))
     key = jax.random.key(4)
     sim = jfed.make_feel_sim(
         loss_fn=functools.partial(jnets.loss_fn, spec=spec),
         eval_fn=functools.partial(jnets.accuracy, spec=spec), wcfg=wcfg,
         scfg=jsch.SchedulerConfig(sub2=jbw.Sub2Params.fast(), **sched),
         fcfg=jfcfg, capacity=data.capacity)
+    hists = jfed.client_histograms(data, 10)
     jparams, jmet = sim(params, data.images, data.labels, data.mask,
-                        data.sizes, jfed.client_histograms(data, 10),
-                        jsyn.to_float(data.test_images), data.test_labels,
-                        net, key)
-    draws = replay_tape(key, net, k, ROUNDS, data.capacity,
-                        jfed._max_local_steps(jfcfg, data.capacity), 50)
+                        data.sizes, hists, jsyn.to_float(data.test_images),
+                        data.test_labels, net, key)
+    draws = replay_tape(key, net, k, rounds, data.capacity,
+                        jfed._max_local_steps(jfcfg, data.capacity), 50,
+                        fcfg=jfcfg, hists=hists,
+                        coord_order=coord_order(params, kind))
     tdata, tnet, model = _port_world(data, net, params, kind)
     tparams, recs = tfed.run_federated(
         model=model, data=tdata, net=tnet, wcfg=tw.WirelessConfig(),
         scfg=tsch.SchedulerConfig(sub2=tbw.Sub2Params.fast(), **sched),
-        fcfg=tfed.FLConfig(**fl), draws=draws, device="cpu")
-    return jax.device_get(jparams), jax.device_get(jmet), tparams, recs, \
-        atol
+        fcfg=tfed.FLConfig(**fl, **(tsub or {})), draws=draws,
+        device="cpu")
+    return jax.device_get(jparams), jax.device_get(jmet), tparams, recs
+
+
+def assert_runs_agree(jmet, recs, jparams=None, tparams=None, atol=None,
+                      obj_rtol=1e-4, et_rtol=5e-3):
+    """Equal selections, DAS iterations and delivered counts every round;
+    the Sub2 objective rho*E + (1-rho)*T at ``obj_rtol``, E and T at
+    ``et_rtol`` (see test_slice_energy_and_time_match_reference); final
+    parameters at ``atol``."""
+    for r, rec in enumerate(recs):
+        np.testing.assert_array_equal(rec.selected, jmet.selected[r])
+        assert rec.iterations == int(jmet.iterations[r])
+        assert rec.n_selected == int(jmet.n_selected[r])
+        assert rec.n_success == int(jmet.n_success[r])
+        e, t = float(jmet.energy_total[r]), float(jmet.round_time[r])
+        assert 0.5 * rec.energy_total + 0.5 * rec.round_time == \
+            pytest.approx(0.5 * e + 0.5 * t, rel=obj_rtol)
+        assert rec.energy_total == pytest.approx(e, rel=et_rtol)
+        assert rec.round_time == pytest.approx(t, rel=et_rtol)
+    if atol is not None:
+        got = convert.paper_net_to_numpy(tparams)
+        for layer, leaves in jparams.items():
+            for name, want in leaves.items():
+                np.testing.assert_allclose(got[layer][name],
+                                           np.asarray(want), rtol=0,
+                                           atol=atol)
+
+
+@pytest.fixture(scope="module", params=CASES,
+                ids=[f"{c[0]}-K{c[1]}" for c in CASES])
+def slice_runs(request):
+    kind, k, net_seed, lr, atol = request.param
+    return (*run_pair(kind, k, net_seed, lr), atol)
 
 
 def test_slice_selections_and_iterations_equal_reference(slice_runs):
@@ -249,8 +360,7 @@ def test_empty_selection_carries_the_model_forward():
         assert torch.equal(out[n], params[n])
 
 
-@pytest.mark.parametrize("name", ["stream", "compression", "faults",
-                                  "dispatch_cap", "carry_dtype", "events",
+@pytest.mark.parametrize("name", ["dispatch_cap", "carry_dtype", "events",
                                   "telemetry"])
 def test_unported_subsystems_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):

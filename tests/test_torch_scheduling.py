@@ -254,6 +254,11 @@ _METHODS = [
     dict(method="abs", allocator="fused_pgd", n_fixed=4),
     dict(method="random", allocator="waterfilling", n_fixed=5),
     dict(method="full", allocator="fused_pgd"),
+    # The streaming staleness boost and the fault reliability discount.
+    dict(method="das", allocator="fused_pgd", staleness_weight=0.25,
+         reliability_weight=0.5),
+    dict(method="abs", allocator="waterfilling", staleness_weight=1.0,
+         reliability_weight=0.5),
 ]
 
 
@@ -279,9 +284,16 @@ def test_every_scheduling_method_matches_reference(kw):
                                 sub2=jbw.Sub2Params.fast(), **kw)
     tcfg = tsch.SchedulerConfig(n_min=2, iterations_max=5,
                                 sub2=tbw.Sub2Params.fast(), **kw)
-    jr = jsch.schedule(key, index, ages, sizes, gains, jnet, JW, jcfg)
+    signals = {}
+    if "staleness_weight" in kw:
+        rng = np.random.default_rng(3)
+        signals = dict(staleness=(rng.random(k) * 60).astype(np.float32),
+                       reliability=rng.random(k).astype(np.float32))
+    jr = jsch.schedule(key, index, ages, sizes, gains, jnet, JW, jcfg,
+                       **signals)
     tr = tsch.schedule_impl(_t(sched_u), _t(index), _t(ages), ts, tg, tnet,
-                            TW, tcfg)
+                            TW, tcfg,
+                            **{n: _t(a) for n, a in signals.items()})
     np.testing.assert_array_equal(tr.selected.numpy(),
                                   np.asarray(jr.selected))
     assert tr.iterations == int(jr.iterations)
