@@ -10,9 +10,11 @@ each phase failing the script on error:
 2. every kernel against its plain PyTorch version on the card, at the
    shapes of the paths, with the kernel, plain-version and (where one
    PyTorch call computes the same function) library times;
-3. three paths at full width — the paper's scale (1200 shards x 50,
+3. four paths at full width — the paper's scale (1200 shards x 50,
    K = 100 devices, the CNN), DAS with the ``fused_pgd`` allocator and
-   kernel FedAvg, through ``run_federated``, each with the kernel launch
+   kernel FedAvg, through ``run_federated`` (path 4 through
+   ``events.run_events``, which ``run_federated`` calls for an event
+   config, to read the server buffer's log), each with the kernel launch
    counts of its run checked, its warm wall time per round and its host
    syncs:
    - path 1, the synchronous round with every subsystem off, 3 rounds;
@@ -21,11 +23,21 @@ each phase failing the script on error:
      stragglers, the reliability EMA, overprovisioning), 3 rounds;
    - path 3, path 2 with 8-bit ``quant`` compressed uplinks, 3 rounds,
      then one round of ``topk``;
-4. one more full-width round of each path under ``torch.profiler``: time
-   by phase, the top kernels, the device's busy share;
-5. each path at K = 16 on the card and on the CPU from one random tape
-   with TF32 off (path 3 with ``topk``): equal selections, DAS iteration
-   and delivered counts, the same Sub2 objective, close parameters.
+   - path 4, path 2 as the event-driven asynchronous driver: diurnal
+     availability, a buffer of 2, staleness decay 0.5, ticks of half
+     path 1's median round time, a binding dispatch cap of 16 and the
+     bf16 carry, 6 events; the event loop must add no host sync beyond
+     the DAS convergence tests;
+4. path 5, the synchronous limit on the card: path 2 with
+   ``EventConfig()`` equal to path 2's run, parameters bit for bit, with
+   deterministic algorithms switched on for this phase only;
+5. one more full-width round of paths 1-3, and path 4's events, under
+   ``torch.profiler``: time by phase, the top kernels, the device's busy
+   share;
+6. each path at K = 16 on the card and on the CPU from one random tape
+   with TF32 off (path 3 with ``topk``, path 4 with a cap of 4): equal
+   selections, DAS iteration and delivered counts (path 4: and flushes),
+   the same Sub2 objective, close parameters.
 
 The last two lines are the ``kernels`` JSON record and the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -70,10 +82,19 @@ QUANT_FLIP_LIMIT = 1e-4
 STREAM_TOL = 1e-4
 P_CNN, P_MLP = 21840, 159010
 SEED = 0
-# The subsystems of paths 2 and 3.
+# The subsystems of paths 2-5.
 FAULTS = dict(drop_prob=0.1, max_retries=2, straggler_prob=0.05,
               reliability_ema=0.2, chronic_spread=0.5, overprovision=2)
 PATH2_SCHED = dict(staleness_weight=0.25, reliability_weight=0.5)
+# Path 4's event driver: the reference's asynchronous benchmark setting
+# (benchmarks/sched_micro.py) with its tick length set from path 1's
+# round times, a dispatch cap that binds at K = 100 and the bf16 carry.
+ASYNC = dict(availability="diurnal", duty=0.6, period=24.0,
+             phase_spread=0.5, buffer_size=2, staleness_decay=0.5,
+             num_events=6)
+PATH4_CAP = 16
+# The stale kernel's limit against its plain version (as its siblings).
+STALE_TOL = 1e-5
 
 
 def smi_line() -> str:
@@ -340,6 +361,42 @@ def phase_masked(torch, dev, k: int, p: int) -> dict:
                 bound_by=b_by, library_ms=library_ms)
 
 
+def phase_stale(torch, dev, k: int, p: int) -> dict:
+    from repro_torch.kernels import fedavg_agg as fk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11 * p)
+    n = cycling(k * p * 4)
+    us = [torch.randn((k, p), generator=gen, device=dev) for _ in range(n)]
+    w = torch.softmax(torch.randn((k,), generator=gen, device=dev), 0)
+    m = (torch.rand((k,), generator=gen, device=dev) < 0.5).float()
+    tau = torch.randint(0, 5, (k,), generator=gen, device=dev).float()
+    s = (1.0 + tau) ** -0.5
+    got = fk.fedavg_agg_stale(us[0], w, m, s)
+    want = fk.fedavg_agg_stale_plain(us[0], w, m, s)
+    ones = fk.fedavg_agg_stale(us[0], w, m, torch.ones_like(s))
+    masked = fk.fedavg_agg_masked(us[0], w, m)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    # Same limit as its siblings: K-term f32 sums in another order.
+    if not err <= STALE_TOL:
+        raise AssertionError(f"fedavg_agg_stale K={k} P={p}: err {err}")
+    if not torch.equal(ones, masked):
+        raise AssertionError("fedavg_agg_stale with all-ones s is not "
+                             "bitwise fedavg_agg_masked")
+    it = iter(range(10 ** 9))
+    ms = time_ms(lambda: fk.fedavg_agg_stale(us[next(it) % n], w, m, s),
+                 200)
+    plain_ms = time_ms(
+        lambda: fk.fedavg_agg_stale_plain(us[next(it) % n], w, m, s), 200)
+    library_ms = time_ms(lambda: (w * m * s) @ us[next(it) % n], 200)
+    b_ms, b_by = bound(k * p * 4 + k * 12 + p * 4, 2 * k * p)
+    print(f"[kernel] fedavg_agg_stale K={k} P={p}: max_abs_err={err:.3g} "
+          f"(limit {STALE_TOL:g}) all-ones s bitwise fedavg_agg_masked: "
+          f"yes ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms((w*m*s)@u)="
+          f"{library_ms:.5f} bound_ms={b_ms:.5f} ({b_by})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
+
+
 def _counters():
     from repro_torch.kernels import (compress, diversity, fedavg_agg,
                                      stream_update, sub2_pgd)
@@ -348,7 +405,8 @@ def _counters():
             "sub2_pgd": sub2_pgd.sub2_pgd,
             "stream_update": stream_update.stream_update,
             "compress_update": compress.compress_update,
-            "fedavg_agg_masked": fedavg_agg.fedavg_agg_masked}
+            "fedavg_agg_masked": fedavg_agg.fedavg_agg_masked,
+            "fedavg_agg_stale": fedavg_agg.fedavg_agg_stale}
 
 
 def reset_counts():
@@ -375,9 +433,13 @@ def full_width_world(torch, dev):
     return data, net, wcfg
 
 
-def path_config(path: int, codec: str = "quant") -> tuple[dict, dict]:
-    """(FLConfig subsystem fields, SchedulerConfig extras) of a path."""
-    from repro_torch.core import compression, faults, streaming
+def path_config(path: int, codec: str = "quant", horizon: float = 0.0,
+                cap: int = PATH4_CAP, events: int = ASYNC["num_events"]
+                ) -> tuple[dict, dict]:
+    """(FLConfig subsystem fields, SchedulerConfig extras) of a path.
+    ``horizon``, ``cap`` and ``events`` shape path 4."""
+    from repro_torch.core import compression, events as ev, faults, \
+        streaming
     if path == 1:
         return {}, {}
     fl = dict(stream=streaming.StreamConfig(process="poisson"),
@@ -385,12 +447,19 @@ def path_config(path: int, codec: str = "quant") -> tuple[dict, dict]:
     if path == 3:
         fl["compression"] = compression.CompressionConfig(codec=codec,
                                                           bit_width=8)
+    if path == 4:
+        fl.update(events=ev.EventConfig(**dict(ASYNC, tick_horizon=horizon,
+                                               num_events=events)),
+                  dispatch_cap=cap, carry_dtype="bfloat16")
+    if path == 5:
+        fl["events"] = ev.EventConfig()
     return fl, dict(PATH2_SCHED)
 
 
-def slice_configs(*, rounds, iterations_max, sub2, path=1, codec="quant"):
+def slice_configs(*, rounds, iterations_max, sub2, path=1, codec="quant",
+                  **path_kw):
     from repro_torch.core import federated, scheduler
-    fl, sched = path_config(path, codec)
+    fl, sched = path_config(path, codec, **path_kw)
     scfg = scheduler.SchedulerConfig(method="das", n_min=1,
                                      iterations_max=iterations_max,
                                      allocator="fused_pgd", sub2=sub2,
@@ -402,21 +471,36 @@ def slice_configs(*, rounds, iterations_max, sub2, path=1, codec="quant"):
 
 
 def run_slice(torch, data, net, wcfg, *, rounds, iterations_max, sub2,
-              device, draws=None, kind="cnn", path=1, codec="quant"):
-    from repro_torch.core import federated
+              device, draws=None, kind="cnn", path=1, codec="quant",
+              **path_kw):
+    """One run of a path through the user's entry point: ``(params,
+    records)``, and the server buffer's log after them for path 4
+    (``events.run_events``)."""
+    from repro_torch.core import events, federated
     from repro_torch.models import paper_nets
     spec = paper_nets.PaperNetSpec(kind=kind)
     model = paper_nets.init(spec, torch.Generator().manual_seed(SEED + 3))
     scfg, fcfg = slice_configs(rounds=rounds, iterations_max=iterations_max,
-                               sub2=sub2, path=path, codec=codec)
-    return federated.run_federated(model=model, data=data, net=net,
-                                   wcfg=wcfg, scfg=scfg, fcfg=fcfg,
-                                   seed=SEED + 4, draws=draws, device=device)
+                               sub2=sub2, path=path, codec=codec, **path_kw)
+    entry = events.run_events if path == 4 else federated.run_federated
+    return entry(model=model, data=data, net=net, wcfg=wcfg, scfg=scfg,
+                 fcfg=fcfg, seed=SEED + 4, draws=draws, device=device)
 
 
-def report_syncs(torch, data, net, wcfg, dev, path: int) -> None:
-    """Count the host syncs of one full-width round (set-up included) by
-    source line, with PyTorch's CUDA sync debug mode."""
+def das_sync_line() -> str:
+    """The DAS convergence test's source line (``bool(changed)``), where
+    the round's one host sync per outer iteration happens."""
+    path = os.path.join(ROOT, "src", "repro_torch", "core", "scheduler.py")
+    with open(path) as f:
+        for n, line in enumerate(f, 1):
+            if "if not bool(changed):" in line:
+                return f"{os.path.relpath(path, ROOT)}:{n}"
+    raise AssertionError("the DAS convergence test is gone")
+
+
+def count_syncs(torch, data, net, wcfg, dev, path: int, **kw):
+    """The host syncs of one full-width run (set-up included) by source
+    line, with PyTorch's CUDA sync debug mode -> (counter, records)."""
     import collections
     import warnings
     from repro_torch.core import bandwidth
@@ -424,37 +508,61 @@ def report_syncs(torch, data, net, wcfg, dev, path: int) -> None:
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            _, recs = run_slice(torch, data, net, wcfg, rounds=1,
-                                iterations_max=6,
-                                sub2=bandwidth.Sub2Params(), device=dev,
-                                path=path)
+            out = run_slice(torch, data, net, wcfg, iterations_max=6,
+                            sub2=bandwidth.Sub2Params(), device=dev,
+                            path=path, **kw)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     where = collections.Counter(
         f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
         if "synchroniz" in str(w.message))
-    print(f"[syncs] path {path}, one round ({recs[0].iterations} DAS "
+    return where, out[1]
+
+
+def report_syncs(torch, data, net, wcfg, dev, path: int, **path_kw):
+    """Print one round's host syncs by source line.  For path 4 the
+    count of 1 event and of 3 events: every sync the extra events add
+    must be a DAS convergence test."""
+    kw = dict(path_kw, events=1) if path == 4 else {}
+    where, recs = count_syncs(torch, data, net, wcfg, dev, path, rounds=1,
+                              **kw)
+    what = "one event" if path == 4 else "one round"
+    print(f"[syncs] path {path}, {what} ({recs[0].iterations} DAS "
           f"iterations): {sum(where.values())} host syncs: "
           f"{', '.join(f'{k} x{n}' for k, n in where.most_common())}",
           flush=True)
+    if path != 4:
+        return
+    more, recs3 = count_syncs(torch, data, net, wcfg, dev, path, rounds=1,
+                              **dict(path_kw, events=3))
+    added = more - where
+    das = das_sync_line()
+    extra_iters = sum(r.iterations for r in recs3) - recs[0].iterations
+    print(f"[syncs] path 4, 3 events: {sum(more.values())} host syncs; "
+          f"the 2 more events add {dict(added)} ({extra_iters} more DAS "
+          f"iterations)", flush=True)
+    if set(added) - {das}:
+        raise AssertionError(f"the event loop adds host syncs: {added}")
 
 
 def expected_counts(path: int, rounds: int, das_iters: int) -> dict:
     """The launches of a path's run, by kernel.  Path 1 computes the
     label statistics once (diversity) and aggregates with fedavg_agg;
-    paths 2 and 3 refresh them every round (stream_update, no diversity
-    launch); path 2 aggregates the uploads that landed
+    paths 2-5 refresh them every round or event (stream_update, no
+    diversity launch); path 2 aggregates the uploads that landed
     (fedavg_agg_masked); path 3 compresses every round (compress_update)
     and averages the decoded values with a plain product, as the
-    reference does.  sub2_pgd runs once per DAS outer iteration."""
+    reference does; the event paths 4 and 5 compute the buffer's flush
+    every event (fedavg_agg_stale).  sub2_pgd runs once per DAS outer
+    iteration."""
     want = dict.fromkeys(_counters(), 0)
     want["sub2_pgd"] = das_iters
     if path == 1:
         want.update(diversity=1, fedavg_agg=rounds)
-    else:
-        want["stream_update"] = rounds
-        want["fedavg_agg_masked" if path == 2 else "compress_update"] = \
-            rounds
+        return want
+    want["stream_update"] = rounds
+    want[{2: "fedavg_agg_masked", 3: "compress_update", 4: "fedavg_agg_stale",
+          5: "fedavg_agg_stale"}[path]] = rounds
     return want
 
 
@@ -467,25 +575,61 @@ def check_records(torch, recs, params, k: int) -> None:
               and r.selected.shape == (k,))
         if not ok:
             raise AssertionError(f"bad round record {r}")
+    check_params(torch, params)
+
+
+def check_params(torch, params) -> None:
     for name, t in params.items():
         if not bool(torch.all(torch.isfinite(t))):
             raise AssertionError(f"non-finite parameter {name}")
 
 
-def phase_path(torch, dev, data, net, wcfg, path: int) -> dict:
+def check_events(torch, recs, log, params, k: int, horizon: float,
+                 cap: int) -> None:
+    """An event run's records: evaluated every event, at most ``cap``
+    devices dispatched, ticks of ``horizon`` seconds, a buffer log of
+    one entry per event."""
+    for r in recs:
+        ok = (0.0 <= r.accuracy <= 1.0 and 0 <= r.n_selected <= cap
+              and 0 <= r.n_success <= r.n_selected
+              and r.round_time == float(torch.tensor(horizon))
+              and math.isfinite(r.energy_total) and r.energy_total >= 0.0
+              and r.selected.shape == (k,))
+        if not ok:
+            raise AssertionError(f"bad event record {r}")
+    if not (len(log.flushed) == len(recs)
+            and log.version[-1] == sum(log.flushed)):
+        raise AssertionError(f"bad buffer log {log}")
+    check_params(torch, params)
+
+
+def print_events(recs, log, label: str) -> None:
+    for r, fl, fill, tau in zip(recs, log.flushed, log.buffer_fill,
+                                log.tau_mean):
+        print(f"[{label}] event {r.round}: sel={r.n_selected:3d} "
+              f"dropped={r.n_dropped:3d} landed={r.n_success:3d} "
+              f"flushed={'yes' if fl else 'no '} fill={fill:3d} "
+              f"mean_tau={tau:.3f} acc={r.accuracy:.4f} "
+              f"E={r.energy_total:.4f}J das_iters={r.iterations}",
+              flush=True)
+
+
+def phase_path(torch, dev, data, net, wcfg, path: int, **path_kw):
     """One path at full width: its run with the launch counts checked,
-    the same run again warm, its host syncs; path 3 adds a topk round."""
+    the same run again warm, its host syncs; path 3 adds a topk round.
+    Returns ``(launch counts, records)``."""
     from repro_torch.core import bandwidth
-    rounds = 3
+    rounds = ASYNC["num_events"] if path == 4 else 3
     kw = dict(rounds=rounds, iterations_max=6, sub2=bandwidth.Sub2Params(),
-              device=dev, path=path)
+              device=dev, path=path, **path_kw)
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params, recs = run_slice(torch, data, net, wcfg, **kw)
+    out = run_slice(torch, data, net, wcfg, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    params, recs = out[:2]
     # The same rounds again, warm: the first run of the process pays its
     # one-time set-up (CUDA context, cuDNN/cuBLAS initialisation and
     # algorithm choice, lazy kernel loading).
@@ -494,42 +638,129 @@ def phase_path(torch, dev, data, net, wcfg, path: int) -> dict:
     run_slice(torch, data, net, wcfg, **kw)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
-    report_syncs(torch, data, net, wcfg, dev, path)
-    for r in recs:
-        print(f"[path {path}] round {r.round}: acc={r.accuracy:.4f} "
-              f"sel={r.n_selected:3d} ok={r.n_success:3d} "
-              f"T={r.round_time:.4f}s E={r.energy_total:.4f}J "
-              f"E/dev={r.energy_per_device:.4f}J das_iters={r.iterations}",
-              flush=True)
+    report_syncs(torch, data, net, wcfg, dev, path, **path_kw)
+    unit = "round"
+    if path == 4:
+        unit = "event"
+        log = out[2]
+        print_events(recs, log, "path 4")
+    else:
+        for r in recs:
+            print(f"[path {path}] round {r.round}: acc={r.accuracy:.4f} "
+                  f"sel={r.n_selected:3d} ok={r.n_success:3d} "
+                  f"T={r.round_time:.4f}s E={r.energy_total:.4f}J "
+                  f"E/dev={r.energy_per_device:.4f}J "
+                  f"das_iters={r.iterations}", flush=True)
     print(f"[path {path}] K={data.num_devices} cap={data.capacity} CNN, "
-          f"{rounds} rounds: first run {wall:.3f}s, warm run {warm:.3f}s "
-          f"= {warm / rounds:.3f}s per round; launches {counts}",
+          f"{rounds} {unit}s: first run {wall:.3f}s, warm run {warm:.3f}s "
+          f"= {warm / rounds:.3f}s per {unit}; launches {counts}",
           flush=True)
     want = expected_counts(path, rounds, sum(r.iterations for r in recs))
     if counts != want:
         raise AssertionError(f"path {path} launch counts {counts}, "
                              f"expected {want}")
+    if path == 4:
+        check_events(torch, recs, log, params, data.num_devices,
+                     path_kw["horizon"], PATH4_CAP)
+        stale = [tau for fl, tau in zip(log.flushed, log.tau_mean)
+                 if fl and tau > 0.0]
+        dropped = sum(r.n_dropped for r in recs)
+        print(f"[path 4] flushes {sum(log.flushed)}, of them with stale "
+              f"updates (mean tau > 0) {len(stale)}; devices dropped by "
+              f"the cap {dropped}; fedavg_agg_stale launches "
+              f"{counts['fedavg_agg_stale']} for {rounds} events",
+              flush=True)
+        if not stale:
+            raise AssertionError("path 4: no flush applied a stale update")
+        if not dropped:
+            raise AssertionError("path 4: the dispatch cap never bound")
+        return counts, recs
     check_records(torch, recs, params, data.num_devices)
     if path == 3:
         reset_counts()
-        params, recs = run_slice(torch, data, net, wcfg, **dict(
+        params, recs3 = run_slice(torch, data, net, wcfg, **dict(
             kw, rounds=1), codec="topk")
         got = read_counts()
-        want = expected_counts(3, 1, recs[0].iterations)
-        print(f"[path 3] one topk round: acc={recs[0].accuracy:.4f} "
-              f"sel={recs[0].n_selected} ok={recs[0].n_success} "
+        want = expected_counts(3, 1, recs3[0].iterations)
+        print(f"[path 3] one topk round: acc={recs3[0].accuracy:.4f} "
+              f"sel={recs3[0].n_selected} ok={recs3[0].n_success} "
               f"launches {got}", flush=True)
         if got != want:
             raise AssertionError(f"topk launch counts {got}, expected "
                                  f"{want}")
-        check_records(torch, recs, params, data.num_devices)
+        check_records(torch, recs3, params, data.num_devices)
+    return counts, recs
+
+
+def phase_sync_limit(torch, dev, data, net, wcfg) -> dict:
+    """Path 5: path 2 with ``EventConfig()`` against path 2 on the card,
+    3 rounds each, with deterministic algorithms switched on for this
+    phase only (cuDNN's deterministic convolutions; ``warn_only`` so an
+    operation without a deterministic version warns instead of raising,
+    and the warnings are printed).  Selections, delivered counts, round
+    times, energies and DAS iterations must be equal and the parameters
+    bit for bit, else the largest difference is printed and the phase
+    fails above 1e-6."""
+    import warnings
+    from repro_torch.core import bandwidth
+    kw = dict(rounds=3, iterations_max=6, sub2=bandwidth.Sub2Params(),
+              device=dev)
+    cudnn = torch.backends.cudnn
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             cudnn.deterministic, cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            p2, r2 = run_slice(torch, data, net, wcfg, path=2, **kw)
+            reset_counts()
+            p5, r5 = run_slice(torch, data, net, wcfg, path=5, **kw)
+            torch.cuda.synchronize()
+            counts = read_counts()
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        cudnn.deterministic, cudnn.benchmark = saved[2], saved[3]
+    nondet = sorted({str(w.message).split(".")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    print(f"[path 5] deterministic algorithms on; operations without a "
+          f"deterministic version: {nondet or 'none'}", flush=True)
+    for a, b in zip(r2, r5):
+        same = ((a.selected == b.selected).all()
+                and (a.n_success, a.round_time, a.energy_total,
+                     a.iterations, a.n_selected)
+                == (b.n_success, b.round_time, b.energy_total,
+                    b.iterations, b.n_selected))
+        print(f"[path 5] round {a.round}: sync sel={a.n_selected} "
+              f"ok={a.n_success} T={a.round_time!r} E={a.energy_total!r} "
+              f"iters={a.iterations} | events sel={b.n_selected} "
+              f"ok={b.n_success} T={b.round_time!r} E={b.energy_total!r} "
+              f"iters={b.iterations}: {'equal' if same else 'DIFFER'}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"path 5 round {a.round} differs from "
+                                 f"path 2")
+    bitwise = all(torch.equal(p2[n], p5[n]) for n in p2)
+    err = max(float((p2[n] - p5[n]).abs().max()) for n in p2)
+    print(f"[path 5] parameters {'bit for bit equal' if bitwise else 'differ'}"
+          f" to path 2's (max abs diff {err:.3g}); launches {counts}",
+          flush=True)
+    if not bitwise and not err <= 1e-6:
+        raise AssertionError(f"path 5 params differ from path 2's by {err}")
+    want = expected_counts(5, 3, sum(r.iterations for r in r5))
+    if counts != want:
+        raise AssertionError(f"path 5 launch counts {counts}, expected "
+                             f"{want}")
     return counts
 
 
-def phase_profile(torch, dev, data, net, wcfg, path: int) -> None:
-    """One more full-width round under torch.profiler: per phase scope
-    the host time and the device time of its kernels; the top kernels;
-    the device's busy and idle share of the round."""
+def phase_profile(torch, dev, data, net, wcfg, path: int,
+                  **path_kw) -> None:
+    """One more full-width round (path 4: its events) under
+    torch.profiler: per phase scope the host time and the device time of
+    its kernels; the top kernels; the device's busy and idle share of
+    the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import bandwidth
@@ -541,7 +772,8 @@ def phase_profile(torch, dev, data, net, wcfg, path: int) -> None:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_slice(torch, data, net, wcfg, rounds=1, iterations_max=6,
-                  sub2=bandwidth.Sub2Params(), device=dev, path=path)
+                  sub2=bandwidth.Sub2Params(), device=dev, path=path,
+                  **path_kw)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
@@ -580,14 +812,17 @@ def phase_profile(torch, dev, data, net, wcfg, path: int) -> None:
     # tiny kernel measures the host's launch rate instead).
     for kname in ("diversity_kernel", "sub2_pgd_kernel",
                   "fedavg_agg_kernel", "stream_update_kernel",
-                  "compress_update_kernel", "fedavg_agg_masked_kernel"):
+                  "compress_update_kernel", "fedavg_agg_masked_kernel",
+                  "fedavg_agg_stale_kernel"):
         hits = [(tot, n) for name, (tot, n) in by_name.items()
                 if f"::{kname}(" in name]
         if hits:
             tot, n = map(sum, zip(*hits))
             print(f"[profile] path {path} {kname}: {n} launches, device "
                   f"{tot / n / 1e3:.5f} ms per launch", flush=True)
-    print(f"[profile] path {path} 1-round run_federated at full width "
+    what = f"{ASYNC['num_events']}-event run_events" if path == 4 \
+        else "1-round run_federated"
+    print(f"[profile] path {path} {what} at full width "
           f"(set-up included): wall {wall_us / 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.1f} ms in {len(kernels)} kernels and copies, "
           f"idle share {1.0 - busy_us / wall_us:.3f}", flush=True)
@@ -597,12 +832,18 @@ def phase_profile(torch, dev, data, net, wcfg, path: int) -> None:
 # another order (cuDNN vs CPU) over a few SGD steps at lr 0.05; path 3's
 # topk keeps a coordinate whose magnitude sits at the threshold on one
 # side and not the other when the two updates differ in the last bits,
-# which moves that coordinate by its whole value.
-CARD_CPU_PARAM_TOL = {1: 1e-4, 2: 1e-4, 3: 1e-3}
+# which moves that coordinate by its whole value; path 4 stores the
+# pending updates in bf16 between events, so a value whose card and CPU
+# results straddle a bf16 rounding boundary lands one bf16 ulp (2^-8
+# relative) apart when its stale update is flushed.
+CARD_CPU_PARAM_TOL = {1: 1e-4, 2: 1e-4, 3: 1e-3, 4: 1e-3}
+# Path 4 at K = 16: a cap that binds there.
+CARD_CPU_CAP = 4
 
 
-def phase_card_vs_cpu(torch, dev, path: int) -> None:
-    """K = 16, 2 rounds, one tape, TF32 off: card and CPU must agree."""
+def phase_card_vs_cpu(torch, dev, path: int, horizon: float = 0.0):
+    """K = 16, 2 rounds (path 4: its 6 events at ``horizon``), one tape,
+    TF32 off: card and CPU must agree.  Returns the card's records."""
     from repro_torch.core import bandwidth, federated, wireless
     from repro_torch.data import partition, synthetic
     torch.backends.cudnn.allow_tf32 = False
@@ -617,10 +858,11 @@ def phase_card_vs_cpu(torch, dev, path: int) -> None:
     gen = torch.Generator().manual_seed(SEED + 2)
     net = wireless.sample_network(gen, k, wcfg)
     sub2 = bandwidth.Sub2Params.fast()
+    path_kw = dict(horizon=horizon, cap=CARD_CPU_CAP) if path == 4 else {}
     _, fcfg = slice_configs(rounds=rounds, iterations_max=4, sub2=sub2,
-                            path=path, codec=codec)
+                            path=path, codec=codec, **path_kw)
     draws = federated.draw_tape(
-        gen, net, rounds, data.capacity,
+        gen, net, federated.sim_length(fcfg), data.capacity,
         federated._max_local_steps(fcfg, data.capacity), 50, fcfg,
         federated.client_histograms(data, fcfg.num_classes))
     out = {}
@@ -628,8 +870,16 @@ def phase_card_vs_cpu(torch, dev, path: int) -> None:
         out[str(device)] = run_slice(torch, data, net, wcfg, rounds=rounds,
                                      iterations_max=4, sub2=sub2,
                                      device=device, draws=draws, path=path,
-                                     codec=codec)
-    (p_gpu, r_gpu), (p_cpu, r_cpu) = out[str(dev)], out["cpu"]
+                                     codec=codec, **path_kw)
+    (p_gpu, r_gpu), (p_cpu, r_cpu) = out[str(dev)][:2], out["cpu"][:2]
+    if path == 4:
+        log_gpu, log_cpu = out[str(dev)][2], out["cpu"][2]
+        print(f"[card-vs-cpu] path 4 flushes card {log_gpu.flushed} CPU "
+              f"{log_cpu.flushed}; dropped "
+              f"{[r.n_dropped for r in r_gpu]}", flush=True)
+        if log_gpu.flushed != log_cpu.flushed:
+            raise AssertionError("path 4: card and CPU flush on other "
+                                 "events")
     for a, b in zip(r_gpu, r_cpu):
         if not (a.selected == b.selected).all() or \
                 a.iterations != b.iterations or a.n_success != b.n_success:
@@ -637,6 +887,12 @@ def phase_card_vs_cpu(torch, dev, path: int) -> None:
                 f"path {path} round {a.round}: card selects {a.selected} "
                 f"in {a.iterations} iters ({a.n_success} delivered), CPU "
                 f"{b.selected} in {b.iterations} ({b.n_success})")
+        if path == 4:
+            print(f"[card-vs-cpu] path 4 event {a.round}: sel equal "
+                  f"({a.n_selected}), iters {a.iterations}, landed "
+                  f"{a.n_success}, E {a.energy_total:.6f}/"
+                  f"{b.energy_total:.6f}", flush=True)
+            continue
         j_a = 0.5 * a.energy_total + 0.5 * a.round_time
         j_b = 0.5 * b.energy_total + 0.5 * b.round_time
         print(f"[card-vs-cpu] path {path} round {a.round}: sel equal, "
@@ -657,6 +913,15 @@ def phase_card_vs_cpu(torch, dev, path: int) -> None:
     if not err <= tol:
         raise AssertionError(f"path {path}: card and CPU params differ by "
                              f"{err}")
+    return r_gpu
+
+
+def half_median_round_time(recs) -> float:
+    times = sorted(r.round_time for r in recs)
+    mid = len(times) // 2
+    median = times[mid] if len(times) % 2 else 0.5 * (times[mid - 1]
+                                                      + times[mid])
+    return 0.5 * median
 
 
 KERNELS = {
@@ -672,6 +937,8 @@ KERNELS = {
                         "src/repro/kernels/compress.py:86"),
     "fedavg_agg_masked": ("src/repro_torch/csrc/fedavg_agg.cu",
                           "src/repro/kernels/fedavg_agg.py:100"),
+    "fedavg_agg_stale": ("src/repro_torch/csrc/fedavg_agg.cu",
+                         "src/repro/kernels/fedavg_agg.py:58"),
 }
 
 
@@ -703,6 +970,7 @@ def main() -> int:
         "stream_update": phase_stream(torch, dev, 1, 100, 10),
         "compress_update": phase_compress(torch, dev, "quant", 100, P_CNN),
         "fedavg_agg_masked": phase_masked(torch, dev, 100, P_CNN),
+        "fedavg_agg_stale": phase_stale(torch, dev, 100, P_CNN),
     }
     phase_fedavg(torch, dev, 100, P_MLP)
     phase_sub2(torch, dev, 16, 100)
@@ -711,19 +979,31 @@ def main() -> int:
     phase_compress(torch, dev, "topk", 100, P_CNN)
     phase_compress(torch, dev, "topk", 100, P_MLP)
     phase_masked(torch, dev, 100, P_MLP)
+    phase_stale(torch, dev, 100, P_MLP)
     del data_dev
 
     # Each kernel's launches come from the path that runs it, counted
     # from zero just before that path's run.
     owner = {"diversity": 1, "fedavg_agg": 1, "sub2_pgd": 1,
              "stream_update": 2, "fedavg_agg_masked": 2,
-             "compress_update": 3}
-    by_path = {path: phase_path(torch, dev, data, net, wcfg, path)
-               for path in (1, 2, 3)}
+             "compress_update": 3, "fedavg_agg_stale": 4}
+    by_path, recs = {}, {}
+    for path in (1, 2, 3):
+        by_path[path], recs[path] = phase_path(torch, dev, data, net, wcfg,
+                                               path)
+    # Path 4's ticks last half of path 1's median simulated round, so
+    # slow uploads straddle ticks and arrive stale.
+    horizon = half_median_round_time(recs[1])
+    print(f"[path 4] tick_horizon = half the median of path 1's round "
+          f"times = {horizon:.6f} s", flush=True)
+    by_path[4], _ = phase_path(torch, dev, data, net, wcfg, 4,
+                               horizon=horizon)
+    phase_sync_limit(torch, dev, data, net, wcfg)
     for path in (1, 2, 3):
         phase_profile(torch, dev, data, net, wcfg, path)
-    for path in (1, 2, 3):
-        phase_card_vs_cpu(torch, dev, path)
+    phase_profile(torch, dev, data, net, wcfg, 4, horizon=horizon)
+    r16 = {path: phase_card_vs_cpu(torch, dev, path) for path in (1, 2, 3)}
+    phase_card_vs_cpu(torch, dev, 4, horizon=half_median_round_time(r16[1]))
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=by_path[owner[name]][name], **results[name])

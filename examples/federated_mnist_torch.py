@@ -7,7 +7,8 @@
         [--kernel-agg | --no-kernel-agg] [--device cuda|cpu]
         [--stream poisson|drift|shift|evict|static] [--stream-rate 25]
         [--staleness-weight 0.25] [--codec none|quant|topk|adaptive]
-        [--bit-width 8]
+        [--bit-width 8] [--dispatch-cap 16]
+        [--carry-dtype float32|bfloat16|float16]
 
 The port's counterpart of ``examples/federated_mnist.py``: K devices with
 shard-partitioned synthetic MNIST-like data, DAS/ABS/random/full
@@ -18,8 +19,11 @@ line.  It runs on the CUDA card by default (the ``diversity``,
 kernel-FedAvg path); ``--device cpu`` runs the plain PyTorch versions.
 ``--stream`` turns on streaming data (the ``stream_update`` kernel
 refreshes the per-device statistics every round) and ``--codec``
-compressed uplinks (the ``compress_update`` kernel), with the JAX
-example's flags and defaults.
+compressed uplinks (the ``compress_update`` kernel); ``--dispatch-cap``
+trains only a dense block of that many admitted devices (the per-round
+line gains a ``drop=`` column) and ``--carry-dtype`` stores the carried
+streaming stats and error-feedback residual at reduced precision, with
+the JAX example's flags and defaults.
 """
 
 import argparse
@@ -67,6 +71,13 @@ def main() -> None:
                     help="mean arrivals per device per round")
     ap.add_argument("--staleness-weight", type=float, default=0.25,
                     help="gamma_s staleness boost for streaming runs")
+    ap.add_argument("--dispatch-cap", type=int, default=0,
+                    help="dense-block training lanes (0: masked all-K "
+                         "path)")
+    ap.add_argument("--carry-dtype", default="",
+                    choices=["", "float32", "bfloat16", "float16"],
+                    help="storage dtype of the carried streaming stats "
+                         "and error-feedback residual")
     args = ap.parse_args()
     dev = resolve_device(args.device)
 
@@ -104,7 +115,8 @@ def main() -> None:
         num_rounds=args.rounds, local_epochs=args.epochs, batch_size=50,
         learning_rate=0.1 if args.model == "mlp" else 0.05,
         use_kernel_agg=args.kernel_agg, stream=stream_cfg,
-        compression=comp_cfg)
+        compression=comp_cfg, dispatch_cap=args.dispatch_cap or None,
+        carry_dtype=args.carry_dtype or None)
     _, hist = federated.run_federated(
         model=model, data=data, net=net, wcfg=wcfg, scfg=scfg, fcfg=fcfg,
         seed=args.seed + 4, device=dev)
@@ -113,9 +125,10 @@ def main() -> None:
     for r in hist:
         e_tot += r.energy_total
         t_tot += r.round_time
+        drop = f" drop={r.n_dropped:2d}" if args.dispatch_cap else ""
         print(f"round {r.round:3d}: acc={r.accuracy:.4f} "
               f"sel={r.n_selected:3d} T={r.round_time:7.3f}s "
-              f"E/dev={r.energy_per_device:7.3f}J")
+              f"E/dev={r.energy_per_device:7.3f}J{drop}")
     print(f"[feel-torch] total: time={t_tot:.1f}s energy={e_tot:.1f}J "
           f"final acc={hist[-1].accuracy:.4f}")
 

@@ -1,9 +1,12 @@
 """FEEL orchestration — the paper's Algorithm 1 (FedAvg + scheduling).
 
-Port of the synchronous single-scenario driver of
-``repro.core.federated``, with the streaming-data, compressed-uplink and
-unreliable-uplink subsystems (``FLConfig.stream`` / ``compression`` /
-``faults``), alone or together.  Each round:
+Port of the single-scenario driver of ``repro.core.federated``, with the
+streaming-data, compressed-uplink and unreliable-uplink subsystems
+(``FLConfig.stream`` / ``compression`` / ``faults``), dense-block
+dispatch (``dispatch_cap``) and the reduced-precision carry
+(``carry_dtype``), alone or together.  With ``FLConfig.events`` the run
+is the event-driven asynchronous driver of :mod:`repro_torch.core.events`
+instead, built from the same round helpers.  Each synchronous round:
 
 1. the diversity index (Eq. 4).  With static data the ``diversity``
    kernel computes the per-device label statistics once per run and
@@ -16,18 +19,26 @@ unreliable-uplink subsystems (``FLConfig.stream`` / ``compression`` /
 3. scheduling (``core.scheduler``: DAS with the ``fused_pgd`` allocator
    runs the ``sub2_pgd`` kernel once per outer iteration), re-ranked by
    staleness and reliability;
-4. with ``faults``, the round's outages, retries, stragglers and
+4. with ``dispatch_cap``, the dense-block plan (:func:`dispatch_plan`):
+   the admitted devices beyond the cap are dropped by schedule rank;
+5. with ``faults``, the round's outages, retries, stragglers and
    dropouts, which decide which uploads land and the realized energy and
    round time;
-5. masked local SGD of all K clients at once (``torch.func.vmap`` of
-   ``grad``), unselected clients frozen;
-6. aggregation: FedAvg over the selected set (the ``fedavg_agg`` kernel
+6. masked local SGD of all K clients at once (``torch.func.vmap`` of
+   ``grad``), unselected clients frozen; with ``dispatch_cap`` only the
+   block's lanes train and scatter back to device order;
+7. aggregation: FedAvg over the selected set (the ``fedavg_agg`` kernel
    with ``use_kernel_agg``); with ``faults``, over the uploads that
    landed (``fedavg_agg_masked``); with ``compression``, the updates go
    through the codec's lossy round trip with error feedback (the
    ``compress_update`` kernel) and are averaged by a plain product;
-7. ages (reset by a delivered upload), reliability, streaming state,
+8. ages (reset by a delivered upload), reliability, streaming state,
    evaluation and per-round metrics.
+
+With ``carry_dtype`` the state carried between rounds — the streaming
+``hists``/``staleness`` and the ``(K, P)`` error-feedback residual — is
+stored at reduced precision and upcast to f32 before any arithmetic, at
+the reference's cast points.
 
 Each phase runs under a ``torch.profiler.record_function`` scope
 (``stream_refresh``, ``schedule``, ``local_train``, ``aggregate``,
@@ -35,8 +46,9 @@ Each phase runs under a ``torch.profiler.record_function`` scope
 
 Randomness is an input: :class:`Draws` holds the fading gains, the
 minibatch indices, the uniform draw abs/random rank on and the
-subsystems' draws.  Without a tape they come from a ``torch.Generator``
-seeded from ``seed``, on the run's device.
+subsystems' draws, one row per round (or event, :func:`sim_length`).
+Without a tape they come from a ``torch.Generator`` seeded from
+``seed``, on the run's device.
 """
 
 from __future__ import annotations
@@ -54,6 +66,7 @@ from torch.profiler import record_function
 
 from repro_torch.core import bandwidth, compression, diversity, faults, \
     scheduler, streaming, wireless
+from repro_torch.core import events as events_lib
 from repro_torch.data import partition as partition_lib
 from repro_torch.data import synthetic
 from repro_torch.device import DeviceLike, resolve_device
@@ -67,11 +80,11 @@ Params = Dict[str, Tensor]
 # FLConfig fields whose subsystems are not ported yet, with the
 # ROADMAP.md queue-1 item that ports each.
 _NOT_PORTED = {
-    "dispatch_cap": 9,
-    "carry_dtype": 9,
-    "events": 13,
     "telemetry": 14,
 }
+
+# Storage dtypes of the reduced-precision carry (``FLConfig.carry_dtype``).
+_CARRY_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,11 +107,19 @@ class FLConfig:
     # Unreliable uplinks: outages, retries, stragglers, dropouts; FedAvg
     # keeps the uploads that landed.  An inert config equals None.
     faults: Optional[faults.FaultConfig] = None
-    # Optional subsystems of the reference not ported yet; each must
-    # stay None here.
+    # Dense-block dispatch: train only an (n_cap, ...) block of the
+    # admitted devices (stable rank order); the rest are dropped and
+    # counted in ``n_dropped``.  None = the masked all-K path.
     dispatch_cap: Optional[int] = None
+    # Storage dtype of the carried streaming stats and EF residual
+    # ("bfloat16"/"float16"); arithmetic stays f32.  None or "float32" =
+    # full precision.
     carry_dtype: Optional[str] = None
-    events: Optional[object] = None
+    # Event-driven asynchronous FEEL (core.events): availability-gated
+    # dispatch, uploads landing after their compute + channel time, and
+    # staleness-weighted buffered FedAvg.  None = synchronous rounds.
+    events: Optional[events_lib.EventConfig] = None
+    # Not ported yet (ROADMAP.md queue 1, item 14); must stay None.
     telemetry: Optional[object] = None
 
     def __post_init__(self):
@@ -107,6 +128,35 @@ class FLConfig:
                 raise NotImplementedError(
                     f"FLConfig.{name} is not ported yet (ROADMAP.md "
                     f"queue 1, item {item})")
+        if self.dispatch_cap is not None and self.dispatch_cap < 1:
+            raise ValueError(f"dispatch_cap must be >= 1, got "
+                             f"{self.dispatch_cap}")
+        _carry_dtype(self)
+        if self.events is not None and \
+                not isinstance(self.events, events_lib.EventConfig):
+            raise TypeError(f"FLConfig.events must be an "
+                            f"events.EventConfig, got "
+                            f"{type(self.events).__name__}")
+
+
+def sim_length(fcfg: FLConfig) -> int:
+    """Rows of a run's metrics and tape: ``num_rounds`` for synchronous
+    rounds, ``events.num_events`` (when set) for the event driver."""
+    if fcfg.events is not None and fcfg.events.num_events is not None:
+        return fcfg.events.num_events
+    return fcfg.num_rounds
+
+
+def _carry_dtype(fcfg: FLConfig) -> Optional[torch.dtype]:
+    """Storage dtype of the dieted carry, or None (``"float32"``
+    normalises to None: the state already is f32)."""
+    if fcfg.carry_dtype is None or fcfg.carry_dtype == "float32":
+        return None
+    if fcfg.carry_dtype not in _CARRY_DTYPES:
+        raise ValueError(
+            f"carry_dtype must be one of bfloat16/float16/float32, got "
+            f"{fcfg.carry_dtype!r}")
+    return _CARRY_DTYPES[fcfg.carry_dtype]
 
 
 @dataclasses.dataclass
@@ -119,7 +169,7 @@ class RoundRecord:
     energy_per_device: float
     selected: np.ndarray
     n_success: int = -1        # = n_selected on a reliable edge
-    n_dropped: int = 0         # no dispatch capacity on this path
+    n_dropped: int = 0         # admitted but beyond the dispatch cap
     iterations: int = 0        # DAS outer iterations (0 for other methods)
 
     def __post_init__(self):
@@ -139,7 +189,7 @@ class RoundMetrics:
     selected: Tensor      # (R, K) {0,1}
     iterations: Tensor    # (R,) int32 DAS outer iterations
     n_success: Tensor     # (R,) int32 uploads that landed
-    n_dropped: Tensor     # (R,) int32
+    n_dropped: Tensor     # (R,) int32 dropped by the dispatch cap
 
 
 def _dict_to(d: Optional[Dict[str, Tensor]],
@@ -166,7 +216,13 @@ class Draws:
       ``chronic_z`` — the (K,) normal draw of :func:`faults.chronic_rates`;
     * ``comp_noise`` — (R, K, P) quantization noise, P in the order of
       the model's parameters.  Without it the stochastic codecs draw it
-      one round at a time from the run's generator.
+      one round at a time from the run's generator;
+    * ``avail_init`` — the availability process's ``init_draw`` (diurnal:
+      the shared phase uniform and the (K,) jitter normal); ``avail`` —
+      its per-event ``draw`` (churn, diurnal: a (K,) uniform), stacked on
+      (R,).  Event runs only.
+
+    R is :func:`sim_length`: the rounds, or the events of an event run.
     """
 
     gains: Tensor
@@ -177,6 +233,8 @@ class Draws:
     faults: Optional[Dict[str, Tensor]] = None
     chronic_z: Optional[Tensor] = None
     comp_noise: Optional[Tensor] = None
+    avail_init: Optional[Dict[str, Tensor]] = None
+    avail: Optional[Dict[str, Tensor]] = None
 
     def to(self, dev: torch.device) -> "Draws":
         def move(t):
@@ -184,7 +242,9 @@ class Draws:
         return Draws(move(self.gains), move(self.batch_idx),
                      move(self.sched_u), _dict_to(self.stream_init, dev),
                      _dict_to(self.stream, dev), _dict_to(self.faults, dev),
-                     move(self.chronic_z), move(self.comp_noise))
+                     move(self.chronic_z), move(self.comp_noise),
+                     _dict_to(self.avail_init, dev),
+                     _dict_to(self.avail, dev))
 
 
 # ---------------------------------------------------------------------------
@@ -287,17 +347,70 @@ def fedavg_aggregate_masked(params: Params, client_params: Params,
             _flat_updates(params, client_params), weights.contiguous(),
             mask.contiguous())
         return _apply_flat(params, agg)
-    wm = weights * mask
+    return _masked_update(params, {n: client_params[n] - p[None]
+                                   for n, p in params.items()},
+                          weights * mask)
+
+
+def _masked_update(params: Params, deltas: Params, wm: Tensor) -> Params:
+    """``g + sum_k wm_k delta_k`` leaf by leaf (broadcast-multiply-reduce
+    over the stacked (K, ...) deltas): the plain update-form FedAvg of the
+    fault-aware round and of the event driver's flush."""
     return {n: p + torch.sum(
-        wm.reshape(wm.shape + (1,) * p.dim()) * (client_params[n] - p[None]),
+        wm.reshape(wm.shape + (1,) * p.dim()) * deltas[n],
         dim=0).to(p.dtype) for n, p in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# Dense-block dispatch
+# ---------------------------------------------------------------------------
+
+def dispatch_plan(selected: Tensor, n_cap: int
+                  ) -> tuple[Tensor, Tensor, Tensor]:
+    """Gather plan of the dense training block: ``(idx, sel_eff,
+    n_dropped)``.
+
+    ``idx`` holds the ``min(n_cap, K)`` devices that take the block's
+    lanes, ``sel_eff`` the (K,) selection left after the cap, and
+    ``n_dropped`` (int32) the admitted devices that did not fit.  The
+    rank is a stable sort of ``-selected``: admitted devices first, in
+    device order, as ``jnp.argsort``'s stable sort orders them.  No
+    data-dependent shape, no host sync.
+    """
+    n_lanes = min(int(n_cap), selected.shape[0])
+    idx = torch.argsort(-selected, stable=True)[:n_lanes]
+    sel_eff = torch.zeros_like(selected)
+    sel_eff[idx] = selected[idx]
+    n_dropped = (torch.sum(selected) - torch.sum(sel_eff)).to(torch.int32)
+    return idx, sel_eff, n_dropped
+
+
+def _dispatch_accounting(result: scheduler.ScheduleResult,
+                         sel_eff: Tensor) -> tuple[Tensor, Tensor]:
+    """Re-price a scheduled round on the set left after the cap: dropped
+    devices spend no energy, and the round lasts as long as the slowest
+    device that trains."""
+    energy = result.energy * sel_eff
+    t_up = torch.where(torch.isinf(result.t_up),
+                       torch.zeros_like(result.t_up), result.t_up)
+    return energy, wireless.round_time(sel_eff, result.t_train, t_up)
 
 
 def _masked_local_train(trainer: Callable, max_steps: int, cfg: FLConfig,
                         params: Params, images: Tensor, labels: Tensor,
                         mask: Tensor, sizes: Tensor, selected: Tensor,
-                        batch_idx: Tensor) -> tuple[Params, Tensor]:
-    """Masked local SGD for all K clients -> (stacked params, FedAvg w)."""
+                        batch_idx: Tensor,
+                        dispatch_idx: Optional[Tensor] = None
+                        ) -> tuple[Params, Tensor]:
+    """Masked local SGD for all K clients -> (stacked params, FedAvg w).
+
+    ``dispatch_idx`` (:func:`dispatch_plan`) trains only those lanes:
+    the per-device operands are gathered into the block, and the trained
+    params scatter back to the (K, ...) layout with the global model as
+    filler, before FedAvg.  A device keeps its own minibatches
+    (``batch_idx[idx]``) whatever its lane, so ``n_cap >= K`` gives the
+    masked path's result.
+    """
     with record_function("local_train"):
         steps_k = cfg.local_epochs * torch.ceil(
             sizes.to(torch.float32) / cfg.batch_size)
@@ -305,8 +418,19 @@ def _masked_local_train(trainer: Callable, max_steps: int, cfg: FLConfig,
                                 device=sizes.device)[None, :]
         active = (step_idx < steps_k[:, None]).to(torch.float32)
         active = active * selected[:, None]         # frozen if unselected
-        client_params = trainer(params, images, labels, mask, active,
-                                batch_idx)
+        if dispatch_idx is None:
+            client_params = trainer(params, images, labels, mask, active,
+                                    batch_idx)
+        else:
+            idx = dispatch_idx
+            block = trainer(params, images[idx], labels[idx], mask[idx],
+                            active[idx], batch_idx[idx])
+            k = images.shape[0]
+            client_params = {}
+            for n, t in params.items():
+                full = t.expand(k, *t.shape).clone()
+                full[idx] = block[n]
+                client_params[n] = full
     # FedAvg weights D_k / D_r over the selected set.
     w = sizes.to(torch.float32) * selected
     w = w / torch.clamp_min(torch.sum(w), 1.0)
@@ -316,13 +440,14 @@ def _masked_local_train(trainer: Callable, max_steps: int, cfg: FLConfig,
 def _train_round(trainer: Callable, max_steps: int, cfg: FLConfig,
                  params: Params, images: Tensor, labels: Tensor,
                  mask: Tensor, sizes: Tensor, selected: Tensor,
-                 batch_idx: Tensor) -> Params:
+                 batch_idx: Tensor,
+                 dispatch_idx: Optional[Tensor] = None) -> Params:
     """Masked local training + FedAvg.  An empty selected set carries
     the previous model forward (the all-zero weights would replace it
     with zeros); the guard is a select, no host sync."""
     client_params, w = _masked_local_train(
         trainer, max_steps, cfg, params, images, labels, mask, sizes,
-        selected, batch_idx)
+        selected, batch_idx, dispatch_idx)
     with record_function("aggregate"):
         agg = fedavg_aggregate(client_params, w, cfg.use_kernel_agg)
         any_sel = torch.sum(selected) > 0.0
@@ -332,13 +457,14 @@ def _train_round(trainer: Callable, max_steps: int, cfg: FLConfig,
 def _train_round_faulty(trainer: Callable, max_steps: int, cfg: FLConfig,
                         params: Params, images: Tensor, labels: Tensor,
                         mask: Tensor, sizes: Tensor, selected: Tensor,
-                        ok: Tensor, batch_idx: Tensor) -> Params:
+                        ok: Tensor, batch_idx: Tensor,
+                        dispatch_idx: Optional[Tensor] = None) -> Params:
     """Fault-aware round: train the selected set (the failure comes at
     upload time), aggregate the ``ok`` set with weights renormalised
     over it (:func:`fedavg_aggregate_masked`)."""
     client_params, _ = _masked_local_train(
         trainer, max_steps, cfg, params, images, labels, mask, sizes,
-        selected, batch_idx)
+        selected, batch_idx, dispatch_idx)
     with record_function("aggregate"):
         w = sizes.to(torch.float32) * ok
         w = w / torch.clamp_min(torch.sum(w), 1.0)
@@ -358,7 +484,8 @@ def _train_round_compressed(trainer: Callable, max_steps: int,
                             batch_idx: Tensor, residual: Tensor,
                             gains: Tensor, index: Tensor,
                             noise: Optional[Tensor],
-                            success: Optional[Tensor] = None
+                            success: Optional[Tensor] = None,
+                            dispatch_idx: Optional[Tensor] = None
                             ) -> tuple[Params, Tensor]:
     """Masked local training + compressed-uplink FedAvg.
 
@@ -367,12 +494,18 @@ def _train_round_compressed(trainer: Callable, max_steps: int,
     are averaged onto the global model, ``g' = g + sum_k (D_k / D_r)
     c_k``, by a plain product as in the reference.  ``success`` renormalises
     the weights over the uploads that landed and folds a failed device's
-    update back into its residual.  Returns ``(params, residual)``.
+    update back into its residual.  Under dispatch the off-block rows
+    equal the global model, so their update is exactly zero.  With
+    ``carry_dtype`` the residual arrives at storage precision, is upcast
+    here and downcast after the codec.  Returns ``(params, residual)``.
     """
     _uniform_dtype(params, "compressed uplink")
+    cdt = _carry_dtype(fcfg)
+    if cdt is not None:
+        residual = residual.to(torch.float32)
     client_params, w = _masked_local_train(
         trainer, max_steps, fcfg, params, images, labels, mask, sizes,
-        selected, batch_idx)
+        selected, batch_idx, dispatch_idx)
     with record_function("aggregate"):
         updates = _flat_updates(params, client_params)
         if success is not None:
@@ -381,6 +514,8 @@ def _train_round_compressed(trainer: Callable, max_steps: int,
         c, residual = compression.apply_codec(
             codec, updates, residual, selected, noise, fcfg.compression,
             gains, index, success=success)
+        if cdt is not None:
+            residual = residual.to(cdt)
         return _apply_flat(params, torch.tensordot(w, c, dims=1)), residual
 
 
@@ -430,9 +565,15 @@ def _stream_round(process: streaming.ArrivalProcess, fcfg: FLConfig,
                   ages: Tensor):
     """One round's data evolution: sample -> fused refresh -> index.
 
-    Returns ``(index, sizes, staleness, refreshed hists, state)``.
+    Returns ``(index, sizes, staleness, refreshed hists, state)``.  With
+    ``carry_dtype`` the carried hists and staleness arrive at storage
+    precision and are upcast before any arithmetic.
     """
     with record_function("stream_refresh"):
+        if _carry_dtype(fcfg) is not None:
+            st = dataclasses.replace(
+                st, hists=st.hists.to(torch.float32),
+                staleness=st.staleness.to(torch.float32))
         deltas, arrivals, st = process.sample(draw, st, fcfg.stream)
         hists_r, stats, stale = streaming.refresh(
             st.hists, deltas, arrivals, st.staleness, st.selected_prev,
@@ -445,12 +586,27 @@ def _stream_round(process: streaming.ArrivalProcess, fcfg: FLConfig,
 
 
 def _stream_advance(st: streaming.StreamState, hists_r: Tensor,
-                    stale: Tensor, delivered: Tensor
+                    stale: Tensor, delivered: Tensor,
+                    cdt: Optional[torch.dtype] = None
                     ) -> streaming.StreamState:
     """Post-decision update of the driver-owned streaming fields: the
-    delivered set consumes the backlog on the next refresh."""
+    delivered set consumes the backlog on the next refresh.  ``cdt``
+    (:func:`_carry_dtype`) downcasts the stored hists and staleness."""
+    if cdt is not None:
+        hists_r = hists_r.to(cdt)
+        stale = stale.to(cdt)
     return dataclasses.replace(st, hists=hists_r, staleness=stale,
                                selected_prev=delivered, round=st.round + 1)
+
+
+def _diet_stream_state(st: streaming.StreamState,
+                       cdt: Optional[torch.dtype]) -> streaming.StreamState:
+    """A fresh state's carried stats at storage precision, as
+    :func:`_stream_advance` writes them."""
+    if cdt is None:
+        return st
+    return dataclasses.replace(st, hists=st.hists.to(cdt),
+                               staleness=st.staleness.to(cdt))
 
 
 def client_histograms(data: partition_lib.ClientDataset,
@@ -489,10 +645,12 @@ def draw_tape(gen: torch.Generator, net: wireless.NetworkState,
               hists: Optional[Tensor] = None) -> Draws:
     """A whole run's :class:`Draws` from ``gen``, on ``net``'s device.
 
-    ``fcfg`` adds the draws its subsystems need: with ``stream`` the
-    arrival process's (``hists`` are the (K, C) initial histograms), with
-    ``faults`` the fault uniforms and the chronic-rate normal draw.  The
-    quantization noise is left out (the driver draws it per round).
+    ``num_rounds`` is the run's :func:`sim_length`.  ``fcfg`` adds the
+    draws its subsystems need: with ``stream`` the arrival process's
+    (``hists`` are the (K, C) initial histograms), with ``faults`` the
+    fault uniforms and the chronic-rate normal draw, with ``events`` the
+    availability process's.  The quantization noise is left out (the
+    driver draws it per round).
     """
     dev = net.pathloss.device
     k = net.num_devices
@@ -522,12 +680,17 @@ def draw_tape(gen: torch.Generator, net: wireless.NetworkState,
         draws.faults = _stack_draws([faults.draw_uniforms(gen, k, flt, dev)
                                      for _ in range(num_rounds)])
         draws.chronic_z = torch.randn((k,), generator=gen, device=dev)
+    if fcfg.events is not None:
+        proc = events_lib.get_availability(fcfg.events.availability)
+        draws.avail_init = proc.init_draw(gen, k, fcfg.events, dev)
+        draws.avail = _stack_draws([proc.draw(gen, k, fcfg.events, dev)
+                                    for _ in range(num_rounds)])
     return draws
 
 
 def _check_tape(draws: Draws, fcfg: FLConfig, k_dev: int,
                 max_steps: int) -> None:
-    want = (fcfg.num_rounds, k_dev, max_steps, fcfg.batch_size)
+    want = (sim_length(fcfg), k_dev, max_steps, fcfg.batch_size)
     if tuple(draws.batch_idx.shape) != want:
         raise ValueError(f"batch_idx must be (R, K, max_steps, B) = "
                          f"{want}, got {tuple(draws.batch_idx.shape)}")
@@ -539,6 +702,9 @@ def _check_tape(draws: Draws, fcfg: FLConfig, k_dev: int,
         needs.append("faults")
         if flt.drop_prob > 0.0 and flt.chronic_spread > 0.0:
             needs.append("chronic_z")
+    if fcfg.events is not None and events_lib.get_availability(
+            fcfg.events.availability).stochastic:
+        needs += ["avail_init", "avail"]
     missing = [n for n in needs if getattr(draws, n) is None]
     if missing:
         raise ValueError(f"the tape lacks {missing} for the configured "
@@ -549,6 +715,163 @@ def _check_tape(draws: Draws, fcfg: FLConfig, k_dev: int,
 # ---------------------------------------------------------------------------
 # Full training driver (Alg. 1)
 # ---------------------------------------------------------------------------
+
+class _Run:
+    """One run's set-up and the round steps the synchronous loop and the
+    event loop (:mod:`repro_torch.core.events`) share.
+
+    Holds the world on the run's device, the model's params, the local
+    trainer, the round's scheduler config, the random tape and the
+    subsystems' initial state (``st``, ``residual``, ``rel``).
+    """
+
+    def __init__(self, model: nn.Module, data: partition_lib.ClientDataset,
+                 net: wireless.NetworkState, wcfg: wireless.WirelessConfig,
+                 scfg: scheduler.SchedulerConfig, fcfg: FLConfig, seed: int,
+                 draws: Optional[Draws], eval_every: int,
+                 device: DeviceLike):
+        dev = self.dev = resolve_device(device)
+        self.fcfg, self.wcfg = fcfg, wcfg
+        self.data = data = data.to(dev)
+        self.net = net = net.to(dev)
+        self.model = copy.deepcopy(model).to(dev)
+        self.params = paper_nets.params_of(self.model)
+        loss_fn = functools.partial(paper_nets.loss_fn, self.model)
+        self.k, cap = data.num_devices, data.capacity
+        self.length = sim_length(fcfg)
+        self.max_steps = _max_local_steps(fcfg, cap)
+        self.trainer = make_local_trainer(loss_fn, fcfg)
+        self.sch = _sched_cfg(scfg, fcfg)
+        self.do_eval = _eval_mask(self.length, eval_every)
+        self.n_cap = fcfg.dispatch_cap
+        self.cdt = _carry_dtype(fcfg)
+        stream, comp = fcfg.stream, fcfg.compression
+        self.flt = flt = faults.active(fcfg.faults)
+        hists = client_histograms(data, fcfg.num_classes) \
+            if stream is not None else None
+        self.gen = torch.Generator(device=dev)
+        self.gen.manual_seed(seed)
+        if draws is None:
+            draws = draw_tape(self.gen, net, self.length, cap,
+                              self.max_steps, fcfg.batch_size, fcfg, hists)
+        self.draws = draws = draws.to(dev)
+        _check_tape(draws, fcfg, self.k, self.max_steps)
+
+        self.st = None
+        if stream is None:
+            # The labels never change: one kernel launch per run.
+            stats = diversity_kernel.diversity_stats(
+                data.labels.to(torch.int32).contiguous(),
+                data.mask.contiguous(), fcfg.num_classes)
+            self.div = stats[:, diversity.measure_column(fcfg.measure)]
+        else:
+            self.process = streaming.get_process(stream.process)
+            self.size_cap = _stream_size_cap(stream, cap)
+            self.measure_col = diversity.measure_column(fcfg.measure)
+            self.st = _diet_stream_state(
+                self.process.init(draws.stream_init, hists, stream),
+                self.cdt)
+        self.residual = None
+        if comp is not None:
+            self.codec = compression.get_codec(comp.codec)
+            self.residual = torch.zeros(
+                (self.k, flat_param_size(self.params)),
+                dtype=self.cdt or torch.float32, device=dev)
+        self.rel = None
+        if flt is not None:
+            self.exp_mult = faults.expected_time_mult(flt)
+            self.drop_rates = faults.chronic_rates(draws.chronic_z, flt)
+            self.rel = torch.ones((self.k,), dtype=torch.float32,
+                                  device=dev)
+        self.test_x = synthetic.to_float(data.test_images)
+        self.nan = torch.full((), math.nan, device=dev)
+
+    def index(self, r: int, st: Optional[streaming.StreamState],
+              ages: Tensor):
+        """The round's diversity index: ``(index, sizes, staleness,
+        refreshed hists, stream state)`` (the last three None or
+        unchanged with static data)."""
+        if st is None:
+            with record_function("schedule"):
+                index = diversity.diversity_index_from_stats(
+                    div=self.div, data_sizes=self.data.sizes, ages=ages,
+                    weights=self.fcfg.index_weights)
+            return index, self.data.sizes, None, None, None
+        return _stream_round(self.process, self.fcfg, self.size_cap,
+                             self.measure_col,
+                             _round_of(self.draws.stream, r), st, ages)
+
+    def schedule(self, r: int, index: Tensor, ages: Tensor,
+                 sizes: Tensor, gains: Tensor, stale: Optional[Tensor],
+                 rel: Optional[Tensor]
+                 ) -> tuple[scheduler.ScheduleResult, Optional[Tensor]]:
+        """Payload bits and the schedule -> ``(result, payload bits)``."""
+        comp = self.fcfg.compression
+        with record_function("schedule"):
+            payload = self.codec.payload_bits(comp, self.wcfg, gains, index) \
+                if comp is not None else None
+            # Scheduling prices retry-inflated bits, so Sub2's deadline
+            # reserves the retransmission window before it happens.
+            payload_sched = bandwidth.effective_payload_bits(
+                payload, self.exp_mult, self.wcfg, gains) \
+                if self.flt is not None else payload
+            sched_u = self.draws.sched_u
+            result = scheduler.schedule_impl(
+                None if sched_u is None else sched_u[r], index, ages, sizes,
+                gains, self.net, self.wcfg, self.sch, staleness=stale,
+                payload_bits=payload_sched, reliability=rel)
+        return result, payload
+
+    def dispatch(self, selected: Tensor
+                 ) -> tuple[Optional[Tensor], Tensor, Tensor]:
+        """The dispatch plan -> ``(lanes or None, selection, n_dropped)``."""
+        if self.n_cap is None:
+            return None, selected, torch.zeros((), dtype=torch.int32,
+                                               device=self.dev)
+        return dispatch_plan(selected, self.n_cap)
+
+    def realize(self, r: int, result: scheduler.ScheduleResult,
+                selected: Tensor, gains: Tensor, payload: Optional[Tensor]):
+        """The round's fault draw and realized accounting -> ``(ok,
+        energy, round_time, fault draw or None)``."""
+        if self.flt is None:
+            if self.n_cap is None:
+                return selected, result.energy, result.round_time, None
+            energy, round_time = _dispatch_accounting(result, selected)
+            return selected, energy, round_time, None
+        draw = faults.sample_faults(
+            **_round_of(self.draws.faults, r), gains=gains, net=self.net,
+            cfg=self.flt, drop_rates=self.drop_rates)
+        ok, energy, round_time = faults.apply_faults(
+            draw, selected, result.alpha, result.t_train, gains, self.net,
+            self.wcfg, payload, self.flt)
+        return ok, energy, round_time, draw
+
+    def noise(self, r: int) -> Optional[Tensor]:
+        """The round's quantization noise (stochastic codecs only)."""
+        if not self.codec.stochastic:
+            return None
+        if self.draws.comp_noise is not None:
+            return self.draws.comp_noise[r]
+        return torch.rand(self.residual.shape, generator=self.gen,
+                          device=self.dev)
+
+    def evaluate(self, r: int, params: Params) -> Tensor:
+        if not self.do_eval[r]:
+            return self.nan
+        with torch.no_grad(), record_function("evaluate"):
+            return paper_nets.accuracy(self.model, params, self.test_x,
+                                       self.data.test_labels)
+
+    def advance(self, ages: Tensor, rel: Optional[Tensor],
+                selected: Tensor, ok: Tensor):
+        """Participation = delivered: ages reset and the reliability EMA
+        moves only for uploads that landed -> ``(ages, rel)``."""
+        ages = torch.where(ok > 0.0, 0, ages + 1).to(torch.int32)
+        if self.flt is not None:
+            rel = faults.reliability_update(rel, selected, ok, self.flt)
+        return ages, rel
+
 
 def run_federated(*, model: nn.Module,
                   data: partition_lib.ClientDataset,
@@ -567,127 +890,62 @@ def run_federated(*, model: nn.Module,
     card and raises without one; pass ``device="cpu"`` for the plain
     PyTorch path.  ``draws`` (on any device) replaces the generator
     draws, e.g. to replay another implementation's random numbers.
+    With ``fcfg.events`` the run is the event-driven driver
+    (:func:`repro_torch.core.events.run_events`): one record per event.
     """
-    dev = resolve_device(device)
-    data = data.to(dev)
-    net = net.to(dev)
-    model = copy.deepcopy(model).to(dev)
-    params = paper_nets.params_of(model)
-    loss_fn = functools.partial(paper_nets.loss_fn, model)
-    k_dev, cap = data.num_devices, data.capacity
-    max_steps = _max_local_steps(fcfg, cap)
-    trainer = make_local_trainer(loss_fn, fcfg)
-    sch = _sched_cfg(scfg, fcfg)
-    do_eval = _eval_mask(fcfg.num_rounds, eval_every)
+    kw = dict(model=model, data=data, net=net, wcfg=wcfg, scfg=scfg,
+              fcfg=fcfg, seed=seed, draws=draws, eval_every=eval_every,
+              device=device)
+    if fcfg.events is not None:
+        params, records, _ = events_lib.run_events(**kw)
+        return params, records
+    run = _Run(**kw)
     stream, comp = fcfg.stream, fcfg.compression
-    flt = faults.active(fcfg.faults)
-    hists = client_histograms(data, fcfg.num_classes) \
-        if stream is not None else None
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    if draws is None:
-        draws = draw_tape(gen, net, fcfg.num_rounds, cap, max_steps,
-                          fcfg.batch_size, fcfg, hists)
-    draws = draws.to(dev)
-    _check_tape(draws, fcfg, k_dev, max_steps)
-
-    if stream is None:
-        # The labels never change: one kernel launch per run.
-        stats = diversity_kernel.diversity_stats(
-            data.labels.to(torch.int32).contiguous(),
-            data.mask.contiguous(), fcfg.num_classes)
-        div = stats[:, diversity.measure_column(fcfg.measure)]
-    else:
-        process = streaming.get_process(stream.process)
-        size_cap = _stream_size_cap(stream, cap)
-        measure_col = diversity.measure_column(fcfg.measure)
-        st = process.init(draws.stream_init, hists, stream)
-    if comp is not None:
-        codec = compression.get_codec(comp.codec)
-        residual = torch.zeros((k_dev, flat_param_size(params)),
-                               dtype=torch.float32, device=dev)
-    if flt is not None:
-        exp_mult = faults.expected_time_mult(flt)
-        drop_rates = faults.chronic_rates(draws.chronic_z, flt)
-        rel = torch.ones((k_dev,), dtype=torch.float32, device=dev)
-    test_x = synthetic.to_float(data.test_images)
-    ages = torch.zeros((k_dev,), dtype=torch.int32, device=dev)
-    nan = torch.full((), math.nan, device=dev)
-    int32 = dict(dtype=torch.int32, device=dev)
+    data, trainer, max_steps = run.data, run.trainer, run.max_steps
+    params, st, residual, rel = run.params, run.st, run.residual, run.rel
+    ages = torch.zeros((run.k,), dtype=torch.int32, device=run.dev)
+    int32 = dict(dtype=torch.int32, device=run.dev)
     rows: List[tuple] = []
     for r in range(fcfg.num_rounds):
-        if stream is not None:
-            index, sizes_r, stale, hists_r, st = _stream_round(
-                process, fcfg, size_cap, measure_col,
-                _round_of(draws.stream, r), st, ages)
-        else:
-            sizes_r, stale = data.sizes, None
-        gains = draws.gains[r]
-        with record_function("schedule"):
-            if stream is None:
-                index = diversity.diversity_index_from_stats(
-                    div=div, data_sizes=sizes_r, ages=ages,
-                    weights=fcfg.index_weights)
-            payload = codec.payload_bits(comp, wcfg, gains, index) \
-                if comp is not None else None
-            # Scheduling prices retry-inflated bits, so Sub2's deadline
-            # reserves the retransmission window before it happens.
-            payload_sched = bandwidth.effective_payload_bits(
-                payload, exp_mult, wcfg, gains) if flt is not None \
-                else payload
-            result = scheduler.schedule_impl(
-                None if draws.sched_u is None else draws.sched_u[r], index,
-                ages, sizes_r, gains, net, wcfg, sch, staleness=stale,
-                payload_bits=payload_sched,
-                reliability=rel if flt is not None else None)
-        selected = result.selected
-        if flt is None:
-            ok, energy, round_time, success = (
-                selected, result.energy, result.round_time, None)
-        else:
-            draw = faults.sample_faults(
-                **_round_of(draws.faults, r), gains=gains, net=net, cfg=flt,
-                drop_rates=drop_rates)
-            ok, energy, round_time = faults.apply_faults(
-                draw, selected, result.alpha, result.t_train, gains, net,
-                wcfg, payload, flt)
-            success = draw.success
-        batch_idx = draws.batch_idx[r]
+        index, sizes_r, stale, hists_r, st = run.index(r, st, ages)
+        gains = run.draws.gains[r]
+        result, payload = run.schedule(r, index, ages, sizes_r, gains,
+                                       stale, rel)
+        # The dispatch plan runs right after scheduling, so faults,
+        # training, ages and metrics all see the selection left after
+        # the cap.
+        didx, selected, n_dropped = run.dispatch(result.selected)
+        ok, energy, round_time, draw = run.realize(r, result, selected,
+                                                   gains, payload)
+        batch_idx = run.draws.batch_idx[r]
         if comp is not None:
-            noise = None
-            if codec.stochastic:
-                noise = draws.comp_noise[r] if draws.comp_noise is not None \
-                    else torch.rand(residual.shape, generator=gen,
-                                    device=dev)
             params, residual = _train_round_compressed(
-                trainer, max_steps, fcfg, codec, params, data.images,
+                trainer, max_steps, fcfg, run.codec, params, data.images,
                 data.labels, data.mask, sizes_r, selected, batch_idx,
-                residual, gains, index, noise, success=success)
-        elif flt is not None:
+                residual, gains, index, run.noise(r),
+                success=None if draw is None else draw.success,
+                dispatch_idx=didx)
+        elif run.flt is not None:
             params = _train_round_faulty(
                 trainer, max_steps, fcfg, params, data.images, data.labels,
-                data.mask, sizes_r, selected, ok, batch_idx)
+                data.mask, sizes_r, selected, ok, batch_idx, didx)
         else:
             params = _train_round(trainer, max_steps, fcfg, params,
                                   data.images, data.labels, data.mask,
-                                  sizes_r, selected, batch_idx)
-        # Participation = delivered: ages reset and the streaming
-        # backlog clears only for uploads that landed.
-        ages = torch.where(ok > 0.0, 0, ages + 1).to(torch.int32)
-        if flt is not None:
-            rel = faults.reliability_update(rel, selected, ok, flt)
+                                  sizes_r, selected, batch_idx, didx)
+        ages, rel = run.advance(ages, rel, selected, ok)
         if stream is not None:
-            st = _stream_advance(st, hists_r, stale, ok)
-        if do_eval[r]:
-            with torch.no_grad(), record_function("evaluate"):
-                acc = paper_nets.accuracy(model, params, test_x,
-                                          data.test_labels)
-        else:
-            acc = nan
-        rows.append((acc, torch.sum(selected).to(torch.int32), round_time,
+            st = _stream_advance(st, hists_r, stale, ok, run.cdt)
+        rows.append((run.evaluate(r, params),
+                     torch.sum(selected).to(torch.int32), round_time,
                      energy, torch.sum(energy), selected,
                      torch.full((), result.iterations, **int32),
-                     torch.sum(ok).to(torch.int32), torch.zeros((), **int32)))
-    metrics = RoundMetrics(*(torch.stack([row[i] for row in rows])
-                             for i in range(9)))
-    return params, metrics_to_records(metrics)
+                     torch.sum(ok).to(torch.int32), n_dropped))
+    return params, metrics_to_records(stack_metrics(rows))
+
+
+def stack_metrics(rows: List[tuple]) -> RoundMetrics:
+    """Stack per-round ``RoundMetrics`` field tuples on a leading axis."""
+    return RoundMetrics(*(torch.stack([row[i] for row in rows])
+                          for i in range(len(dataclasses.fields(
+                              RoundMetrics)))))

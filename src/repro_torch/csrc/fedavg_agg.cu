@@ -1,5 +1,6 @@
-// FedAvg weighted aggregation: out[p] = sum_k w[k] * u[k, p], f32, and
-// its success-masked form out[p] = sum_k (w[k] * m[k]) * u[k, p].
+// FedAvg weighted aggregation: out[p] = sum_k w[k] * u[k, p], f32, its
+// success-masked form out[p] = sum_k (w[k] * m[k]) * u[k, p], and its
+// staleness-weighted form out[p] = sum_k ((w[k] * m[k]) * s[k]) * u[k, p].
 //
 // Replaces the TPU kernel fedavg_agg_kernel (src/repro/kernels/
 // fedavg_agg.py, _fedavg_kernel), which tiled P into VMEM blocks and
@@ -19,6 +20,16 @@
 // into the weights as they are staged in shared memory and then runs the
 // very same column loop, so an all-ones mask (w * 1.0 == w exactly) gives
 // the unmasked kernel's result bit for bit.  Nothing renormalises.
+//
+// The stale kernel replaces fedavg_agg_stale_kernel (the event-driven
+// driver's buffered flush, which discounts each arrived update by its
+// model-version staleness s = (1 + tau)^-gamma).  It stages
+// (w * m) * s, rounded after each product in the reference's
+// left-to-right order, and runs the same column loop: an all-ones s
+// (x * 1.0 == x exactly) gives the masked kernel's result bit for bit,
+// the identity the event driver's synchronous limit leans on.  The
+// three (K,) rows are noise beside the (K, P) matrix: the same byte
+// bound as its siblings.
 #include <cuda_runtime.h>
 
 namespace {
@@ -61,6 +72,19 @@ __global__ void fedavg_agg_masked_kernel(const float* __restrict__ updates,
   weighted_column_sum(updates, w, out, K, P);
 }
 
+__global__ void fedavg_agg_stale_kernel(const float* __restrict__ updates,
+                                        const float* __restrict__ weights,
+                                        const float* __restrict__ mask,
+                                        const float* __restrict__ stale,
+                                        float* __restrict__ out, int K,
+                                        long long P) {
+  __shared__ float w[kMaxSharedK];
+  for (int k = threadIdx.x; k < K; k += blockDim.x)
+    w[k] = __fmul_rn(__fmul_rn(weights[k], mask[k]), stale[k]);
+  __syncthreads();
+  weighted_column_sum(updates, w, out, K, P);
+}
+
 }  // namespace
 
 extern "C" int fedavg_agg_f32(const float* updates, const float* weights,
@@ -81,5 +105,16 @@ extern "C" int fedavg_agg_masked_f32(const float* updates,
   const long long blocks = (P + kThreads - 1) / kThreads;
   fedavg_agg_masked_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
       updates, weights, mask, out, K, P);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fedavg_agg_stale_f32(const float* updates,
+                                    const float* weights, const float* mask,
+                                    const float* stale, float* out, int K,
+                                    long long P, cudaStream_t stream) {
+  if (K < 1 || K > kMaxSharedK || P < 1) return (int)cudaErrorInvalidValue;
+  const long long blocks = (P + kThreads - 1) / kThreads;
+  fedavg_agg_stale_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
+      updates, weights, mask, stale, out, K, P);
   return (int)cudaGetLastError();
 }

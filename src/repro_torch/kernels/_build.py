@@ -40,6 +40,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "fedavg_agg_f32": [_P, _P, _P, _I, _L, _P],
     "fedavg_agg_masked_f32": [_P, _P, _P, _P, _I, _L, _P],
+    "fedavg_agg_stale_f32": [_P, _P, _P, _P, _P, _I, _L, _P],
     "stream_update_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                           _F, _P],
     "compress_update_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,

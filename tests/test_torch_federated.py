@@ -29,6 +29,7 @@ from repro.data import synthetic as jsyn  # noqa: E402
 from repro.models import paper_nets as jnets  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import bandwidth as tbw  # noqa: E402
+from repro_torch.core import events as tev  # noqa: E402
 from repro_torch.core import federated as tfed  # noqa: E402
 from repro_torch.core import scheduler as tsch  # noqa: E402
 from repro_torch.core import wireless as tw  # noqa: E402
@@ -57,14 +58,30 @@ def replay_tape(key, net, k, rounds, capacity, max_steps, batch, fcfg=None,
     chronic rates; ``compression`` splits ``k_train`` into the SGD key
     and the quantization-noise key.  ``coord_order`` maps the port's
     flat parameter coordinates to the reference's (for the noise).
+    ``events`` (``rounds`` is then the event count) folds ``0xD1A7`` into
+    the original key for the diurnal phases (split into the shared
+    uniform and the per-device normal) and ``0xA7A1`` into each tick's
+    carry key for the availability uniforms.
     """
     stream = fcfg.stream if fcfg is not None else None
     flt = jfaults.active(fcfg.faults) if fcfg is not None else None
     comp = fcfg.compression if fcfg is not None else None
+    ecfg = fcfg.events if fcfg is not None else None
+    avail_draws = ecfg is not None and ecfg.availability != "always"
     extra = {}
     if flt is not None and flt.drop_prob > 0 and flt.chronic_spread > 0:
         extra["chronic_z"] = torch.from_numpy(np.array(jax.random.normal(
             jax.random.fold_in(key, 0xC407), (k,))))
+    if avail_draws:
+        extra["avail_init"] = {}
+        if ecfg.availability == "diurnal":
+            k_shared, k_dev = jax.random.split(jax.random.fold_in(key,
+                                                                  0xD1A7))
+            extra["avail_init"] = {
+                "shared_u": torch.from_numpy(np.array(
+                    jax.random.uniform(k_shared, ()))),
+                "z": torch.from_numpy(np.array(
+                    jax.random.normal(k_dev, (k,))))}
     if stream is not None:
         assert stream.process == "poisson"
         key, k_init = jax.random.split(key)
@@ -72,7 +89,8 @@ def replay_tape(key, net, k, rounds, capacity, max_steps, batch, fcfg=None,
             jax.random.uniform(k_init, (k,))))}
         st = jstreaming.get_process("poisson").init(k_init, hists, stream)
         lam = st.rates[:, None] * st.affinity
-    gains, sched_u, idx, counts, fault_u, noise = [], [], [], [], [], []
+    gains, sched_u, idx, counts, fault_u, noise, avail_u = (
+        [], [], [], [], [], [], [])
 
     def device_idx(dk):
         return jax.vmap(lambda sk: jax.random.randint(sk, (batch,), 0,
@@ -95,6 +113,9 @@ def replay_tape(key, net, k, rounds, capacity, max_steps, batch, fcfg=None,
                 "u_strag": jax.random.uniform(ks, (k,)),
                 "u_tail": jax.random.uniform(kt, (k,), minval=1e-6,
                                              maxval=1.0)})
+        if avail_draws:
+            avail_u.append(np.asarray(jax.random.uniform(
+                jax.random.fold_in(key, 0xA7A1), (k,))))
         if comp is not None:
             k_train, k_comp = jax.random.split(k_train)
             if comp.codec in ("quant", "adaptive"):
@@ -112,12 +133,14 @@ def replay_tape(key, net, k, rounds, capacity, max_steps, batch, fcfg=None,
             [np.asarray(u[n]) for u in fault_u])) for n in fault_u[0]}
     if noise:
         extra["comp_noise"] = torch.from_numpy(np.stack(noise))
+    if avail_u:
+        extra["avail"] = {"u": torch.from_numpy(np.stack(avail_u))}
     return tfed.Draws(torch.from_numpy(np.stack(gains)),
                       torch.from_numpy(np.stack(idx)).long(),
                       torch.from_numpy(np.stack(sched_u)), **extra)
 
 
-def coord_order(params_np, kind):
+def coord_order(params_np, kind, hidden=None):
     """Index map from the port's flat parameter order to the reference's
     (pytree leaves sorted by name, dense weights (in, out)): the port's
     coordinate i is the reference's ``coord_order[i]``."""
@@ -129,19 +152,22 @@ def coord_order(params_np, kind):
         start += leaf.size
     ids = jax.tree_util.tree_unflatten(
         jax.tree_util.tree_structure(params_np), offsets)
-    model = convert.paper_net_from_numpy(ids, tnets.PaperNetSpec(kind=kind))
+    model = convert.paper_net_from_numpy(
+        ids, tnets.PaperNetSpec(kind=kind) if hidden is None
+        else tnets.PaperNetSpec(kind=kind, mlp_hidden=hidden))
     return torch.cat([t.reshape(-1) for t in
                       tnets.params_of(model).values()]).long().numpy()
 
 
-def _port_world(data, net, params, kind):
+def _port_world(data, net, params, kind, hidden=None):
     tdata = convert.dataset_from_numpy(
         **{f: np.asarray(getattr(data, f)) for f in DATA_FIELDS})
     tnet = convert.network_from_numpy(
         **{f: np.asarray(getattr(net, f)) for f in NET_FIELDS})
     model = convert.paper_net_from_numpy(
         jax.tree_util.tree_map(np.asarray, params),
-        tnets.PaperNetSpec(kind=kind))
+        tnets.PaperNetSpec(kind=kind) if hidden is None
+        else tnets.PaperNetSpec(kind=kind, mlp_hidden=hidden))
     return tdata, tnet, model
 
 
@@ -155,24 +181,31 @@ CASES = [("mlp", 12, 0, 0.1, 1e-4), ("cnn", 16, 3, 0.05, 5e-3)]
 
 
 def run_pair(kind, k, net_seed, lr, jsub=None, tsub=None, sched_extra=None,
-             rounds=ROUNDS):
+             rounds=ROUNDS, hidden=None, samples_per_class=600,
+             num_shards=100, with_log=False):
     """The reference's ``make_feel_sim`` and the port's ``run_federated``
     on one world (DAS + ``fused_pgd`` + kernel FedAvg, ``Sub2Params.fast``)
     from one key schedule.  ``jsub``/``tsub`` are the subsystem fields of
-    the two FLConfigs (reference and port configs, same values).
+    the two FLConfigs (reference and port configs, same values);
+    ``sched_extra`` adds to or overrides the scheduler's fields, ``hidden``
+    sets the MLP's width, ``samples_per_class`` and ``num_shards`` the
+    world's size.  ``rounds`` is the run's :func:`sim_length` (the events
+    of an event run).
 
     Returns ``(reference params, reference metrics, port params, port
-    records)``.
+    records)``, and the port's ``events.EventLog`` after them with
+    ``with_log`` (an event run).
     """
-    imgs, labels = jsyn.generate(0, samples_per_class=600)
+    imgs, labels = jsyn.generate(0, samples_per_class=samples_per_class)
     data = jpart.partition(imgs, labels, seed=1, spec=jpart.PartitionSpec(
-        num_devices=k, num_shards=100, shard_size=50))
+        num_devices=k, num_shards=num_shards, shard_size=50))
     wcfg = jw.WirelessConfig()
     net = jw.sample_network(jax.random.key(net_seed), k, wcfg)
-    spec = jnets.PaperNetSpec(kind=kind)
+    spec = jnets.PaperNetSpec(kind=kind) if hidden is None \
+        else jnets.PaperNetSpec(kind=kind, mlp_hidden=hidden)
     params = jnets.init(jax.random.key(3), spec)
-    sched = dict(method="das", n_min=2, iterations_max=4,
-                 allocator="fused_pgd", **(sched_extra or {}))
+    sched = {**dict(method="das", n_min=2, iterations_max=4,
+                    allocator="fused_pgd"), **(sched_extra or {})}
     fl = dict(num_rounds=rounds, batch_size=50, learning_rate=lr,
               use_kernel_agg=True)
     jfcfg = jfed.FLConfig(**fl, **(jsub or {}))
@@ -189,27 +222,28 @@ def run_pair(kind, k, net_seed, lr, jsub=None, tsub=None, sched_extra=None,
     draws = replay_tape(key, net, k, rounds, data.capacity,
                         jfed._max_local_steps(jfcfg, data.capacity), 50,
                         fcfg=jfcfg, hists=hists,
-                        coord_order=coord_order(params, kind))
-    tdata, tnet, model = _port_world(data, net, params, kind)
-    tparams, recs = tfed.run_federated(
+                        coord_order=coord_order(params, kind, hidden))
+    tdata, tnet, model = _port_world(data, net, params, kind, hidden)
+    out = (tev.run_events if with_log else tfed.run_federated)(
         model=model, data=tdata, net=tnet, wcfg=tw.WirelessConfig(),
         scfg=tsch.SchedulerConfig(sub2=tbw.Sub2Params.fast(), **sched),
         fcfg=tfed.FLConfig(**fl, **(tsub or {})), draws=draws,
         device="cpu")
-    return jax.device_get(jparams), jax.device_get(jmet), tparams, recs
+    return (jax.device_get(jparams), jax.device_get(jmet)) + tuple(out)
 
 
 def assert_runs_agree(jmet, recs, jparams=None, tparams=None, atol=None,
                       obj_rtol=1e-4, et_rtol=5e-3):
-    """Equal selections, DAS iterations and delivered counts every round;
-    the Sub2 objective rho*E + (1-rho)*T at ``obj_rtol``, E and T at
-    ``et_rtol`` (see test_slice_energy_and_time_match_reference); final
-    parameters at ``atol``."""
+    """Equal selections, DAS iterations, delivered and dropped counts
+    every round; the Sub2 objective rho*E + (1-rho)*T at ``obj_rtol``, E
+    and T at ``et_rtol`` (see test_slice_energy_and_time_match_reference);
+    final parameters at ``atol``."""
     for r, rec in enumerate(recs):
         np.testing.assert_array_equal(rec.selected, jmet.selected[r])
         assert rec.iterations == int(jmet.iterations[r])
         assert rec.n_selected == int(jmet.n_selected[r])
         assert rec.n_success == int(jmet.n_success[r])
+        assert rec.n_dropped == int(jmet.n_dropped[r])
         e, t = float(jmet.energy_total[r]), float(jmet.round_time[r])
         assert 0.5 * rec.energy_total + 0.5 * rec.round_time == \
             pytest.approx(0.5 * e + 0.5 * t, rel=obj_rtol)
@@ -360,11 +394,27 @@ def test_empty_selection_carries_the_model_forward():
         assert torch.equal(out[n], params[n])
 
 
-@pytest.mark.parametrize("name", ["dispatch_cap", "carry_dtype", "events",
-                                  "telemetry"])
+@pytest.mark.parametrize("name", ["telemetry"])
 def test_unported_subsystems_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1, item 14"):
         tfed.FLConfig(**{name: 1})
+
+
+# (field, a good value, a bad value, the error the bad one raises).
+PORTED_FIELDS = {
+    "dispatch_cap": (3, 0, ValueError),
+    "carry_dtype": ("bfloat16", "int8", ValueError),
+    "events": (tev.EventConfig(buffer_size=2), object(), TypeError),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED_FIELDS))
+def test_ported_subsystem_fields_are_accepted_and_validated(name):
+    good, bad, error = PORTED_FIELDS[name]
+    assert getattr(tfed.FLConfig(**{name: good}), name) == good
+    with pytest.raises(error, match=name.split("_")[0]):
+        tfed.FLConfig(**{name: bad})
 
 
 def test_entry_point_defaults_to_the_card(monkeypatch):
