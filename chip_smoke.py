@@ -37,7 +37,22 @@ each phase failing the script on error:
 6. each path at K = 16 on the card and on the CPU from one random tape
    with TF32 off (path 3 with ``topk``, path 4 with a cap of 4): equal
    selections, DAS iteration and delivered counts (path 4: and flushes),
-   the same Sub2 objective, close parameters.
+   the same Sub2 objective, close parameters;
+7. path 6, the model zoo's serving path at full width: h2o-danube-3-4b
+   (24 layers, d_model 3840, 32 heads over 8 KV heads of 120, a 4096
+   sliding window) with random weights from a seeded generator, bf16
+   compute: B = 4, a 5000-token prompt, one prefill and 32 greedy
+   decode steps through ``transformer.prefill`` / ``decode_step``, every
+   attention layer through the ``flash_attention`` kernel (24 x 33
+   launches); prefill cold and warm, decode ms per step, peak memory,
+   the profiled idle share of a decode step and the kernel's share of
+   device time; decode parity against ``forward`` at the last position;
+8. the four dense configurations at ``reduced()`` on the card and on the
+   CPU (f32, TF32 off): prefill and 3 decode steps, logits within 1e-4.
+
+The kernel phase also holds ``flash_attention`` against its plain
+version at the prefill (one KV group), decode and edge-case shapes, in
+bf16 and f32, and times it beside SDPA.
 
 The last two lines are the ``kernels`` JSON record and the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -46,6 +61,7 @@ exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -56,10 +72,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM data-sheet peaks (dense): HBM bandwidth and f32 rate outside
-# the tensor cores.  A card below its 700 W limit runs slower than these.
+# H100 SXM data-sheet peaks (dense): HBM bandwidth, the f32 rate outside
+# the tensor cores and the bf16 tensor-core rate.  A card below its 700 W
+# limit runs slower than these.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 # f32 operations per device coordinate, per PGD step, per start in the
 # sub2_pgd kernel (transcendentals counted as one): gradient and softmax
 # ~25, step ~5, 32 bisection trips x 4, objective ~12.
@@ -397,16 +415,186 @@ def phase_stale(torch, dev, k: int, p: int) -> dict:
                 bound_by=b_by, library_ms=library_ms)
 
 
+# Flash attention at danube's head geometry.  f32: within 1e-5 of the
+# plain version (tests/test_kernels.py::_tol of the reference; sums in
+# another order).  bf16: each output within half a bf16 ulp of the plain
+# version's f32 answer on the same input values, plus that 1e-5 -- what
+# f32 arithmetic rounded to nearest once at the store gives; a store that
+# truncates, or a bf16 intermediate, reads up to 2.
+FLASH_TOL = 1e-5
+# Peak rates for the operations bound: bf16 on the tensor cores (dense),
+# f32 outside them.
+PEAK_OPS = {"float32": F32_OPS_PER_S, "bfloat16": BF16_OPS_PER_S}
+DANUBE_HEADS = dict(h=32, kv=8, hd=120)
+SERVE_B, SERVE_PROMPT, SERVE_GEN, SERVE_WINDOW = 4, 5000, 32, 4096
+
+
+def flash_inputs(torch, dev, gen, b, sq, skv, h, kv, hd, dtype, copies=1):
+    """``copies`` sets of (q, k, v), each drawn in f32 and rounded."""
+    out = []
+    for _ in range(copies):
+        q = torch.randn((b, sq, h, hd), generator=gen, device=dev)
+        k = torch.randn((b, skv, kv, hd), generator=gen, device=dev)
+        v = torch.randn((b, skv, kv, hd), generator=gen, device=dev)
+        out.append(tuple(t.to(dtype) for t in (q, k, v)))
+    return out
+
+
+def flash_check(torch, fa, q, k, v, label: str, **kw) -> float:
+    """The kernel against its plain version (see FLASH_TOL); returns the
+    max abs error against the plain version on the same inputs.  The
+    plain version runs in f32 whatever the input type, so its f32 answer
+    cast to the input type is its output."""
+    from repro_torch.kernels import _check
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    err = float((got - want.to(q.dtype)).float().abs().max())
+    if q.dtype == torch.float32:
+        ok, read = err <= FLASH_TOL, f"(limit {FLASH_TOL:g})"
+    else:
+        ratio = _check.bf16_rounding_ratio(got, want, FLASH_TOL)
+        ok = ratio <= 1.0
+        read = (f"(bf16 plain output); against the f32 answer "
+                f"{float((got.float() - want).abs().max()):.3g}, worst / "
+                f"(half bf16 ulp + {FLASH_TOL:g}) = {ratio:.4f} (limit 1)")
+    print(f"[kernel] flash_attention {label} {tuple(q.shape)} x "
+          f"{tuple(k.shape)} {q.dtype} {kw}: max_abs_err={err:.3g} {read}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"flash_attention {label}: {read}")
+    return err
+
+
+def flash_bound(q, k, pairs: int) -> tuple[float, str]:
+    """Each input read once and the output written once; 4 hd flops per
+    visible pair and head (q.k and p.v)."""
+    b, _, h, hd = q.shape
+    size = q.element_size()
+    n_bytes = size * (2 * q.numel() + 2 * k.numel())
+    n_ops = 4 * b * h * pairs * hd
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS[str(q.dtype).split(".")[1]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_sdpa(torch, q, k, v, *, causal, window, kv_len):
+    """The library call computing the same function: SDPA on (B, H, S,
+    hd) copies, GQA by ``enable_gqa``, the window (or ``kv_len``) as an
+    explicit mask, else ``is_causal``.  Returns a callable and its
+    output in the model's layout."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sq, skv = q.shape[1], k.shape[1]
+    mask = None
+    if window > 0 or kv_len != skv:
+        mask = fa.visible_mask(sq, skv, causal=causal, window=window,
+                               kv_len=kv_len, device=q.device)
+
+    def call():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True,
+            is_causal=causal and mask is None)
+    return call, call().transpose(1, 2)
+
+
+def flash_timed(torch, fa, sets, label: str, **kw) -> dict:
+    """Kernel, plain and SDPA ms of one shape (inputs cycled past L2)."""
+    q, k, v = sets[0]
+    n = len(sets)
+    it = iter(range(10 ** 9))
+
+    def kernel():
+        return fa.flash_attention(*sets[next(it) % n], **kw)
+    ms = time_ms(kernel, 20 if q.shape[1] > 1 else 200)
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 2,
+                       warmup=1)
+    sdpa, sdpa_out = flash_sdpa(torch, q, k, v, **kw)
+    sdpa_err = float((sdpa_out.float() - fa.flash_attention(q, k, v, **kw)
+                      .float()).abs().max())
+    library_ms = time_ms(sdpa, 20 if q.shape[1] > 1 else 200)
+    pairs = fa.visible_pairs(q.shape[1], causal=kw["causal"],
+                             window=kw["window"], kv_len=kw["kv_len"])
+    b_ms, b_by = flash_bound(q, k, pairs)
+    print(f"[kernel] flash_attention {label} {tuple(q.shape)} x "
+          f"{tuple(k.shape)} {q.dtype}: ms={ms:.5f} plain_ms={plain_ms:.3f} "
+          f"library_ms(sdpa)={library_ms:.5f} (sdpa vs kernel max diff "
+          f"{sdpa_err:.3g}) bound_ms={b_ms:.5f} ({b_by}; {pairs} visible "
+          f"pairs per head)", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
+
+
+def phase_flash(torch, dev) -> dict:
+    """flash_attention against its plain version at the prefill (one KV
+    group), decode and edge shapes in bf16 and f32; times at the path's
+    prefill (B = 4) and decode shapes.  Returns the bf16 prefill row."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    h, kv, hd = DANUBE_HEADS["h"], DANUBE_HEADS["kv"], DANUBE_HEADS["hd"]
+    s, w = SERVE_PROMPT, SERVE_WINDOW
+    pre = dict(causal=True, window=w, kv_len=s)
+    dec = dict(causal=False, window=0, kv_len=w)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        (q, k, v), = flash_inputs(torch, dev, gen, 1, s, s, h // kv, 1, hd,
+                                  dtype)
+        errs[("prefill", dtype)] = flash_check(torch, fa, q, k, v,
+                                               "(a) prefill, one KV group",
+                                               **pre)
+        (q, k, v), = flash_inputs(torch, dev, gen, SERVE_B, 1, w, h, kv, hd,
+                                  dtype)
+        errs[("decode", dtype)] = flash_check(torch, fa, q, k, v,
+                                              "(b) decode", **dec)
+        edges = [  # (b, sq, skv, h, kv, hd, kwargs)
+            (2, 100, 100, 4, 2, 64, dict(causal=False, window=0)),
+            (2, 77, 200, 4, 4, 128, dict(causal=False, window=0, kv_len=150)),
+            (1, 300, 300, 8, 2, 160, dict(causal=True, window=50)),
+            (1, 129, 129, 2, 1, 128, dict(causal=True, window=0)),
+            (2, 200, 200, 8, 8, 64, dict(causal=True, window=33, kv_len=170)),
+            (3, 1, 77, 40, 8, 128, dict(causal=False, window=0, kv_len=61)),
+            (2, 1, 300, 32, 8, 160, dict(causal=False, window=0)),
+        ]
+        for b, sq, skv, hh, kvv, d, kw in edges:
+            (q, k, v), = flash_inputs(torch, dev, gen, b, sq, skv, hh, kvv, d,
+                                      dtype)
+            flash_check(torch, fa, q, k, v, "(c) edge", **kw)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        size = torch.finfo(dtype).bits // 8
+        n = cycling(size * SERVE_B * (s * h + 2 * s * kv) * hd)
+        sets = flash_inputs(torch, dev, gen, SERVE_B, s, s, h, kv, hd, dtype,
+                            n)
+        rows[("prefill", dtype)] = flash_timed(torch, fa, sets,
+                                               "(a) prefill, path 6 shape",
+                                               **pre)
+        del sets
+        n = cycling(size * SERVE_B * 2 * w * kv * hd)
+        sets = flash_inputs(torch, dev, gen, SERVE_B, 1, w, h, kv, hd, dtype,
+                            n)
+        rows[("decode", dtype)] = flash_timed(torch, fa, sets,
+                                              "(b) decode, path 6 shape",
+                                              **dec)
+        del sets
+        torch.cuda.empty_cache()
+    row = dict(rows[("prefill", torch.bfloat16)],
+               max_abs_err=errs[("prefill", torch.bfloat16)])
+    return row
+
+
 def _counters():
     from repro_torch.kernels import (compress, diversity, fedavg_agg,
-                                     stream_update, sub2_pgd)
+                                     flash_attention, stream_update,
+                                     sub2_pgd)
     return {"diversity": diversity.diversity_stats,
             "fedavg_agg": fedavg_agg.fedavg_agg,
             "sub2_pgd": sub2_pgd.sub2_pgd,
             "stream_update": stream_update.stream_update,
             "compress_update": compress.compress_update,
             "fedavg_agg_masked": fedavg_agg.fedavg_agg_masked,
-            "fedavg_agg_stale": fedavg_agg.fedavg_agg_stale}
+            "fedavg_agg_stale": fedavg_agg.fedavg_agg_stale,
+            "flash_attention": flash_attention.flash_attention}
 
 
 def reset_counts():
@@ -916,6 +1104,223 @@ def phase_card_vs_cpu(torch, dev, path: int, horizon: float = 0.0):
     return r_gpu
 
 
+DENSE_ARCHS = ("h2o_danube_3_4b", "codeqwen1_5_7b", "qwen3_14b",
+               "stablelm_12b")
+# Decode parity at full width: the reference's own limit between prefill
+# + decode and forward (tests/test_models.py), max-abs error over the
+# max-abs logit.  The card-vs-CPU limit of the reduced configs (f32,
+# TF32 off): sums in another order.
+SERVE_PARITY_TOL = 2e-2
+# The same at f32 with TF32 off: 24 layers of sums in another order.
+SERVE_F32_PARITY_TOL = 1e-3
+DENSE_CARD_CPU_TOL = 1e-4
+
+
+def profile_device(torch, fn, host_top: int = 0):
+    """Run ``fn`` once under torch.profiler -> (wall us, device busy us,
+    flash_attention's device us); print the ``host_top`` operators with
+    the most host time of their own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("Activity Buffer")]
+    busy = sum(k.time_range.elapsed_us() for k in kernels)
+    flash = sum(k.time_range.elapsed_us() for k in kernels
+                if "flash_attention_" in k.name)
+    if busy <= 0:
+        raise AssertionError("profiler recorded no device time")
+    if host_top:
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        for e in ops[:host_top]:
+            print(f"[profile] host {e.self_cpu_time_total / 1e3:8.3f} ms self "
+                  f"in {e.count:5d} calls  {e.key[:70]}", flush=True)
+    return wall_us, busy, flash
+
+
+def phase_serve(torch, dev) -> dict:
+    """Path 6: h2o-danube-3-4b at full width, served.  Returns the
+    launch counts of its prefill + decode run."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    cfg = configs.get("h2o_danube_3_4b")
+    b, s, n_gen = SERVE_B, SERVE_PROMPT, SERVE_GEN
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = transformer.init(gen, cfg)
+    sp = transformer.serving_params(params, cfg)
+    del params
+    torch.cuda.synchronize()
+    print(f"[path 6] {cfg.name}: {transformer.param_count(cfg)} parameters "
+          f"(f32 init, kept as a {cfg.dtype_compute} copy) in "
+          f"{time.perf_counter() - t0:.2f}s; {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads / "
+          f"{cfg.num_kv_heads} KV heads of {cfg.resolved_head_dim}, window "
+          f"{cfg.sliding_window}", flush=True)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev)
+    pad_to = s + n_gen + 1
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(sp, prompt, cfg, pad_to=pad_to)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("path 6: non-finite prefill logits")
+    tok = logits[:, -1].argmax(-1)[:, None]
+    first_tok = tok
+    logits, cache = transformer.decode_step(sp, tok, cache, s, cfg)
+    first_logits = logits.clone()
+    tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, n_gen):
+        logits, cache = transformer.decode_step(sp, tok, cache, s + i, cfg)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (n_gen - 1)
+    counts = read_counts()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("path 6: non-finite decode logits")
+    want = dict.fromkeys(_counters(), 0)
+    want["flash_attention"] = cfg.num_layers * (1 + n_gen)
+    print(f"[path 6] B={b} prompt {s}, pad_to {pad_to}: prefill cold "
+          f"{cold:.3f}s; decode {n_gen} greedy steps, warm "
+          f"{step_s * 1e3:.3f} ms per step = {b / step_s:.1f} tokens/s; "
+          f"launches {counts}", flush=True)
+    if counts != want:
+        raise AssertionError(f"path 6 launch counts {counts}, expected "
+                             f"{want}")
+    del cache
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(sp, prompt, cfg, pad_to=pad_to)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[path 6] prefill warm {warm:.3f}s; max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+    wall, busy, flash = profile_device(
+        torch, lambda: transformer.decode_step(sp, tok, cache, s + n_gen,
+                                               cfg), host_top=12)
+    print(f"[path 6] profiled decode step: wall {wall / 1e3:.3f} ms, device "
+          f"busy {busy / 1e3:.3f} ms, idle share {1 - busy / wall:.3f} "
+          f"(against the unprofiled warm step: "
+          f"{1 - busy / (step_s * 1e6):.3f}); flash_attention "
+          f"{flash / 1e3:.3f} ms = {flash / busy:.3f} of device time",
+          flush=True)
+    del cache
+    wall, busy, flash = profile_device(
+        torch, lambda: transformer.prefill(sp, prompt, cfg, pad_to=pad_to))
+    print(f"[path 6] profiled prefill: wall {wall / 1e3:.1f} ms, device "
+          f"busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall:.3f}; "
+          f"flash_attention {flash / 1e3:.1f} ms = {flash / busy:.3f} of "
+          f"device time", flush=True)
+    rel, _ = serve_parity(torch, transformer, sp, cfg, prompt, first_tok,
+                          first_logits, "bf16")
+    if not rel < SERVE_PARITY_TOL:
+        raise AssertionError(f"path 6 decode parity rel err {rel}")
+    del sp, first_logits
+    torch.cuda.empty_cache()
+    # The same weights in f32 (TF32 off): prefill, one decode step and
+    # forward must pick the same greedy tokens.  In bf16 a token can flip
+    # where the top two logits lie within the parity error (a near tie
+    # of the random weights); in f32 that error is some 1e-5.
+    cfg32 = dataclasses.replace(cfg, dtype_compute="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    p32 = transformer.init(gen, cfg32)
+    logits, cache = transformer.prefill(p32, prompt, cfg32, pad_to=pad_to)
+    tok32 = logits[:, -1].argmax(-1)[:, None]
+    logits, cache = transformer.decode_step(p32, tok32, cache, s, cfg32)
+    del cache
+    rel32, same = serve_parity(torch, transformer, p32, cfg32, prompt, tok32,
+                               logits, "f32")
+    if not (rel32 < SERVE_F32_PARITY_TOL and same):
+        raise AssertionError(f"path 6 f32: decode parity rel err {rel32}, "
+                             f"same greedy tokens {same}")
+    del p32
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_parity(torch, transformer, params, cfg, prompt, tok, logits,
+                 label: str) -> tuple[float, bool]:
+    """``forward(prompt + tok)`` at the last position against the first
+    decode step's ``logits``: max-abs error over the max-abs logit, and
+    whether both pick the same greedy tokens (printed with forward's
+    top-two margin per sequence)."""
+    full = torch.cat([prompt, tok], dim=1)
+    ref, _ = transformer.forward(params, full, cfg)
+    a, d = ref[:, -1].float(), logits[:, 0].float()
+    del ref
+    rel = float((a - d).abs().max() / a.abs().max())
+    top = a.topk(2, dim=-1).values
+    margin = (top[:, 0] - top[:, 1]) / a.abs().max()
+    same = torch.equal(a.argmax(-1), d.argmax(-1))
+    print(f"[path 6] {label} decode parity vs forward at position "
+          f"{prompt.shape[1]}: rel err {rel:.3g} (limit "
+          f"{SERVE_PARITY_TOL if label == 'bf16' else SERVE_F32_PARITY_TOL:g}"
+          f"); greedy tokens forward "
+          f"{a.argmax(-1).tolist()} decode {d.argmax(-1).tolist()} "
+          f"({'same' if same else 'differ'}); forward's top-two margin per "
+          f"sequence over the max logit "
+          f"{[f'{m:.2e}' for m in margin.tolist()]}",
+          flush=True)
+    return rel, same
+
+
+def phase_dense_card_vs_cpu(torch, dev) -> None:
+    """The four dense configs at ``reduced()``: the same weights and
+    tokens on the card and the CPU (f32, TF32 off), prefill of 150
+    tokens (past danube's reduced 128-slot window) and 3 decode steps."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, s, steps = 2, 150, 3
+    for arch in DENSE_ARCHS:
+        cfg = configs.get(arch).reduced()
+        gen = torch.Generator().manual_seed(SEED + 8)
+        params = transformer.init(gen, cfg)
+        tokens = torch.randint(0, cfg.vocab_size, (b, s + steps),
+                               generator=gen)
+        outs = {}
+        for device in ("cpu", dev):
+            p = _to(params, device)
+            t = tokens.to(device)
+            logits, cache = transformer.prefill(p, t[:, :s], cfg,
+                                                pad_to=s + steps)
+            got = [logits]
+            for i in range(steps):
+                logits, cache = transformer.decode_step(
+                    p, t[:, s + i:s + i + 1], cache, s + i, cfg)
+                got.append(logits)
+            outs[str(device)] = [x.float().cpu() for x in got]
+        rel = max(float((c - g).abs().max() / c.abs().max())
+                  for c, g in zip(outs["cpu"], outs[str(dev)]))
+        print(f"[card-vs-cpu] {cfg.name} reduced: prefill + {steps} decode "
+              f"steps, logits max rel err {rel:.3g} (limit "
+              f"{DENSE_CARD_CPU_TOL:g})", flush=True)
+        if not rel <= DENSE_CARD_CPU_TOL:
+            raise AssertionError(f"{cfg.name}: card and CPU logits differ "
+                                 f"by {rel}")
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def half_median_round_time(recs) -> float:
     times = sorted(r.round_time for r in recs)
     mid = len(times) // 2
@@ -939,6 +1344,8 @@ KERNELS = {
                           "src/repro/kernels/fedavg_agg.py:100"),
     "fedavg_agg_stale": ("src/repro_torch/csrc/fedavg_agg.cu",
                          "src/repro/kernels/fedavg_agg.py:58"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:90"),
 }
 
 
@@ -971,6 +1378,7 @@ def main() -> int:
         "compress_update": phase_compress(torch, dev, "quant", 100, P_CNN),
         "fedavg_agg_masked": phase_masked(torch, dev, 100, P_CNN),
         "fedavg_agg_stale": phase_stale(torch, dev, 100, P_CNN),
+        "flash_attention": phase_flash(torch, dev),
     }
     phase_fedavg(torch, dev, 100, P_MLP)
     phase_sub2(torch, dev, 16, 100)
@@ -986,7 +1394,8 @@ def main() -> int:
     # from zero just before that path's run.
     owner = {"diversity": 1, "fedavg_agg": 1, "sub2_pgd": 1,
              "stream_update": 2, "fedavg_agg_masked": 2,
-             "compress_update": 3, "fedavg_agg_stale": 4}
+             "compress_update": 3, "fedavg_agg_stale": 4,
+             "flash_attention": 6}
     by_path, recs = {}, {}
     for path in (1, 2, 3):
         by_path[path], recs[path] = phase_path(torch, dev, data, net, wcfg,
@@ -1004,6 +1413,8 @@ def main() -> int:
     phase_profile(torch, dev, data, net, wcfg, 4, horizon=horizon)
     r16 = {path: phase_card_vs_cpu(torch, dev, path) for path in (1, 2, 3)}
     phase_card_vs_cpu(torch, dev, 4, horizon=half_median_round_time(r16[1]))
+    by_path[6] = phase_serve(torch, dev)
+    phase_dense_card_vs_cpu(torch, dev)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=by_path[owner[name]][name], **results[name])

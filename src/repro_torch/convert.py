@@ -72,3 +72,25 @@ def dataset_from_numpy(*, images, labels, mask, sizes, test_images,
         sizes=torch.from_numpy(np.array(sizes, np.int32)),
         test_images=torch.from_numpy(np.array(test_images, np.uint8)),
         test_labels=torch.from_numpy(np.array(test_labels, np.int32)))
+
+
+def transformer_params_from_numpy(params_np, cfg, device=None) -> dict:
+    """The model zoo's parameters from the reference's pytree as numpy.
+
+    ``params_np`` is ``{"embed", "layers": {"pos<i>": {... stacked
+    (num_groups, ...)}}, "final_norm", "lm_head"}``, as
+    ``repro.models.transformer.init`` builds it; the port keeps the same
+    nesting, shapes and (in, out) weight layout, so each leaf becomes a
+    tensor of its dtype on ``device``.  ``cfg`` is checked against the
+    port's support (``transformer.check_supported``).
+    """
+    from repro_torch.models import transformer
+    transformer.check_supported(cfg)
+
+    def conv(tree):
+        if isinstance(tree, Mapping):
+            return {k: conv(v) for k, v in tree.items()}
+        return torch.from_numpy(np.array(tree)).to(device)
+
+    return conv(params_np)
+

@@ -48,6 +48,10 @@ SIGNATURES = {
     "diversity_stats": [_P, _P, _P, _I, _I, _I, _P],
     "sub2_pgd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                  _F, _F, _F, _F, _I, _F, _F, _I, _P],
+    "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _F, _P],
+    "flash_attention_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _F, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

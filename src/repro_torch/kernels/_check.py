@@ -1,4 +1,5 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks shared by the kernel wrappers, and the check of a
+bf16 result against its f32 answer."""
 
 from __future__ import annotations
 
@@ -23,3 +24,19 @@ def cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
 def stream_handle(device: torch.device) -> int:
     """PyTorch's current CUDA stream on ``device``, as a raw handle."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def bf16_rounding_ratio(got: torch.Tensor, want: torch.Tensor,
+                        slack: float) -> float:
+    """Largest ``|got - want| / (half a bf16 ulp of want + slack)``.
+
+    ``got`` is a bf16 result and ``want`` the f32 answer on the same
+    input values.  A result rounded to nearest from an f32 value within
+    ``slack`` of ``want`` reads at most 1; one that truncates, or that
+    rounds an intermediate to bf16, reads up to about 2 where the ulp
+    outweighs ``slack``."""
+    want = want.float()
+    _, exp = torch.frexp(want)      # |want| in [2**(exp-1), 2**exp)
+    half_ulp = torch.ldexp(torch.ones_like(want), exp - 9)  # 8-bit mantissa
+    half_ulp = torch.where(want == 0, torch.zeros_like(want), half_ulp)
+    return float(((got.float() - want).abs() / (half_ulp + slack)).max())

@@ -1,0 +1,398 @@
+"""The port's dense model zoo against the JAX package.
+
+``repro_torch.models`` (config, common, attention, moe's dense MLP,
+transformer) and ``repro_torch.configs`` are held against
+``repro.models`` / ``repro.configs`` on the same weights (the
+reference's ``init`` converted with
+``convert.transformer_params_from_numpy``) and numpy-seeded tokens:
+``forward`` logits, ``prefill`` logits and every cache tensor, and
+``decode_step``, for the four dense configurations at
+``reduced(num_layers=2)`` (f32).  Limit 1e-4 relative to the largest
+logit (or cache value): the two frameworks sum matmuls in another
+order; about 1e-6 is read.  Attention runs through the
+``flash_attention`` wrapper, i.e. its plain version on the CPU.
+"""
+
+import ast
+import dataclasses
+import pathlib
+import runpy
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.configs import shapes as jshapes  # noqa: E402
+from repro.models import common as jcommon  # noqa: E402
+from repro.models import transformer as jt  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import shapes as tshapes  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.models import common as tcommon  # noqa: E402
+from repro_torch.models import transformer as tt  # noqa: E402
+
+DENSE = ("h2o_danube_3_4b", "codeqwen1_5_7b", "qwen3_14b", "stablelm_12b")
+TOL = 1e-4
+# bf16 compute: the two frameworks round bf16 intermediates at other
+# places (matmul outputs, activations; the reference also rounds the
+# softmax probabilities before p.v, attention.py:137, where the kernel
+# keeps them in f32), and two layers carry that to about 1e-2 of the
+# largest logit.  The reference's own decode-parity limit
+# (tests/test_models.py).
+BF16_TOL = 2e-2
+EXAMPLE = pathlib.Path(__file__).resolve().parents[1] / "examples" / \
+    "serve_decode_torch.py"
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Tiny shapes: one intra-op thread, so the test workers that share
+    the machine do not oversubscribe its cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _rel(want, got) -> float:
+    want = np.asarray(want, np.float32)
+    got = np.asarray(got, np.float32)
+    return float(np.abs(want - got).max() / max(np.abs(want).max(), 1e-6))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    """A copy: decode_step later updates the port's cache in place."""
+    return t.detach().float().numpy().copy()
+
+
+def _pair(jcfg, seed: int = 0):
+    """The reference's params and the port's copy of them."""
+    params = jt.init(jax.random.key(seed), jcfg)
+    tcfg = _port_cfg(jcfg)
+    tp = convert.transformer_params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, params), tcfg)
+    return params, tp, tcfg
+
+
+def _port_cfg(jcfg):
+    from repro_torch.models.config import LayerSpec, ModelConfig
+    fields = dataclasses.asdict(jcfg)
+    fields["pattern"] = tuple(LayerSpec(**s) for s in fields["pattern"])
+    return ModelConfig(**fields)
+
+
+def _tokens(vocab: int, b: int, s: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, vocab, (b, s)) \
+        .astype(np.int32)
+
+
+def _run_both(jcfg, b=2, s=37, gen_pad=8, seed=0):
+    """forward / prefill / decode_step of both on one set of weights."""
+    params, tp, tcfg = _pair(jcfg, seed)
+    full = _tokens(jcfg.vocab_size, b, s + 1, seed + 1)
+    tfull = torch.from_numpy(full).long()
+    out = {}
+    out["forward"] = (jt.forward(params, jnp.asarray(full), jcfg)[0],
+                      tt.forward(tp, tfull, tcfg)[0])
+    jl, jc = jt.prefill(params, jnp.asarray(full[:, :s]), jcfg,
+                        pad_to=s + gen_pad)
+    tl, tc = tt.prefill(tp, tfull[:, :s], tcfg, pad_to=s + gen_pad)
+    out["prefill"] = (jl, tl)
+    out["cache"] = {f"{pos}/{k}": (np.asarray(jc[pos][k]), _np(tc[pos][k]))
+                    for pos in jc for k in jc[pos]}
+    jd, _ = jt.decode_step(params, jnp.asarray(full[:, s:]), jc,
+                           jnp.asarray(s), jcfg)
+    td, _ = tt.decode_step(tp, tfull[:, s:], tc, s, tcfg)
+    out["decode"] = (jd, td)
+    return out
+
+
+@pytest.fixture(scope="module")
+def dense_runs():
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            cache[arch] = _run_both(jconfigs.get(arch).reduced(num_layers=2))
+        return cache[arch]
+    return get
+
+
+# ---------------------------------------------------------------------------
+# Configurations
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_config_matches_reference(arch):
+    """The port's copies of the configuration modules: every field, at
+    full width and reduced, and the registry's aliases."""
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    j, t = jconfigs.get(arch), tconfigs.get(arch)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert dataclasses.asdict(t.reduced()) == dataclasses.asdict(j.reduced())
+    assert t.supports_long_context() == j.supports_long_context()
+    assert tconfigs.canonical(j.name) == jconfigs.canonical(j.name) == arch
+    for shape in jshapes.SHAPES:
+        assert tshapes.applicable(t, tshapes.get_shape(shape.name)) == \
+            jshapes.applicable(j, shape)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_param_count_matches_reference(arch):
+    assert tt.param_count(tconfigs.get(arch)) == \
+        jt.param_count(jconfigs.get(arch))
+
+
+# ---------------------------------------------------------------------------
+# common
+# ---------------------------------------------------------------------------
+
+def _x(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape) \
+        .astype(np.float32)
+
+
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])
+def test_norms_match_reference(norm):
+    x, scale, bias = _x((3, 5, 48), 1), _x((48,), 2), _x((48,), 3)
+    if norm == "rmsnorm":
+        want = jcommon.rmsnorm(jnp.asarray(x), jnp.asarray(scale), 1e-6)
+        got = tcommon.rmsnorm(torch.from_numpy(x), torch.from_numpy(scale),
+                              1e-6)
+    else:
+        want = jcommon.layernorm(jnp.asarray(x), jnp.asarray(scale),
+                                 jnp.asarray(bias), 1e-5)
+        got = tcommon.layernorm(torch.from_numpy(x), torch.from_numpy(scale),
+                                torch.from_numpy(bias), 1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("fraction,hd", [(1.0, 64), (0.25, 160)])
+def test_rope_matches_reference(fraction, hd):
+    """Full and partial rotary (stablelm's 25 %), interleaved pairs."""
+    pos = np.tile(np.arange(40)[None], (2, 1)) + np.array([[0], [300]])
+    x = _x((2, 40, 3, hd), 4)
+    js, jc = jcommon.rope_sin_cos(jnp.asarray(pos), hd, 1e4, fraction)
+    ts, tc = tcommon.rope_sin_cos(torch.from_numpy(pos), hd, 1e4, fraction)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-6)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-6)
+    want = jcommon.apply_rope(jnp.asarray(x), js, jc)
+    got = tcommon.apply_rope(torch.from_numpy(x), ts, tc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The model, the four dense configurations at reduced size
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_matches_reference(dense_runs, arch):
+    want, got = dense_runs(arch)["forward"]
+    assert tuple(got.shape) == want.shape
+    assert _rel(want, _np(got)) < TOL
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_logits_and_cache_match_reference(dense_runs, arch):
+    run = dense_runs(arch)
+    want, got = run["prefill"]
+    assert tuple(got.shape) == want.shape
+    assert _rel(want, _np(got)) < TOL
+    for name, (w, g) in run["cache"].items():
+        assert g.shape == w.shape, name
+        assert _rel(w, g) < TOL, name
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_step_matches_reference(dense_runs, arch):
+    want, got = dense_runs(arch)["decode"]
+    assert tuple(got.shape) == want.shape
+    assert _rel(want, _np(got)) < TOL
+    # ... and the reference's own parity: decode == forward at the end.
+    fwd = dense_runs(arch)["forward"][0]
+    assert _rel(np.asarray(fwd)[:, -1], _np(got)[:, 0]) < TOL
+
+
+def test_swa_ring_wraparound_matches_reference():
+    """tests/test_models.py::test_swa_ring_wraparound: a 100-token prompt
+    over a 32-slot ring; the port's ring layout and its decode against
+    the reference's."""
+    jcfg = jconfigs.get("h2o_danube_3_4b").reduced(sliding_window=32,
+                                                   num_layers=2)
+    run = _run_both(jcfg, b=1, s=100, seed=3)
+    for name, (w, g) in run["cache"].items():
+        assert g.shape == w.shape == (2, 1, 32, 4, 64), name
+        assert _rel(w, g) < TOL, name
+    want, got = run["decode"]
+    assert _rel(want, _np(got)) < TOL
+    assert _rel(np.asarray(run["forward"][0])[:, -1], _np(got)[:, 0]) < TOL
+
+
+def test_bias_gelu_layernorm_decoder_matches_reference():
+    """The MLP's GELU and the projection biases, which no dense config
+    of the zoo turns on: whisper's decoder stack as a plain causal
+    decoder with RoPE."""
+    jcfg = dataclasses.replace(
+        jconfigs.get("whisper_small").reduced(num_layers=2),
+        encoder_layers=0, cross_attention=False, pos_embedding="rope")
+    params = jt.init(jax.random.key(5), jcfg)
+    # Non-zero biases, so the test sees them.
+    rng = np.random.default_rng(5)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, a: a + rng.standard_normal(a.shape).astype(np.float32)
+        * 0.1 if str(path[-1].key).startswith("b") else a, params)
+    tcfg = _port_cfg(jcfg)
+    tp = convert.transformer_params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, params), tcfg)
+    full = _tokens(jcfg.vocab_size, 2, 30, 6)
+    want, _ = jt.forward(params, jnp.asarray(full), jcfg)
+    got, _ = tt.forward(tp, torch.from_numpy(full).long(), tcfg)
+    assert _rel(want, _np(got)) < TOL
+    _, jc = jt.prefill(params, jnp.asarray(full[:, :29]), jcfg, pad_to=32)
+    _, tc = tt.prefill(tp, torch.from_numpy(full[:, :29]).long(), tcfg,
+                       pad_to=32)
+    jd, _ = jt.decode_step(params, jnp.asarray(full[:, 29:]), jc,
+                           jnp.asarray(29), jcfg)
+    td, _ = tt.decode_step(tp, torch.from_numpy(full[:, 29:]).long(), tc,
+                           29, tcfg)
+    assert _rel(jd, _np(td)) < TOL
+
+
+def test_bf16_compute_matches_reference():
+    """bf16 activations with f32 weights (the published setting), held at
+    BF16_TOL (see there); at f32 the same model agrees to 1e-6."""
+    jcfg = jconfigs.get("h2o_danube_3_4b").reduced(
+        num_layers=2, dtype_compute="bfloat16")
+    run = _run_both(jcfg, b=2, s=45, seed=7)
+    for stage in ("forward", "prefill", "decode"):
+        want, got = run[stage]
+        assert got.dtype == torch.bfloat16
+        assert _rel(want, _np(got)) < BF16_TOL, stage
+
+
+# ---------------------------------------------------------------------------
+# The port's own contracts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,item", [
+    ("mixtral_8x22b", "17b"), ("qwen3_moe_235b_a22b", "17b"),
+    ("jamba_1_5_large_398b", "17e"), ("xlstm_125m", "17d"),
+    ("qwen2_vl_72b", "17f"), ("whisper_small", "17g")])
+def test_unported_architectures_raise(arch, item):
+    cfg = tconfigs.get(arch).reduced()
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+        tt.init(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+        tt.forward({}, torch.zeros((1, 4), dtype=torch.long), cfg)
+
+
+def test_ssm_mixer_raises():
+    cfg = dataclasses.replace(
+        tconfigs.get("jamba_1_5_large_398b").reduced(),
+        pattern=(tconfigs.get("jamba_1_5_large_398b").pattern[1],))
+    assert {s.mixer for s in cfg.pattern} == {"mamba"}
+    with pytest.raises(NotImplementedError, match="ROADMAP item 17c"):
+        tt.init(torch.Generator(), cfg)
+
+
+def test_serving_params_and_in_place_cache():
+    """The compute-dtype copy gives the same logits as casting at each
+    use; norms stay f32; decode_step updates the cache in place and
+    takes the position only as a host int."""
+    cfg = tconfigs.get("h2o_danube_3_4b").reduced(
+        num_layers=2, dtype_compute="bfloat16")
+    params = tt.init(torch.Generator().manual_seed(0), cfg)
+    sp = tt.serving_params(params, cfg)
+    assert sp["layers"]["pos0"]["mixer"]["wq"].dtype == torch.bfloat16
+    assert sp["embed"].dtype == sp["lm_head"].dtype == torch.bfloat16
+    assert sp["layers"]["pos0"]["norm1"]["scale"].dtype == torch.float32
+    assert sp["final_norm"]["scale"].dtype == torch.float32
+    tokens = torch.from_numpy(_tokens(cfg.vocab_size, 2, 20, 1)).long()
+    assert torch.equal(tt.forward(params, tokens, cfg)[0],
+                       tt.forward(sp, tokens, cfg)[0])
+    _, cache = tt.prefill(sp, tokens[:, :19], cfg, pad_to=24)
+    k0 = cache["pos0"]["k"]
+    before = k0.clone()
+    _, out = tt.decode_step(sp, tokens[:, 19:], cache, 19, cfg)
+    assert out is cache and out["pos0"]["k"] is k0
+    assert not torch.equal(k0[:, :, 19], before[:, :, 19])
+    with pytest.raises(TypeError, match="host int"):
+        tt.decode_step(sp, tokens[:, 19:], cache, torch.tensor(20), cfg)
+
+
+def test_init_cache_matches_reference_layout():
+    """The reference's ``init_cache`` layout, except that an SWA ring
+    always holds the whole window, as the reference's ``prefill`` lays
+    it (danube's reduced window is 128, so max_len 50 tells them
+    apart)."""
+    for arch in ("h2o_danube_3_4b", "codeqwen1_5_7b"):
+        jcfg = jconfigs.get(arch).reduced(num_layers=2)
+        tcfg = tconfigs.get(arch).reduced(num_layers=2)
+        for max_len in (50, 300):
+            jc = jt.init_cache(jcfg, 2, max_len)
+            tc = tt.init_cache(tcfg, 2, max_len)
+            assert {p: set(d) for p, d in tc.items()} == \
+                {p: set(d) for p, d in jc.items()}
+            for i, spec in enumerate(tcfg.pattern):
+                want = jc[f"pos{i}"]["k"].shape
+                if spec.sliding_window and tcfg.sliding_window:
+                    want = want[:2] + (tcfg.sliding_window,) + want[3:]
+                for name, t in tc[f"pos{i}"].items():
+                    assert tuple(t.shape) == want, (arch, max_len, name)
+
+
+def test_decode_launches_nothing_on_the_cpu():
+    """On CPU tensors the attention path takes the plain version."""
+    cfg = tconfigs.get("qwen3_14b").reduced(num_layers=2)
+    params = tt.init(torch.Generator().manual_seed(1), cfg)
+    before = tfa.flash_attention.launches
+    tokens = torch.from_numpy(_tokens(cfg.vocab_size, 1, 9, 2)).long()
+    _, cache = tt.prefill(params, tokens, cfg, pad_to=12)
+    tt.decode_step(params, tokens[:, -1:], cache, 9, cfg)
+    assert tfa.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "codeqwen1.5-7b"])
+def test_serve_example_runs_on_cpu(arch, monkeypatch, capsys):
+    monkeypatch.setattr(sys, "argv", [
+        "serve_decode_torch.py", "--device", "cpu", "--arch", arch,
+        "--batch", "2", "--prompt-len", "16", "--gen", "4"])
+    runpy.run_path(str(EXAMPLE), run_name="__main__")
+    out = capsys.readouterr().out
+    assert "prefill 2x16" in out and "generated 4 tokens x 2 seqs" in out
+    assert len(ast.literal_eval(out.split("first sequence:")[1].strip())) == 5
+
+
+def main() -> None:
+    """Print the readings the parity tests hold (relative errors)."""
+    torch.set_num_threads(1)
+    for arch in DENSE:
+        run = _run_both(jconfigs.get(arch).reduced(num_layers=2))
+        cache = max(_rel(w, g) for w, g in run["cache"].values())
+        print(f"{arch}: " + ", ".join(
+            f"{k} {_rel(run[k][0], _np(run[k][1])):.2e}"
+            for k in ("forward", "prefill", "decode"))
+            + f", cache {cache:.2e} (limit {TOL:g})")
+    ring = _run_both(jconfigs.get("h2o_danube_3_4b").reduced(
+        sliding_window=32, num_layers=2), b=1, s=100, seed=3)
+    print(f"ring (window 32, prompt 100): decode "
+          f"{_rel(ring['decode'][0], _np(ring['decode'][1])):.2e}")
+    bf16 = _run_both(jconfigs.get("h2o_danube_3_4b").reduced(
+        num_layers=2, dtype_compute="bfloat16"), b=2, s=45, seed=7)
+    print("bf16 compute: " + ", ".join(
+        f"{k} {_rel(bf16[k][0], _np(bf16[k][1])):.2e}"
+        for k in ("forward", "prefill", "decode"))
+        + f" (limit {BF16_TOL:g})")
+
+
+if __name__ == "__main__":
+    main()
