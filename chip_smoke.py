@@ -52,7 +52,11 @@ each phase failing the script on error:
 
 The kernel phase also holds ``flash_attention`` against its plain
 version at the prefill (one KV group), decode and edge-case shapes, in
-bf16 and f32, and times it beside SDPA.
+bf16 and f32, each launch after every SM's shared memory is filled with
+NaN and with the keys past ``kv_len`` set to NaN, and times it beside
+SDPA.  It has two rows in the kernels line: ``flash_attention``, the
+bf16 prefill on the tensor cores, and ``flash_attention_decode``, the
+decode kernel, each with its route's launches on path 6.
 
 The last two lines are the ``kernels`` JSON record and the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -415,18 +419,52 @@ def phase_stale(torch, dev, k: int, p: int) -> dict:
                 bound_by=b_by, library_ms=library_ms)
 
 
-# Flash attention at danube's head geometry.  f32: within 1e-5 of the
-# plain version (tests/test_kernels.py::_tol of the reference; sums in
-# another order).  bf16: each output within half a bf16 ulp of the plain
-# version's f32 answer on the same input values, plus that 1e-5 -- what
-# f32 arithmetic rounded to nearest once at the store gives; a store that
-# truncates, or a bf16 intermediate, reads up to 2.
+# Flash attention at danube's head geometry.  f32 (both routes): within
+# 1e-5 of the plain version (tests/test_kernels.py::_tol of the reference;
+# sums in another order).  bf16 decode: each output within half a bf16 ulp
+# of the plain version's f32 answer on the same input values, plus that
+# 1e-5 -- what f32 arithmetic rounded to nearest once at the store gives;
+# a store that truncates, or a bf16 intermediate, reads up to 2.  bf16
+# prefill (tensor cores, p rounded to bf16 for p . v): (a) each output
+# within half an ulp + 2**-8 of the softmax-weighted mean of |v| + 1e-5
+# of the f32 answer (_check.bf16_prefill_ratio <= 1) and (b) the median
+# of (got - want) sign(want) / half_ulp(want) within 0.25 of 0 (rounding
+# to nearest reads about 0, truncation about -1).
 FLASH_TOL = 1e-5
+FLASH_BIAS_LIMIT = 0.25
 # Peak rates for the operations bound: bf16 on the tensor cores (dense),
 # f32 outside them.
 PEAK_OPS = {"float32": F32_OPS_PER_S, "bfloat16": BF16_OPS_PER_S}
 DANUBE_HEADS = dict(h=32, kv=8, hd=120)
 SERVE_B, SERVE_PROMPT, SERVE_GEN, SERVE_WINDOW = 4, 5000, 32, 4096
+# Edge shapes of the flash kernels, (b, sq, skv, h, kv, hd, kwargs): head
+# widths 64, 120, 128, 160 (and 256); groups G = H / KV of 1, 2, 4, 5 (and
+# 16, two decode blocks per KV head); Sq below 64 and not a multiple of
+# 64; windows 33, 50 and 4096; kv_len < Skv; one query (decode), also
+# with a cache shorter than the decode kernel's K ring at hd 120, where
+# the mma's last k-step reads past each row.
+FLASH_EDGES = [
+    (2, 100, 100, 4, 4, 64, dict(causal=False, window=0)),
+    (2, 77, 200, 4, 4, 128, dict(causal=False, window=0, kv_len=150)),
+    (1, 300, 300, 8, 2, 160, dict(causal=True, window=50)),
+    (1, 129, 129, 2, 1, 128, dict(causal=True, window=0)),
+    (2, 200, 200, 8, 8, 64, dict(causal=True, window=33, kv_len=170)),
+    (1, 40, 40, 10, 2, 120, dict(causal=True, window=0)),
+    (2, 333, 333, 10, 2, 128, dict(causal=True, window=33)),
+    (1, 250, 250, 5, 1, 160, dict(causal=True, window=0, kv_len=200)),
+    (2, 50, 50, 4, 1, 64, dict(causal=True, window=0)),
+    (1, 190, 190, 3, 3, 120, dict(causal=True, window=50)),
+    (1, 130, 130, 2, 2, 160, dict(causal=False, window=0)),
+    (1, 260, 260, 8, 2, 128, dict(causal=True, window=0)),
+    (1, 2, 2, 4, 1, 120, dict(causal=True, window=0)),
+    (1, 4500, 4500, 4, 1, 120, dict(causal=True, window=4096)),
+    (3, 1, 77, 40, 8, 128, dict(causal=False, window=0, kv_len=61)),
+    (2, 1, 300, 32, 8, 160, dict(causal=False, window=0)),
+    (2, 1, 500, 32, 2, 128, dict(causal=False, window=0, kv_len=333)),
+    (2, 1, 100, 6, 1, 256, dict(causal=False, window=0)),
+    (2, 1, 96, 8, 2, 120, dict(causal=False, window=0, kv_len=70)),
+    (1, 1, 40, 4, 1, 120, dict(causal=False, window=0)),
+]
 
 
 def flash_inputs(torch, dev, gen, b, sq, skv, h, kv, hd, dtype, copies=1):
@@ -444,14 +482,45 @@ def flash_check(torch, fa, q, k, v, label: str, **kw) -> float:
     """The kernel against its plain version (see FLASH_TOL); returns the
     max abs error against the plain version on the same inputs.  The
     plain version runs in f32 whatever the input type, so its f32 answer
-    cast to the input type is its output."""
+    cast to the input type is its output.  The call must go through the
+    kernel of its route.  Keys past ``kv_len`` are set to NaN and every
+    SM's shared memory is filled with NaN just before the launch, so the
+    output is finite only if the kernel reads neither."""
     from repro_torch.kernels import _check
+    route = fa.route(q.dtype, q.shape[1])
+    k = k.clone()
+    k[:, kw.get("kv_len", k.shape[1]):] = float("nan")
+    before = dict(fa.flash_attention.route_launches)
+    _check.fill_shared_memory(q.device)
     got = fa.flash_attention(q, k, v, **kw)
     want = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
     torch.cuda.synchronize()
+    routed = {r: n - before[r]
+              for r, n in fa.flash_attention.route_launches.items()}
+    if routed != {r: int(r == route) for r in routed}:
+        raise AssertionError(f"flash_attention {label}: launches {routed}, "
+                             f"expected one through {route}")
+    if not bool(got.isfinite().all()):
+        raise AssertionError(f"flash_attention {label}: non-finite output "
+                             f"after NaN shared memory and masked keys")
     err = float((got - want.to(q.dtype)).float().abs().max())
     if q.dtype == torch.float32:
         ok, read = err <= FLASH_TOL, f"(limit {FLASH_TOL:g})"
+    elif route == "prefill_tc":
+        want_abs_v = fa.flash_attention_plain(q.float(), k.float(),
+                                              v.float().abs(), **kw)
+        ratio = _check.bf16_prefill_ratio(got, want, want_abs_v, FLASH_TOL)
+        bias = _check.bf16_rounding_bias(got, want)
+        nz = want != 0
+        mean = float(((got.float() - want) * torch.sign(want))[nz].div(
+            _check.half_bf16_ulp(want)[nz]).mean())
+        ok = ratio <= 1.0 and abs(bias) <= FLASH_BIAS_LIMIT
+        read = (f"(bf16 plain output); against the f32 answer "
+                f"{float((got.float() - want).abs().max()):.3g}, (a) worst "
+                f"/ (half ulp + 2^-8 mean|v| + {FLASH_TOL:g}) = {ratio:.4f} "
+                f"(limit 1), (b) median signed error in half ulps = "
+                f"{bias:.4f} (limit +-{FLASH_BIAS_LIMIT:g}; the mean, "
+                f"unused, {mean:.3f})")
     else:
         ratio = _check.bf16_rounding_ratio(got, want, FLASH_TOL)
         ok = ratio <= 1.0
@@ -459,8 +528,8 @@ def flash_check(torch, fa, q, k, v, label: str, **kw) -> float:
                 f"{float((got.float() - want).abs().max()):.3g}, worst / "
                 f"(half bf16 ulp + {FLASH_TOL:g}) = {ratio:.4f} (limit 1)")
     print(f"[kernel] flash_attention {label} {tuple(q.shape)} x "
-          f"{tuple(k.shape)} {q.dtype} {kw}: max_abs_err={err:.3g} {read}",
-          flush=True)
+          f"{tuple(k.shape)} {q.dtype} {kw} route {route}: "
+          f"max_abs_err={err:.3g} {read}", flush=True)
     if not ok:
         raise AssertionError(f"flash_attention {label}: {read}")
     return err
@@ -499,29 +568,84 @@ def flash_sdpa(torch, q, k, v, *, causal, window, kv_len):
     return call, call().transpose(1, 2)
 
 
+def graph_ms(torch, fn, calls: int) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one
+    CUDA graph and replayed, so the host's per-call work (checks, tensor
+    maps, the launch itself) is not counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / calls
+
+
+def host_issue_us(torch, fn, calls: int) -> float:
+    """Host time per call of issuing ``calls`` calls back to back (the
+    device catches up after): what the wrapper and the launch cost the
+    host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    issue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return issue / calls * 1e6
+
+
 def flash_timed(torch, fa, sets, label: str, **kw) -> dict:
-    """Kernel, plain and SDPA ms of one shape (inputs cycled past L2)."""
+    """Kernel, plain and SDPA ms of one shape (inputs cycled past L2).
+    ``ms`` and ``library_ms`` time a host loop of back-to-back calls, as
+    every other kernel's row does; printed beside them, the device times
+    of the same calls replayed from a CUDA graph (no host work between
+    launches) and the host's own time per call."""
     q, k, v = sets[0]
     n = len(sets)
     it = iter(range(10 ** 9))
+    calls = 20 if q.shape[1] > 1 else 200
 
     def kernel():
         return fa.flash_attention(*sets[next(it) % n], **kw)
-    ms = time_ms(kernel, 20 if q.shape[1] > 1 else 200)
+    ms = time_ms(kernel, calls)
+    graph = graph_ms(torch, kernel, calls)
+    host_us = host_issue_us(torch, kernel, calls)
     plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 2,
                        warmup=1)
     sdpa, sdpa_out = flash_sdpa(torch, q, k, v, **kw)
     sdpa_err = float((sdpa_out.float() - fa.flash_attention(q, k, v, **kw)
                       .float()).abs().max())
-    library_ms = time_ms(sdpa, 20 if q.shape[1] > 1 else 200)
+    library_ms = time_ms(sdpa, calls)
+    library_graph = graph_ms(torch, sdpa, calls)
+    library_host_us = host_issue_us(torch, sdpa, calls)
     pairs = fa.visible_pairs(q.shape[1], causal=kw["causal"],
                              window=kw["window"], kv_len=kw["kv_len"])
     b_ms, b_by = flash_bound(q, k, pairs)
     print(f"[kernel] flash_attention {label} {tuple(q.shape)} x "
-          f"{tuple(k.shape)} {q.dtype}: ms={ms:.5f} plain_ms={plain_ms:.3f} "
-          f"library_ms(sdpa)={library_ms:.5f} (sdpa vs kernel max diff "
-          f"{sdpa_err:.3g}) bound_ms={b_ms:.5f} ({b_by}; {pairs} visible "
-          f"pairs per head)", flush=True)
+          f"{tuple(k.shape)} {q.dtype} route "
+          f"{fa.route(q.dtype, q.shape[1])}: ms={ms:.5f} (graph "
+          f"{graph:.5f}; host {host_us:.2f} us per call) plain_ms="
+          f"{plain_ms:.3f} library_ms(sdpa)={library_ms:.5f} (graph "
+          f"{library_graph:.5f}; host {library_host_us:.2f} us per call; "
+          f"sdpa vs kernel max diff {sdpa_err:.3g}) bound_ms={b_ms:.5f} "
+          f"({b_by}; {pairs} visible pairs per head; {b_ms / ms:.3f} of it "
+          f"by the host loop, {b_ms / graph:.3f} by the graph; "
+          f"{library_ms / ms:.3f}x sdpa's speed by the host loop, "
+          f"{library_graph / graph:.3f}x by the graph)", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms)
 
@@ -529,8 +653,28 @@ def flash_timed(torch, fa, sets, label: str, **kw) -> dict:
 def phase_flash(torch, dev) -> dict:
     """flash_attention against its plain version at the prefill (one KV
     group), decode and edge shapes in bf16 and f32; times at the path's
-    prefill (B = 4) and decode shapes.  Returns the bf16 prefill row."""
+    prefill (B = 4) and decode shapes.  Returns the rows of the kernels
+    line: the bf16 prefill (``flash_attention``, the tensor-core kernel)
+    and the bf16 decode (``flash_attention_decode``)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    lib = _build.library()
+    for hd in range(8, fa.MAX_HEAD_DIM + 1, 8):
+        if lib.flash_attention_tc_smem(hd) != fa.tc_smem_bytes(hd):
+            raise AssertionError(f"prefill_tc smem mirror at hd {hd}")
+    # Decode blocks per SM (the occupancy calculator's), which the CPU
+    # tests of decode_splits assume; path 6's split gives every SM two.
+    per_sm = {(grp, hd): lib.flash_attention_decode_blocks(1, grp, hd)
+              for grp, hd in ((4, 120), (4, 64), (5, 128), (4, 128),
+                              (4, 160))}
+    print(f"[kernel] flash_attention decode blocks per SM, bf16 (G, hd): "
+          f"{per_sm}", flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, _ = fa.decode_splits(SERVE_B, DANUBE_HEADS["kv"], SERVE_WINDOW,
+                                 False, sms, 1, per_sm[(4, 120)])
+    if SERVE_B * DANUBE_HEADS["kv"] * splits < 2 * sms:
+        raise AssertionError(f"path 6 decode: {splits} splits at "
+                             f"{per_sm[(4, 120)]} blocks per SM")
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
     h, kv, hd = DANUBE_HEADS["h"], DANUBE_HEADS["kv"], DANUBE_HEADS["hd"]
     s, w = SERVE_PROMPT, SERVE_WINDOW
@@ -547,19 +691,12 @@ def phase_flash(torch, dev) -> dict:
                                   dtype)
         errs[("decode", dtype)] = flash_check(torch, fa, q, k, v,
                                               "(b) decode", **dec)
-        edges = [  # (b, sq, skv, h, kv, hd, kwargs)
-            (2, 100, 100, 4, 2, 64, dict(causal=False, window=0)),
-            (2, 77, 200, 4, 4, 128, dict(causal=False, window=0, kv_len=150)),
-            (1, 300, 300, 8, 2, 160, dict(causal=True, window=50)),
-            (1, 129, 129, 2, 1, 128, dict(causal=True, window=0)),
-            (2, 200, 200, 8, 8, 64, dict(causal=True, window=33, kv_len=170)),
-            (3, 1, 77, 40, 8, 128, dict(causal=False, window=0, kv_len=61)),
-            (2, 1, 300, 32, 8, 160, dict(causal=False, window=0)),
-        ]
-        for b, sq, skv, hh, kvv, d, kw in edges:
+        for b, sq, skv, hh, kvv, d, kw in FLASH_EDGES:
             (q, k, v), = flash_inputs(torch, dev, gen, b, sq, skv, hh, kvv, d,
                                       dtype)
             flash_check(torch, fa, q, k, v, "(c) edge", **kw)
+        del q, k, v
+        torch.cuda.empty_cache()
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         size = torch.finfo(dtype).bits // 8
@@ -578,9 +715,49 @@ def phase_flash(torch, dev) -> dict:
                                               **dec)
         del sets
         torch.cuda.empty_cache()
-    row = dict(rows[("prefill", torch.bfloat16)],
-               max_abs_err=errs[("prefill", torch.bfloat16)])
-    return row
+    # The wider head widths of the tensor-core prefill (stablelm-12b's 160,
+    # and 256, where the kernel spills registers): timed, not in the line.
+    for b, sq, hh, kvv, d in ((2, 4096, 32, 8, 160), (1, 2048, 8, 2, 256)):
+        n = cycling(2 * b * (sq * hh + 2 * sq * kvv) * d)
+        sets = flash_inputs(torch, dev, gen, b, sq, sq, hh, kvv, d,
+                            torch.bfloat16, n)
+        flash_timed(torch, fa, sets, f"(d) prefill, hd {d}", causal=True,
+                    window=0, kv_len=sq)
+        del sets
+    # bf16 decode at path 6's heads over cache lengths: device time = a
+    # fixed cost + bytes / rate (a least-squares line), beside SDPA's.
+    lens, ours, sdpas, sizes = (512, 2048, 4096, 8192, 16384), [], [], []
+    for w2 in lens:
+        n = cycling(2 * SERVE_B * 2 * w2 * kv * hd)
+        sets = flash_inputs(torch, dev, gen, SERVE_B, 1, w2, h, kv, hd,
+                            torch.bfloat16, n)
+        it = iter(range(10 ** 9))
+        kw2 = dict(causal=False, window=0, kv_len=w2)
+        ours.append(graph_ms(torch, lambda: fa.flash_attention(
+            *sets[next(it) % n], **kw2), 50))
+        sdpas.append(graph_ms(torch, flash_sdpa(torch, *sets[0], **kw2)[0],
+                              50))
+        sizes.append(2 * SERVE_B * 2 * w2 * kv * hd / 1e6)
+        del sets
+    for name, t in (("kernel", ours), ("sdpa", sdpas)):
+        mx, my = sum(sizes) / len(sizes), sum(t) / len(t)
+        slope = sum((x - mx) * (y - my) for x, y in zip(sizes, t)) / \
+            sum((x - mx) ** 2 for x in sizes)
+        print(f"[kernel] flash_attention decode sweep, {name}: ms "
+              f"{[round(x, 5) for x in t]} at cache {list(lens)} slots "
+              f"({[round(x, 2) for x in sizes]} MB): fixed "
+              f"{(my - slope * mx) * 1e3:.2f} us + {slope * 1e3:.4f} us/MB "
+              f"({1e-3 / slope:.3f} TB/s)", flush=True)
+    splits = {key: n for key, n in fa._MAX_SPLITS.items()}
+    print(f"[kernel] flash_attention decode cluster sizes chosen "
+          f"(SMs, dtype, G, hd, clusters) -> splits: {splits}", flush=True)
+    return {
+        "flash_attention": dict(rows[("prefill", torch.bfloat16)],
+                                max_abs_err=errs[("prefill", torch.bfloat16)]),
+        "flash_attention_decode": dict(
+            rows[("decode", torch.bfloat16)],
+            max_abs_err=errs[("decode", torch.bfloat16)]),
+    }
 
 
 def _counters():
@@ -600,6 +777,9 @@ def _counters():
 def reset_counts():
     for fn in _counters().values():
         fn.launches = 0
+    from repro_torch.kernels import flash_attention
+    for route in flash_attention.flash_attention.route_launches:
+        flash_attention.flash_attention.route_launches[route] = 0
 
 
 def read_counts() -> dict:
@@ -1149,6 +1329,7 @@ def phase_serve(torch, dev) -> dict:
     """Path 6: h2o-danube-3-4b at full width, served.  Returns the
     launch counts of its prefill + decode run."""
     from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer
     cfg = configs.get("h2o_danube_3_4b")
     b, s, n_gen = SERVE_B, SERVE_PROMPT, SERVE_GEN
@@ -1190,10 +1371,18 @@ def phase_serve(torch, dev) -> dict:
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / (n_gen - 1)
     counts = read_counts()
+    routes = dict(fa.flash_attention.route_launches)
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("path 6: non-finite decode logits")
     want = dict.fromkeys(_counters(), 0)
     want["flash_attention"] = cfg.num_layers * (1 + n_gen)
+    # Every prefill layer on the tensor cores, every step on decode.
+    want_routes = dict(prefill_tc=cfg.num_layers, prefill_f32=0,
+                       decode=cfg.num_layers * n_gen)
+    print(f"[path 6] flash_attention launches by route {routes}", flush=True)
+    if routes != want_routes:
+        raise AssertionError(f"path 6 flash routes {routes}, expected "
+                             f"{want_routes}")
     print(f"[path 6] B={b} prompt {s}, pad_to {pad_to}: prefill cold "
           f"{cold:.3f}s; decode {n_gen} greedy steps, warm "
           f"{step_s * 1e3:.3f} ms per step = {b / step_s:.1f} tokens/s; "
@@ -1249,7 +1438,10 @@ def phase_serve(torch, dev) -> dict:
                              f"same greedy tokens {same}")
     del p32
     torch.cuda.empty_cache()
-    return counts
+    # The kernels line's rows: the prefill and the decode kernel, each by
+    # its route's count.
+    return dict(counts, flash_attention=routes["prefill_tc"],
+                flash_attention_decode=routes["decode"])
 
 
 def serve_parity(torch, transformer, params, cfg, prompt, tok, logits,
@@ -1280,39 +1472,56 @@ def serve_parity(torch, transformer, params, cfg, prompt, tok, logits,
 
 def phase_dense_card_vs_cpu(torch, dev) -> None:
     """The four dense configs at ``reduced()``: the same weights and
-    tokens on the card and the CPU (f32, TF32 off), prefill of 150
-    tokens (past danube's reduced 128-slot window) and 3 decode steps."""
+    tokens on the card and the CPU, prefill of 150 tokens (past danube's
+    reduced 128-slot window) and 3 decode steps; in f32 (TF32 off, the
+    CUDA-core prefill) within 1e-4, and in bf16 from the bf16 serving copy
+    (the tensor-core prefill on the card, the plain version on the CPU)
+    within the bf16 serving limit 2e-2."""
     from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     b, s, steps = 2, 150, 3
     for arch in DENSE_ARCHS:
-        cfg = configs.get(arch).reduced()
-        gen = torch.Generator().manual_seed(SEED + 8)
-        params = transformer.init(gen, cfg)
-        tokens = torch.randint(0, cfg.vocab_size, (b, s + steps),
-                               generator=gen)
-        outs = {}
-        for device in ("cpu", dev):
-            p = _to(params, device)
-            t = tokens.to(device)
-            logits, cache = transformer.prefill(p, t[:, :s], cfg,
-                                                pad_to=s + steps)
-            got = [logits]
-            for i in range(steps):
-                logits, cache = transformer.decode_step(
-                    p, t[:, s + i:s + i + 1], cache, s + i, cfg)
-                got.append(logits)
-            outs[str(device)] = [x.float().cpu() for x in got]
-        rel = max(float((c - g).abs().max() / c.abs().max())
-                  for c, g in zip(outs["cpu"], outs[str(dev)]))
-        print(f"[card-vs-cpu] {cfg.name} reduced: prefill + {steps} decode "
-              f"steps, logits max rel err {rel:.3g} (limit "
-              f"{DENSE_CARD_CPU_TOL:g})", flush=True)
-        if not rel <= DENSE_CARD_CPU_TOL:
-            raise AssertionError(f"{cfg.name}: card and CPU logits differ "
-                                 f"by {rel}")
+        for dtype, tol in (("float32", DENSE_CARD_CPU_TOL),
+                           ("bfloat16", SERVE_PARITY_TOL)):
+            cfg = dataclasses.replace(configs.get(arch).reduced(),
+                                      dtype_compute=dtype)
+            gen = torch.Generator().manual_seed(SEED + 8)
+            params = transformer.init(gen, cfg)
+            if dtype == "bfloat16":
+                params = transformer.serving_params(params, cfg)
+            tokens = torch.randint(0, cfg.vocab_size, (b, s + steps),
+                                   generator=gen)
+            outs = {}
+            before = dict(fa.flash_attention.route_launches)
+            for device in ("cpu", dev):
+                p = _to(params, device)
+                t = tokens.to(device)
+                logits, cache = transformer.prefill(p, t[:, :s], cfg,
+                                                    pad_to=s + steps)
+                got = [logits]
+                for i in range(steps):
+                    logits, cache = transformer.decode_step(
+                        p, t[:, s + i:s + i + 1], cache, s + i, cfg)
+                    got.append(logits)
+                outs[str(device)] = [x.float().cpu() for x in got]
+            routed = {r: n - before[r]
+                      for r, n in fa.flash_attention.route_launches.items()}
+            rel = max(float((c - g).abs().max() / c.abs().max())
+                      for c, g in zip(outs["cpu"], outs[str(dev)]))
+            print(f"[card-vs-cpu] {cfg.name} reduced {dtype}: prefill + "
+                  f"{steps} decode steps, logits max rel err {rel:.3g} "
+                  f"(limit {tol:g}); card flash launches by route {routed}",
+                  flush=True)
+            prefill_route = fa.route(getattr(torch, dtype), s)
+            if routed[prefill_route] != cfg.num_layers:
+                raise AssertionError(f"{cfg.name} {dtype}: prefill routes "
+                                     f"{routed}")
+            if not rel <= tol:
+                raise AssertionError(f"{cfg.name} {dtype}: card and CPU "
+                                     f"logits differ by {rel}")
 
 
 def _to(tree, device):
@@ -1344,8 +1553,10 @@ KERNELS = {
                           "src/repro/kernels/fedavg_agg.py:100"),
     "fedavg_agg_stale": ("src/repro_torch/csrc/fedavg_agg.cu",
                          "src/repro/kernels/fedavg_agg.py:58"),
-    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention": ("src/repro_torch/csrc/flash_attention_tc.cu",
                         "src/repro/kernels/flash_attention.py:90"),
+    "flash_attention_decode": ("src/repro_torch/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention.py:90"),
 }
 
 
@@ -1378,7 +1589,7 @@ def main() -> int:
         "compress_update": phase_compress(torch, dev, "quant", 100, P_CNN),
         "fedavg_agg_masked": phase_masked(torch, dev, 100, P_CNN),
         "fedavg_agg_stale": phase_stale(torch, dev, 100, P_CNN),
-        "flash_attention": phase_flash(torch, dev),
+        **phase_flash(torch, dev),
     }
     phase_fedavg(torch, dev, 100, P_MLP)
     phase_sub2(torch, dev, 16, 100)
@@ -1395,7 +1606,7 @@ def main() -> int:
     owner = {"diversity": 1, "fedavg_agg": 1, "sub2_pgd": 1,
              "stream_update": 2, "fedavg_agg_masked": 2,
              "compress_update": 3, "fedavg_agg_stale": 4,
-             "flash_attention": 6}
+             "flash_attention": 6, "flash_attention_decode": 6}
     by_path, recs = {}, {}
     for path in (1, 2, 3):
         by_path[path], recs[path] = phase_path(torch, dev, data, net, wcfg,

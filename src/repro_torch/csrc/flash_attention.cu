@@ -1,4 +1,7 @@
-// Flash attention forward (online softmax) for the model zoo's attention.
+// Flash attention forward (online softmax) for the model zoo's attention:
+// the f32 prefill on the CUDA cores and the decode (one query row), in
+// f32 or bf16.  The bf16 prefill runs on the tensor cores
+// (flash_attention_tc.cu).
 //
 // Replaces the TPU kernel flash_attention_kernel (_flash_kernel) of
 // src/repro/kernels/flash_attention.py.  Computes, per (batch, q head,
@@ -11,44 +14,63 @@
 // Layout is the model's: q (B, Sq, H, hd), k and v (B, Skv, KV, hd),
 // out (B, Sq, H, hd), contiguous.  q head h reads KV head h / (H / KV):
 // grouped-query attention by index, with no repeated copy of K and V.
-// Types: f32 or bf16 in, f32 arithmetic.  hd is a multiple of 8, <= 256.
+// hd is a multiple of 8, <= 256.
 //
 // Bound on the H100: at prefill by operations (4 hd flops per visible
-// pair), at decode by bytes (the whole K/V cache is read once).  This is
-// the simple design, on the CUDA cores in f32 (the f32 path must agree
-// with the plain version to 1e-5, which TF32 tensor cores cannot):
+// pair), at decode by bytes (the whole K/V cache is read once).
 //
-// * flash_attention_fwd_kernel: one block per (b, h, 64-row q tile), 256
-//   threads.  The q tile and each 64-row K/V tile are staged in shared
-//   memory as f32, rows padded to hd + 4 floats so that the 16-byte
-//   reads of 8 neighbouring threads hit distinct banks.  Each thread
-//   owns a 4 x 4 patch of the score tile (rows ty + 16i, keys tx + 16j)
-//   and 4 rows x up to 16 columns of the output accumulator, in
-//   registers; row max and sum reduce over the 16 lanes of a half-warp.
-//   The kv loop runs only over tiles that hold a visible key: causal and
-//   window bounds clip it, so wholly masked tiles are never loaded.
-// * flash_attention_decode_kernel + flash_attention_combine_kernel, for
-//   Sq == 1: one block per (b, KV head, kv split).  The block holds the
-//   G = H / KV query heads that share the KV head, so each K/V tile is
-//   read once for all of them and no 64-row tile is wasted on one query;
-//   the kv range is split over enough blocks to fill the card, and the
-//   combine kernel merges the splits' (m, l, acc).
-//
-// Later work (ROADMAP queue 2): wgmma tensor cores, TMA staging, a
-// GQA-shared tile at prefill.
+// * flash_attention_fwd_kernel (f32 prefill): f32 must agree with the
+//   plain version to 1e-5, which TF32 tensor cores cannot, so it stays on
+//   the CUDA cores.  One block per (b, h, 64-row q tile), 256 threads.
+//   The q tile and each 64-row K/V tile are staged in shared memory,
+//   rows padded to hd + 4 floats so that the 16-byte reads of 8
+//   neighbouring threads hit distinct banks.  Each thread owns a 4 x 4
+//   patch of the score tile (rows ty + 16i, keys tx + 16j) and 4 rows x
+//   up to 16 columns of the output accumulator, in registers; row max
+//   and sum reduce over the 16 lanes of a half-warp.  The kv loop runs
+//   only over tiles that hold a visible key: causal and window bounds
+//   clip it, so wholly masked tiles are never loaded.
+// * flash_attention_decode_kernel, for Sq == 1, bound by bytes: one block
+//   per (b, KV head, kv split) holds up to 4 (else 8) of the G = H / KV
+//   query heads that share the KV head, so each K/V tile is read once for
+//   all of them.  One producer warp streams K/V tiles of 32 whole rows by
+//   TMA (one box each, rows of an odd count of 16 bytes) into a K ring
+//   and a V ring (5 and 4 stages in bf16, 3 and 3 in f32) with full /
+//   empty mbarriers (a K slot is free after the scores, a V slot after
+//   p . v); four consumer warps
+//   compute, so the next tiles are in flight while this one is worked on
+//   and no thread spends instructions on copies.  bf16 scores run on the
+//   tensor cores (mma.sync m16n8k16, q in registers, K by ldmatrix; the
+//   softmax step straight from the fragments); f32 scores on the CUDA
+//   cores (a lane per key, a warp per quarter of hd).  p stays f32 and
+//   p . v runs on the CUDA cores: a thread takes 16 bytes of columns and
+//   a group of keys for all rows, its sums kept in registers across tiles
+//   and added up once at the end, so each element of V is loaded and
+//   converted once.  A block's tiles form a chain of dependent steps, and
+//   under load a tile takes several steps' time to arrive, so each block
+//   keeps its loads far ahead (the deep rings; 3 blocks fit an SM in bf16
+//   at danube's hd).  The kv range of a (b, KV head) is split into as
+//   many blocks as the card holds at once, at most 16; they form one
+//   thread block cluster, which merges their (m, l, acc) through
+//   distributed shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_attention.cuh"
+
+using namespace flash;
+
 namespace {
 
-constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 64;      // q rows per prefill block
 constexpr int BK = 64;      // keys per K/V tile
 constexpr int FWD_THREADS = 256;
-constexpr int DEC_THREADS = 128;
-constexpr int DEC_MAX_ITEMS = 8;  // float4 accumulators per decode thread
+constexpr int DEC_BK = 32;  // keys per decode tile: one per lane
+constexpr int DEC_WARPS = 4;                         // consumer warps
+constexpr int DEC_CONSUMERS = 32 * DEC_WARPS;
+constexpr int DEC_THREADS = DEC_CONSUMERS + 32;      // + a producer warp
 
 __device__ __forceinline__ void load8(const float* p, float* d) {
   float4 a = reinterpret_cast<const float4*>(p)[0];
@@ -98,27 +120,6 @@ __device__ __forceinline__ void stage(float* dst, int ld, const T* src,
     out[1] = make_float4(vals[4] * mul, vals[5] * mul, vals[6] * mul,
                          vals[7] * mul);
   }
-}
-
-__device__ __forceinline__ bool visible(int qpos, int kpos, int kv_len,
-                                        int causal, int window) {
-  bool v = kpos < kv_len;
-  if (causal) v = v && kpos <= qpos;
-  if (window > 0) v = v && kpos > qpos - window;
-  return v;
-}
-
-// The kv range [lo, hi) that can hold a visible key for q rows
-// [q_lo, q_hi].
-__device__ __forceinline__ void kv_range(int q_lo, int q_hi, int kv_len,
-                                         int causal, int window, int* lo,
-                                         int* hi) {
-  int h = kv_len;
-  if (causal) h = min(h, q_hi + 1);
-  int l = 0;
-  if (window > 0) l = max(0, q_lo - window + 1);
-  *lo = l;
-  *hi = max(h, l);
 }
 
 // ---------------------------------------------------------------------------
@@ -288,29 +289,169 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Decode: Sq == 1, kv split over blocks
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(DEC_THREADS)
-flash_attention_decode_kernel(const T* __restrict__ q,
-                              const T* __restrict__ k,
-                              const T* __restrict__ v,
-                              float* __restrict__ part_m,
-                              float* __restrict__ part_l,
-                              float* __restrict__ part_acc, int Skv, int H,
-                              int KV, int hd, int kv_len, int causal,
-                              int window, float scale, int tiles_per_split) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int G = H / KV;
-  const int ld = hd + 4;
-  float* Qs = smem;                 // G x ld
-  float* Ks = Qs + G * ld;          // BK x ld
-  float* Vs = Ks + BK * ld;         // BK x ld
-  float* Ss = Vs + BK * ld;         // G x BK scores, then p
-  float* Ms = Ss + G * BK;          // G running max
-  float* Ls = Ms + G;               // G running sum
-  float* As = Ls + G;               // G rescale of this tile
+// Ring stages of the decode kernel by element size: bf16 keeps its loads
+// far ahead (K, read a phase before V, one tile further); f32 tiles are
+// twice the bytes, so fewer fit.
+__host__ __device__ constexpr int dec_kstages(int elem) {
+  return elem == 2 ? 5 : 3;
+}
+__host__ __device__ constexpr int dec_vstages(int elem) {
+  return elem == 2 ? 4 : 3;
+}
+constexpr int MAX_SPLITS = 16;     // kv splits of a (b, KV head): a cluster
 
-  const int bg = blockIdx.x;        // b * KV + g
+// Row stride, in elements, of a K/V tile in the decode kernel's ring.
+// bf16: an odd count of 16 bytes, so that ldmatrix's 8 row addresses hit
+// 8 bank groups: hd itself where it has one (the mma's last k-step then
+// reads 8 columns past the row, which the kernel zeroes in registers),
+// else hd rounded up to the mma depth of 16 and then to an odd count (TMA
+// fills the extra columns with zeros); at most 256, a TMA box's width.
+// f32: hd.
+__host__ __device__ __forceinline__ int decode_ld(int elem, int hd) {
+  if (elem == 4) return hd;
+  if ((hd * 2 / 16) & 1) return hd;
+  const int r16 = (hd + 15) / 16 * 16;
+  const int ld = ((r16 * 2 / 16) | 1) * 8;
+  return ld <= 256 ? ld : r16;
+}
+
+// p . v threads: `up` per key group (a power of two covering hd's
+// 16-byte units), DEC_CONSUMERS / up key groups.
+__host__ __device__ __forceinline__ int decode_up(int elem, int hd) {
+  const int units = hd * elem / 16;
+  int up = 1;
+  while (up < units) up *= 2;
+  return up;
+}
+
+// Blocks an SM must hold: the launch bound of each variant (GR query
+// rows, KS mma k-steps kept in registers).
+constexpr int decode_min_blocks(int GR, int KS) {
+  return GR == 8 ? 2 : (KS == 16 ? 3 : 4);
+}
+
+// Shared memory of the decode kernel with GR query rows per block: 128
+// bytes of alignment slack (TMA's); the rings of K and V tiles in the
+// input type (after the loop, the key groups' partial sums); in f32 q,
+// the scores (four warps' partial sums on the CUDA cores, one set from
+// the tensor cores), two tiles' p, the running max and sum and two
+// tiles' rescales; a full and an empty mbarrier per stage.
+size_t decode_smem_bytes(int elem, int GR, int hd) {
+  const int stages = dec_kstages(elem) + dec_vstages(elem);
+  const size_t ring = (size_t)stages * DEC_BK * decode_ld(elem, hd) * elem;
+  const size_t red = sizeof(float) * (size_t)(DEC_CONSUMERS /
+                     decode_up(elem, hd)) * GR * hd;
+  const int parts = elem == 2 ? 1 : DEC_WARPS;
+  return 128 + (ring > red ? ring : red) +
+         sizeof(float) * (size_t)(GR * hd + (parts + 2) * GR * DEC_BK +
+                                  4 * GR) +
+         16 * (size_t)stages;
+}
+
+__device__ __forceinline__ void load_unit(const float* p, float* d) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  d[0] = a.x; d[1] = a.y; d[2] = a.z; d[3] = a.w;
+}
+__device__ __forceinline__ void load_unit(const __nv_bfloat16* p, float* d) {
+  load8(p, d);
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, as mma fragments.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c(16 x 8, f32) += a(16 x 16, bf16) b(16 x 8, bf16); rows 8-15 of a are
+// zero (a[0]: rows 0-7, k 0-7; a[1]: rows 0-7, k 8-15).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[2],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(0u), "r"(a[1]), "r"(0u), "r"(b0), "r"(b1));
+}
+
+// Barrier of the consumer warps only.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(DEC_CONSUMERS) : "memory");
+}
+
+// Thread block clusters: this block's rank, a barrier of every thread of
+// the cluster, and a load from the same shared variable of block `rank`.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr)
+               : "r"(smem_u32(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// One block per (b, KV head, chunk of GR of its G query heads, kv
+// split); grid (B * KV * chunks, nsplit), the nsplit splits of a chunk
+// one cluster.  Warps 0-3 compute, warp 4 loads.  KS: bf16 scores by
+// mma with q in registers for up to KS k-steps of 16 (f32: 0, scores on
+// the CUDA cores).
+template <typename T, int GR, int KS>
+__global__ void __launch_bounds__(DEC_THREADS, decode_min_blocks(GR, KS))
+flash_attention_decode_kernel(const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              const T* __restrict__ q, T* __restrict__ o,
+                              int H, int KV, int hd, int kv_len, int causal,
+                              int window, float scale, int tiles_per_split) {
+  constexpr int KST = dec_kstages(sizeof(T));
+  constexpr int VST = dec_vstages(sizeof(T));
+  constexpr int EPU = 16 / sizeof(T);         // elements per 16 bytes
+  constexpr int PARTS = KS > 0 ? 1 : DEC_WARPS;   // partial score sets
+  extern __shared__ uint8_t smem_raw[];
+  // Offset the array itself (not a cast integer) so the compiler keeps
+  // shared-memory loads.
+  uint8_t* ring = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  const int G = H / KV;
+  const int chunks = (G + GR - 1) / GR;
+  const int row_bytes = decode_ld(sizeof(T), hd) * sizeof(T);
+  const int tile = DEC_BK * row_bytes;        // bytes of one K or V tile
+  const int units = hd / EPU;                 // 16-byte units of a row
+  const int up = decode_up(sizeof(T), hd);
+  const int up_log2 = __ffs(up) - 1;
+  const int kgroups = DEC_CONSUMERS >> up_log2;
+  uint8_t* vring = ring + KST * tile;        // K ring, then V ring
+  const int ring_bytes = max((KST + VST) * tile, kgroups * GR * hd * 4);
+  float* Qs = reinterpret_cast<float*>(ring + ring_bytes);  // GR x hd
+  float* Sp = Qs + GR * hd;                   // [PARTS][GR][DEC_BK] scores
+  float* Ss = Sp + PARTS * GR * DEC_BK;       // [2][GR][DEC_BK] p
+  float* Ms = Ss + 2 * GR * DEC_BK;           // GR running max
+  float* Ls = Ms + GR;                        // GR running sum
+  float* As = Ls + GR;                        // [2][GR] rescale of a tile
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(As + 2 * GR);
+  uint64_t* kempty = kfull + KST;
+  uint64_t* vfull = kempty + KST;
+  uint64_t* vempty = vfull + VST;
+
+  const int bgc = blockIdx.x;                 // (b * KV + g) * chunks + ch
+  const int bg = bgc / chunks;
+  const int row_lo = (bgc - bg * chunks) * GR;   // first of this chunk's rows
+  const int nr = min(GR, G - row_lo);
   const int b = bg / KV;
   const int g = bg - b * KV;
   const int split = blockIdx.y;
@@ -318,164 +459,338 @@ flash_attention_decode_kernel(const T* __restrict__ q,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int hd4 = hd / 4;
-
-  // The G query heads g*G .. g*G+G-1 of batch b are contiguous rows.
-  stage(Qs, ld, q, ((int64_t)b * H + g * G) * hd, (int64_t)hd, 0, G, G, hd,
-        scale, DEC_THREADS);
-  for (int gg = tid; gg < G; gg += DEC_THREADS) {
-    Ms[gg] = NEG_INF;
-    Ls[gg] = 0.f;
-  }
-  float4 acc[DEC_MAX_ITEMS];
-#pragma unroll
-  for (int r = 0; r < DEC_MAX_ITEMS; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int64_t q_row0 = ((int64_t)b * H + g * G + row_lo) * hd;
 
   int lo, hi;
   kv_range(0, 0, kv_len, causal, window, &lo, &hi);
-  const int t_first = lo / BK + split * tiles_per_split;
-  const int t_end = min((hi + BK - 1) / BK, t_first + tiles_per_split);
-  const int64_t kv_base = ((int64_t)b * Skv * KV + g) * hd;
-  for (int t = t_first; t < t_end; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();
-    stage(Ks, ld, k, kv_base, (int64_t)KV * hd, k0, BK, kv_len, hd, 1.f,
+  const int t_first = lo / DEC_BK + split * tiles_per_split;
+  const int n = min((hi + DEC_BK - 1) / DEC_BK, t_first + tiles_per_split) -
+                t_first;
+
+  if (tid == 0) {
+    for (int st = 0; st < KST; ++st) {
+      mbar_init(smem_u32(&kfull[st]), 1);
+      mbar_init(smem_u32(&kempty[st]), DEC_WARPS);
+    }
+    for (int st = 0; st < VST; ++st) {
+      mbar_init(smem_u32(&vfull[st]), 1);
+      mbar_init(smem_u32(&vempty[st]), DEC_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // mma scores: lane (gq, tq) holds q row gq's k-columns 2 tq, 2 tq + 1
+  // and 8 + 2 tq, 9 + 2 tq of each 16, as bf16 pairs, loaded before the
+  // K/V stream starts so that they do not queue behind it.
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int ksteps = (hd + 15) / 16;
+  uint32_t qa[KS > 0 ? KS : 1][2];
+#pragma unroll
+  for (int s = 0; s < KS; ++s)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = 16 * s + 8 * h + 2 * tq;
+      qa[s][h] = warp < DEC_WARPS && gq < nr && col < hd
+                     ? *reinterpret_cast<const uint32_t*>(
+                           q + q_row0 + (int64_t)gq * hd + col)
+                     : 0u;
+    }
+  __syncthreads();   // the barriers are set up; q's loads are issued
+
+  // Thread 0 starts the first tiles at once (after the barriers are set up
+  // and before anything waits on memory), so their latency overlaps the
+  // staging of q.
+  auto load = [&](const CUtensorMap* map, uint8_t* slots, uint64_t* bars,
+                  int stages, int i) {
+    const uint32_t bar = smem_u32(&bars[i % stages]);
+    mbar_expect_tx(bar, tile);
+    tma_load_4d(smem_u32(slots + (i % stages) * tile), map, bar, 0, g,
+                (t_first + i) * DEC_BK, b);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < KST && i < n; ++i) load(&kmap, ring, kfull, KST, i);
+    for (int i = 0; i < VST && i < n; ++i) load(&vmap, vring, vfull, VST, i);
+  }
+  // This chunk's query heads are contiguous rows of q; rows past G are 0.
+  if (KS == 0)
+    stage(Qs, hd, q, q_row0, (int64_t)hd, 0, GR, nr, hd, scale,
           DEC_THREADS);
-    stage(Vs, ld, v, kv_base, (int64_t)KV * hd, k0, BK, kv_len, hd, 1.f,
-          DEC_THREADS);
-    __syncthreads();
-    for (int idx = tid; idx < G * BK; idx += DEC_THREADS) {
-      const int gg = idx / BK;
-      const int kk = idx - gg * BK;
-      const float* qr = Qs + gg * ld;
-      const float* kr = Ks + kk * ld;
-      float s = 0.f;
-      for (int d = 0; d < hd; d += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(qr + d);
-        const float4 c = *reinterpret_cast<const float4*>(kr + d);
-        s = fmaf(a.x, c.x, s);
-        s = fmaf(a.y, c.y, s);
-        s = fmaf(a.z, c.z, s);
-        s = fmaf(a.w, c.w, s);
-      }
-      Ss[idx] = s;
-    }
-    __syncthreads();
-    for (int gg = warp; gg < G; gg += DEC_THREADS / 32) {
-      float sv[2];
-      bool vis[2];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int kk = lane + 32 * u;
-        sv[u] = Ss[gg * BK + kk];
-        vis[u] = visible(0, k0 + kk, kv_len, causal, window);
-        if (vis[u]) mx = fmaxf(mx, sv[u]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = Ms[gg];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float p = vis[u] ? expf(sv[u] - m_new) : 0.f;
-        Ss[gg * BK + lane + 32 * u] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        As[gg] = alpha;
-        Ls[gg] = alpha * Ls[gg] + sum;
-        Ms[gg] = m_new;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < DEC_MAX_ITEMS; ++r) {
-      const int idx = tid + DEC_THREADS * r;
-      if (idx < G * hd4) {
-        const int gg = idx / hd4;
-        const int c = (idx - gg * hd4) * 4;
-        const float alpha = As[gg];
-        float4 a = acc[r];
-        a.x *= alpha; a.y *= alpha; a.z *= alpha; a.w *= alpha;
-        const float* pr = Ss + gg * BK;
-        for (int kk = 0; kk < BK; ++kk) {
-          const float p = pr[kk];
-          const float4 vv = *reinterpret_cast<const float4*>(Vs + kk * ld + c);
-          a.x = fmaf(p, vv.x, a.x);
-          a.y = fmaf(p, vv.y, a.y);
-          a.z = fmaf(p, vv.z, a.z);
-          a.w = fmaf(p, vv.w, a.w);
-        }
-        acc[r] = a;
-      }
-    }
+  for (int r = tid; r < GR; r += DEC_THREADS) {
+    Ms[r] = NEG_INF;
+    Ls[r] = 0.f;
   }
   __syncthreads();
 
-  const int64_t row0 = ((int64_t)bg * nsplit + split) * G;
-  for (int gg = tid; gg < G; gg += DEC_THREADS) {
-    part_m[row0 + gg] = Ms[gg];
-    part_l[row0 + gg] = Ls[gg];
-  }
+  if (warp == DEC_WARPS) {
+    // Producer: one TMA box of 32 whole rows per K and per V tile into
+    // their rings (keys past Skv and columns past hd come back as
+    // zeros), a slot refilled as soon as the four consumer warps have
+    // released it: K after the scores, V after p . v.  Tile i of a
+    // slot's round r waits for the round r - 1 release.
+    if (lane == 0) {
+      for (int i = 0; i < n; ++i) {
+        if (i >= KST) {
+          mbar_wait(smem_u32(&kempty[i % KST]), ((i / KST) & 1) ^ 1);
+          load(&kmap, ring, kfull, KST, i);
+        }
+        if (i >= VST) {
+          mbar_wait(smem_u32(&vempty[i % VST]), ((i / VST) & 1) ^ 1);
+          load(&vmap, vring, vfull, VST, i);
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    const int u_pv = tid & (up - 1);          // p . v: this thread's unit
+    const int kq = tid >> up_log2;            // ... and key group
+    // CUDA-core scores read rows `row_bytes` apart.  An odd count of
+    // 16-byte units per row puts 8 lanes' unit u in 8 bank groups already;
+    // otherwise each lane starts at unit `lane` (mod units) to that end.
+    const int rot = (units & 1) ? 0 : lane;
+    float acc[GR][EPU];
 #pragma unroll
-  for (int r = 0; r < DEC_MAX_ITEMS; ++r) {
-    const int idx = tid + DEC_THREADS * r;
-    if (idx < G * hd4) {
-      const int gg = idx / hd4;
-      const int c = (idx - gg * hd4) * 4;
-      *reinterpret_cast<float4*>(part_acc + (row0 + gg) * hd + c) = acc[r];
-    }
-  }
-}
+    for (int r = 0; r < GR; ++r)
+#pragma unroll
+      for (int e = 0; e < EPU; ++e) acc[r][e] = 0.f;
 
-// One block per (b, q head): merge the splits' (m, l, acc).
-template <typename T>
-__global__ void flash_attention_combine_kernel(
-    const float* __restrict__ part_m, const float* __restrict__ part_l,
-    const float* __restrict__ part_acc, T* __restrict__ o, int H, int KV,
-    int hd, int nsplit) {
-  const int G = H / KV;
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int g = h / G;
-  const int gg = h - g * G;
-  const int bg = b * KV + g;
-  float mx = NEG_INF;
-  for (int s = 0; s < nsplit; ++s)
-    mx = fmaxf(mx, part_m[((int64_t)bg * nsplit + s) * G + gg]);
-  float denom = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const int64_t row = ((int64_t)bg * nsplit + s) * G + gg;
-    denom += expf(part_m[row] - mx) * part_l[row];
-  }
-  const float inv = 1.f / fmaxf(denom, 1e-30f);
-  for (int c = threadIdx.x; c < hd; c += blockDim.x) {
-    float num = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const int64_t row = ((int64_t)bg * nsplit + s) * G + gg;
-      num += expf(part_m[row] - mx) * part_acc[row * hd + c];
+    for (int i = 0; i < n; ++i) {
+      mbar_wait(smem_u32(&kfull[i % KST]), (i / KST) & 1);
+      const uint8_t* Kt = ring + (i % KST) * tile;
+      const uint8_t* Vt = vring + (i % VST) * tile;
+      float* Sb = Ss + (i & 1) * GR * DEC_BK;
+      float* Ab = As + (i & 1) * GR;
+      const int k0 = (t_first + i) * DEC_BK;
+
+      if constexpr (KS > 0) {
+        // Scores on the tensor cores: warp w takes keys 8w .. 8w + 7
+        // (n = 8), the query rows padded to 16 (m), hd in k-steps of 16,
+        // even and odd k-steps in two chains; f32 sums, scaled after.
+        // Lane (gq, tq) ends with row gq's scores of keys 8w + 2 tq and
+        // 8w + 2 tq + 1.  Where hd is an odd count of 8 and the row is
+        // not padded, the last k-step's ldmatrix reads 8 columns past the
+        // row (the next row, or the next slot, whatever is there: stale
+        // bytes, or a key past kv_len); those 8 x 8 matrices are set to
+        // zero in registers, so an Inf or NaN there cannot reach a score.
+        float ce[4] = {0.f, 0.f, 0.f, 0.f};
+        float co[4] = {0.f, 0.f, 0.f, 0.f};
+        const uint32_t kaddr =
+            smem_u32(Kt) + (warp * 8 + (lane & 7)) * row_bytes +
+            16 * (lane >> 3);
+#pragma unroll
+        for (int s2 = 0; s2 < KS; s2 += 2) {
+          if (s2 < ksteps) {
+            uint32_t kb[4];
+            ldmatrix_x4(kb, kaddr + 32 * s2);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (16 * s2 + 8 * j >= hd) kb[j] = 0u;
+            mma_bf16(ce, qa[s2], kb[0], kb[1]);
+            if (s2 + 1 < ksteps) mma_bf16(co, qa[s2 + 1], kb[2], kb[3]);
+          }
+        }
+        __syncwarp();   // the warp's reads of K are done: free the slot
+        if (lane == 0) mbar_arrive(smem_u32(&kempty[i % KST]));
+        // The softmax step from the fragments: the row max from each
+        // warp's 8 keys (2 shuffles) and the four warps' partials, p for
+        // the lane's own 2 keys, the row sum the same way.
+        const int key = 8 * warp + 2 * tq;
+        const bool vis0 = visible(0, k0 + key, kv_len, causal, window);
+        const bool vis1 = visible(0, k0 + key + 1, kv_len, causal, window);
+        const float s0 = (ce[0] + co[0]) * scale;
+        const float s1 = (ce[1] + co[1]) * scale;
+        float* pmax = Sp;                 // [warp][8]
+        float* psum = Sp + 8 * DEC_WARPS;  // [warp][8]
+        float* mnew = Sp + 16 * DEC_WARPS;  // [8]
+        float mx = fmaxf(vis0 ? s0 : NEG_INF, vis1 ? s1 : NEG_INF);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        if (tq == 0) pmax[warp * 8 + gq] = mx;
+        consumers_sync();
+        const float m_old = Ms[gq < GR ? gq : 0];
+        float m_new = m_old;
+#pragma unroll
+        for (int w = 0; w < DEC_WARPS; ++w)
+          m_new = fmaxf(m_new, pmax[w * 8 + gq]);
+        const float p0 = vis0 ? expf(s0 - m_new) : 0.f;
+        const float p1 = vis1 ? expf(s1 - m_new) : 0.f;
+        float sum = p0 + p1;
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        if (gq < GR) {
+          Sb[gq * DEC_BK + key] = p0;
+          Sb[gq * DEC_BK + key + 1] = p1;
+          if (tq == 0) psum[warp * 8 + gq] = sum;
+          if (warp == 0 && tq == 0) {
+            Ab[gq] = expf(m_old - m_new);
+            mnew[gq] = m_new;
+          }
+        }
+        // p, the rescales and the partial sums of tile i are ready; the
+        // running max and sum move on (read again only after the next
+        // tile's first barrier).
+        consumers_sync();
+        if (tid < GR) {
+          float l = 0.f;
+#pragma unroll
+          for (int w = 0; w < DEC_WARPS; ++w) l += psum[w * 8 + tid];
+          Ls[tid] = Ab[tid] * Ls[tid] + l;
+          Ms[tid] = mnew[tid];
+        }
+      } else {
+        // Scores on the CUDA cores: lane = key, warp w sums the 16-byte
+        // units w, w + 4, ... of hd (rotated by `rot`), each K unit loaded
+        // once for all GR rows of q (scaled in the staging).
+        float sc[GR];
+#pragma unroll
+        for (int r = 0; r < GR; ++r) sc[r] = 0.f;
+        int uu = warp + rot;
+        while (uu >= units) uu -= units;
+        const uint8_t* krow = Kt + lane * row_bytes;
+        for (int u = warp; u < units; u += DEC_WARPS) {
+          float kv[EPU];
+          load_unit(reinterpret_cast<const T*>(krow + uu * 16), kv);
+#pragma unroll
+          for (int r = 0; r < GR; ++r) {
+            const float* qr = Qs + r * hd + uu * EPU;
+#pragma unroll
+            for (int e = 0; e < EPU; e += 4) {
+              const float4 a = *reinterpret_cast<const float4*>(qr + e);
+              sc[r] = fmaf(a.x, kv[e], sc[r]);
+              sc[r] = fmaf(a.y, kv[e + 1], sc[r]);
+              sc[r] = fmaf(a.z, kv[e + 2], sc[r]);
+              sc[r] = fmaf(a.w, kv[e + 3], sc[r]);
+            }
+          }
+          uu += DEC_WARPS;
+          while (uu >= units) uu -= units;
+        }
+        __syncwarp();   // the warp's reads of K are done: free the slot
+        if (lane == 0) mbar_arrive(smem_u32(&kempty[i % KST]));
+#pragma unroll
+        for (int r = 0; r < GR; ++r)
+          Sp[(warp * GR + r) * DEC_BK + lane] = sc[r];
+        consumers_sync();
+
+        // Softmax step: warp w takes rows w, w + 4, ..., lane = key.
+        const bool vis = visible(0, k0 + lane, kv_len, causal, window);
+        for (int r = warp; r < GR; r += DEC_WARPS) {
+          float sv = 0.f;
+#pragma unroll
+          for (int w = 0; w < PARTS; ++w)
+            sv += Sp[(w * GR + r) * DEC_BK + lane];
+          float mx = vis ? sv : NEG_INF;
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          const float m_old = Ms[r];
+          const float m_new = fmaxf(m_old, mx);
+          const float p = vis ? expf(sv - m_new) : 0.f;
+          Sb[r * DEC_BK + lane] = p;
+          float sum = p;
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, off);
+          __syncwarp();
+          if (lane == 0) {
+            const float alpha = expf(m_old - m_new);
+            Ab[r] = alpha;
+            Ls[r] = alpha * Ls[r] + sum;
+            Ms[r] = m_new;
+          }
+        }
+        // p of tile i is ready.  p and the rescales alternate between two
+        // buffers and the scores were read above, so tile i + 1 can start
+        // while this p . v runs.
+        consumers_sync();
+      }
+
+      // p . v on the CUDA cores in f32: this thread's unit of columns
+      // over keys kq, kq + kgroups, ... below kv_len (keys past it carry
+      // p = 0 and are skipped).
+      mbar_wait(smem_u32(&vfull[i % VST]), (i / VST) & 1);
+      if (u_pv < units) {
+#pragma unroll
+        for (int r = 0; r < GR; ++r) {
+          const float alpha = Ab[r];
+#pragma unroll
+          for (int e = 0; e < EPU; ++e) acc[r][e] *= alpha;
+        }
+        const int rows = min(DEC_BK, kv_len - k0);
+        for (int kk = kq; kk < rows; kk += kgroups) {
+          float vv[EPU];
+          load_unit(
+              reinterpret_cast<const T*>(Vt + kk * row_bytes + u_pv * 16),
+              vv);
+#pragma unroll
+          for (int r = 0; r < GR; ++r) {
+            const float p = Sb[r * DEC_BK + kk];
+#pragma unroll
+            for (int e = 0; e < EPU; ++e)
+              acc[r][e] = fmaf(p, vv[e], acc[r][e]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(&vempty[i % VST]));  // V slot free
     }
-    store1(o + (int64_t)bh * hd + c, num * inv);
+    consumers_sync();   // the ring is free: it takes the key groups' sums
+    float* red = reinterpret_cast<float*>(ring);   // [kgroups][GR][hd]
+    if (u_pv < units) {
+#pragma unroll
+      for (int r = 0; r < GR; ++r)
+#pragma unroll
+        for (int e = 0; e < EPU; e += 4)
+          *reinterpret_cast<float4*>(red + (kq * GR + r) * hd + u_pv * EPU +
+                                     e) =
+              make_float4(acc[r][e], acc[r][e + 1], acc[r][e + 2],
+                          acc[r][e + 3]);
+    }
+    consumers_sync();
+    // This split's acc replaces q; Ms and Ls hold its max and sum.
+    for (int idx = tid; idx < nr * hd; idx += DEC_CONSUMERS) {
+      const int r = idx / hd;
+      const int c = idx - r * hd;
+      float sum = 0.f;
+      for (int w = 0; w < kgroups; ++w) sum += red[(w * GR + r) * hd + c];
+      Qs[idx] = sum;
+    }
   }
+
+  // Every split's (m, l, acc) is in its block's shared memory.  The
+  // cluster's blocks share out the outputs, each reading all the splits
+  // through distributed shared memory in one round trip.
+  cluster_sync();
+  for (int idx = (int)cluster_rank() * DEC_THREADS + tid; idx < nr * hd;
+       idx += nsplit * DEC_THREADS) {
+    const int r = idx / hd;
+    float m[MAX_SPLITS], l[MAX_SPLITS], a[MAX_SPLITS];
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPLITS; ++sp)
+      if (sp < nsplit) {   // all loads in flight at once
+        m[sp] = ld_cluster(Ms + r, sp);
+        l[sp] = ld_cluster(Ls + r, sp);
+        a[sp] = ld_cluster(Qs + idx, sp);
+      }
+    float mx = NEG_INF;
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPLITS; ++sp)
+      if (sp < nsplit) mx = fmaxf(mx, m[sp]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPLITS; ++sp)
+      if (sp < nsplit) {
+        const float w = expf(m[sp] - mx);
+        den += w * l[sp];
+        num += w * a[sp];
+      }
+    store1(o + q_row0 + idx, num / fmaxf(den, 1e-30f));
+  }
+  cluster_sync();   // no block leaves while another reads its memory
 }
 
 size_t fwd_smem_bytes(int hd) {
   return sizeof(float) * (size_t)(BQ * (hd + 4) * 1 + 2 * BK * (hd + 4) +
                                   BQ * (BK + 4));
-}
-
-size_t decode_smem_bytes(int G, int hd) {
-  return sizeof(float) * (size_t)(G * (hd + 4) + 2 * BK * (hd + 4) +
-                                  G * BK + 3 * G);
 }
 
 template <typename T, int NJ4>
@@ -495,82 +810,170 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int fwd_by_width(const void* q, const void* k, const void* v, void* o, int B,
                  int Sq, int Skv, int H, int KV, int hd, int kv_len,
                  int causal, int window, float scale, cudaStream_t stream) {
   if (hd <= 64)
-    return launch_fwd<T, 1>(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len, causal,
-                            window, scale, stream);
+    return launch_fwd<float, 1>(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len,
+                                causal, window, scale, stream);
   if (hd <= 128)
-    return launch_fwd<T, 2>(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len, causal,
-                            window, scale, stream);
+    return launch_fwd<float, 2>(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len,
+                                causal, window, scale, stream);
   if (hd <= 192)
-    return launch_fwd<T, 3>(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len, causal,
-                            window, scale, stream);
-  return launch_fwd<T, 4>(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len, causal,
-                          window, scale, stream);
+    return launch_fwd<float, 3>(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len,
+                                causal, window, scale, stream);
+  return launch_fwd<float, 4>(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len,
+                              causal, window, scale, stream);
+}
+
+// What launch_decode does: launch, or ask the occupancy calculator.
+enum class Query { LAUNCH, CLUSTERS, BLOCKS };
+
+template <typename T, int GR, int KS>
+int launch_decode(const void* q, const void* k, const void* v, void* o,
+                  int B, int Skv, int H, int KV, int hd, int kv_len,
+                  int causal, int window, float scale, int nsplit,
+                  int tiles_per_split, cudaStream_t stream, Query query,
+                  int* out) {
+  const int G = H / KV;
+  const int elem = sizeof(T);
+  auto kernel = flash_attention_decode_kernel<T, GR, KS>;
+  const size_t smem = decode_smem_bytes(elem, GR, hd);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && nsplit > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * KV * ((G + GR - 1) / GR), nsplit);
+  cfg.blockDim = dim3(DEC_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = nsplit;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (query == Query::CLUSTERS)   // how many such clusters fit at once
+    return (int)cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+  if (query == Query::BLOCKS)     // how many blocks an SM holds at once
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, kernel, DEC_THREADS, smem);
+  CUtensorMap kmap, vmap;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)KV,
+                              (cuuint64_t)Skv, (cuuint64_t)B};
+  const cuuint32_t box[4] = {(cuuint32_t)decode_ld(elem, hd), 1, DEC_BK, 1};
+  int rc = encode_map(&kmap, k, elem, 4, dims, box, false);
+  if (rc == 0) rc = encode_map(&vmap, v, elem, 4, dims, box, false);
+  if (rc != 0) return rc;
+  err = cudaLaunchKernelEx(&cfg, kernel, kmap, vmap,
+                           static_cast<const T*>(q), static_cast<T*>(o), H,
+                           KV, hd, kv_len, causal, window, scale,
+                           tiles_per_split);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_decode(const void* q, const void* k, const void* v, void* o,
-                  float* part_m, float* part_l, float* part_acc, int B,
-                  int Skv, int H, int KV, int hd, int kv_len, int causal,
-                  int window, float scale, int nsplit, int tiles_per_split,
-                  cudaStream_t stream) {
-  const int G = H / KV;
-  const size_t smem = decode_smem_bytes(G, hd);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_decode_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * KV, nsplit);
-  flash_attention_decode_kernel<T><<<grid, DEC_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), part_m, part_l, part_acc, Skv, H, KV, hd,
-      kv_len, causal, window, scale, tiles_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_attention_combine_kernel<T><<<B * H, 128, 0, stream>>>(
-      part_m, part_l, part_acc, static_cast<T*>(o), H, KV, hd, nsplit);
-  return (int)cudaGetLastError();
+int decode_variant(const void* q, const void* k, const void* v, void* o,
+                   int B, int Skv, int H, int KV, int hd, int kv_len,
+                   int causal, int window, float scale, int nsplit, int per,
+                   cudaStream_t s, Query query, int* out) {
+  const bool four = H / KV <= 4;
+  if constexpr (sizeof(T) == 4) {
+    return four ? launch_decode<T, 4, 0>(q, k, v, o, B, Skv, H, KV, hd,
+                                         kv_len, causal, window, scale,
+                                         nsplit, per, s, query, out)
+                : launch_decode<T, 8, 0>(q, k, v, o, B, Skv, H, KV, hd,
+                                         kv_len, causal, window, scale,
+                                         nsplit, per, s, query, out);
+  } else if ((hd + 15) / 16 <= 8) {
+    return four ? launch_decode<T, 4, 8>(q, k, v, o, B, Skv, H, KV, hd,
+                                         kv_len, causal, window, scale,
+                                         nsplit, per, s, query, out)
+                : launch_decode<T, 8, 8>(q, k, v, o, B, Skv, H, KV, hd,
+                                         kv_len, causal, window, scale,
+                                         nsplit, per, s, query, out);
+  } else {
+    return four ? launch_decode<T, 4, 16>(q, k, v, o, B, Skv, H, KV, hd,
+                                          kv_len, causal, window, scale,
+                                          nsplit, per, s, query, out)
+                : launch_decode<T, 8, 16>(q, k, v, o, B, Skv, H, KV, hd,
+                                          kv_len, causal, window, scale,
+                                          nsplit, per, s, query, out);
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16.  Returns cudaGetLastError() after the launch.
-extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int dtype, int B,
-                                   int Sq, int Skv, int H, int KV, int hd,
-                                   int kv_len, int causal, int window,
-                                   float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return fwd_by_width<float>(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len,
-                               causal, window, scale, s);
-  return fwd_by_width<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, KV, hd,
-                                     kv_len, causal, window, scale, s);
+// f32 prefill (any Sq).  Returns cudaGetLastError() after the launch.
+extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
+                                       const void* v, void* o, int B, int Sq,
+                                       int Skv, int H, int KV, int hd,
+                                       int kv_len, int causal, int window,
+                                       float scale, void* stream) {
+  return fwd_by_width(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len, causal,
+                      window, scale, static_cast<cudaStream_t>(stream));
 }
 
-// Sq == 1.  part_m, part_l: (B * KV * nsplit * G) f32 scratch; part_acc:
-// that times hd.  Each of the nsplit blocks of a (b, KV head) takes
-// tiles_per_split tiles of 64 keys.
+// Sq == 1.  Returns cudaGetLastError() after the launch, or -(CUresult)
+// if a tensor map could not be encoded.  A block takes up to 4 query
+// heads of a KV head (8 where H / KV > 4; more heads take more blocks).
+// Each of the nsplit (<= 16) blocks of a (b, KV head, chunk of heads)
+// takes tiles_per_split tiles of 32 keys; they form a cluster that merges
+// their results.  dtype: 0 = f32, 1 = bf16.
 extern "C" int flash_attention_decode(const void* q, const void* k,
-                                      const void* v, void* o, void* part_m,
-                                      void* part_l, void* part_acc,
-                                      int dtype, int B, int Skv, int H,
-                                      int KV, int hd, int kv_len, int causal,
-                                      int window, float scale, int nsplit,
+                                      const void* v, void* o, int dtype,
+                                      int B, int Skv, int H, int KV, int hd,
+                                      int kv_len, int causal, int window,
+                                      float scale, int nsplit,
                                       int tiles_per_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pm = static_cast<float*>(part_m);
-  float* pl = static_cast<float*>(part_l);
-  float* pa = static_cast<float*>(part_acc);
   if (dtype == 0)
-    return launch_decode<float>(q, k, v, o, pm, pl, pa, B, Skv, H, KV, hd,
-                                kv_len, causal, window, scale, nsplit,
-                                tiles_per_split, s);
-  return launch_decode<__nv_bfloat16>(q, k, v, o, pm, pl, pa, B, Skv, H, KV,
-                                      hd, kv_len, causal, window, scale,
-                                      nsplit, tiles_per_split, s);
+    return decode_variant<float>(q, k, v, o, B, Skv, H, KV, hd, kv_len,
+                                 causal, window, scale, nsplit,
+                                 tiles_per_split, s, Query::LAUNCH, nullptr);
+  return decode_variant<__nv_bfloat16>(q, k, v, o, B, Skv, H, KV, hd, kv_len,
+                                       causal, window, scale, nsplit,
+                                       tiles_per_split, s, Query::LAUNCH,
+                                       nullptr);
+}
+
+namespace {
+
+int decode_query(int dtype, int G, int hd, int nsplit, Query query) {
+  int n = 0;
+  const int err =
+      dtype == 0
+          ? decode_variant<float>(nullptr, nullptr, nullptr, nullptr, 1, 1,
+                                  G, 1, hd, 1, 0, 0, 1.f, nsplit, 1, nullptr,
+                                  query, &n)
+          : decode_variant<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr,
+                                          1, 1, G, 1, hd, 1, 0, 0, 1.f,
+                                          nsplit, 1, nullptr, query, &n);
+  return err == 0 ? n : -err;
+}
+
+}  // namespace
+
+// How many clusters of nsplit decode blocks (dtype, H / KV = G, hd) the
+// card holds at once, or -(cudaError) (cudaOccupancyMaxActiveClusters).
+extern "C" int flash_attention_decode_clusters(int dtype, int G, int hd,
+                                               int nsplit) {
+  return decode_query(dtype, G, hd, nsplit, Query::CLUSTERS);
+}
+
+// How many decode blocks (dtype, G, hd) an SM holds at once, or
+// -(cudaError) (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int flash_attention_decode_blocks(int dtype, int G, int hd) {
+  return decode_query(dtype, G, hd, 1, Query::BLOCKS);
+}
+
+// The decode kernel's dynamic shared memory.
+extern "C" int flash_attention_decode_smem(int dtype, int G, int hd) {
+  const int gr = G <= 4 ? 4 : 8;
+  return (int)decode_smem_bytes(dtype == 0 ? 4 : 2, gr, hd);
 }

@@ -1,0 +1,144 @@
+// Helpers shared by the flash attention kernels (flash_attention.cu: the
+// f32 prefill on the CUDA cores and the decode; flash_attention_tc.cu:
+// the bf16 prefill on the tensor cores): masks, mbarriers, TMA loads and
+// tensor maps.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace flash {
+
+constexpr float NEG_INF = -1e30f;
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, int kv_len,
+                                        int causal, int window) {
+  bool v = kpos < kv_len;
+  if (causal) v = v && kpos <= qpos;
+  if (window > 0) v = v && kpos > qpos - window;
+  return v;
+}
+
+// The kv range [lo, hi) that can hold a visible key for q rows
+// [q_lo, q_hi].
+__device__ __forceinline__ void kv_range(int q_lo, int q_hi, int kv_len,
+                                         int causal, int window, int* lo,
+                                         int* hi) {
+  int h = kv_len;
+  if (causal) h = min(h, q_hi + 1);
+  int l = 0;
+  if (window > 0) l = max(0, q_lo - window + 1);
+  *lo = l;
+  *hi = max(h, l);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarriers: arrivals plus the bytes of asynchronous copies.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// A 4-D TMA box into shared memory, counted on the mbarrier `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled is a driver-API function: fetch it through the
+// runtime so the library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A tensor map of `rank` dims (innermost first, dense strides) over
+// elements of `elem` bytes (2: bf16, 4: f32), boxes `box`, with the
+// 128-byte swizzle or none, zeros out of bounds.  Returns 0 or
+// -(CUresult).
+inline int encode_map(CUtensorMap* map, const void* base, int elem, int rank,
+                      const cuuint64_t* dims, const cuuint32_t* box,
+                      bool swizzle = true) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
+  cuuint64_t strides[4];
+  cuuint64_t stride = elem;
+  for (int i = 0; i + 1 < rank; ++i) {
+    stride *= dims[i];
+    strides[i] = stride;
+  }
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUtensorMapDataType type = elem == 2
+                                       ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUresult res = fn(map, type, rank, const_cast<void*>(base), dims, strides,
+                    box, ones,
+                    CU_TENSOR_MAP_INTERLEAVE_NONE,
+                    swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
+                            : CU_TENSOR_MAP_SWIZZLE_NONE,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : -(int)res;
+}
+
+}  // namespace flash

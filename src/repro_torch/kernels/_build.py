@@ -6,7 +6,11 @@ C interface, loaded with ``ctypes``.  Nothing includes PyTorch's
 headers, so a cold build takes seconds.  The library lands in
 ``build/repro_torch_kernels/`` at the repository root, named by a hash
 of the sources so an edited source is never served from a stale build.
-A failed build raises; there is no fallback.
+A failed build raises; there is no fallback.  The TMA tensor maps of
+the flash kernels need the driver API's ``cuTensorMapEncodeTiled``; the
+sources fetch it at run time through the runtime's
+``cudaGetDriverEntryPoint*``, so the library links against nothing but
+the CUDA runtime.
 
 Each C entry returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception.
@@ -48,10 +52,17 @@ SIGNATURES = {
     "diversity_stats": [_P, _P, _P, _I, _I, _I, _P],
     "sub2_pgd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                  _F, _F, _F, _F, _I, _F, _F, _I, _P],
-    "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _F, _P],
-    "flash_attention_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "flash_attention_fwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _F, _P],
+    "flash_attention_fwd_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _P],
+    "flash_attention_tc_smem": [_I],
+    "flash_attention_decode_smem": [_I, _I, _I],
+    "flash_attention_decode_clusters": [_I, _I, _I, _I],
+    "flash_attention_decode_blocks": [_I, _I, _I],
+    "flash_attention_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _I, _I, _P],
+    "shared_fill": [_I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -138,7 +149,11 @@ def library() -> ctypes.CDLL:
 
 
 def check(code: int, name: str) -> None:
-    """Raise if a C entry reported a CUDA error for its launch."""
-    if code != 0:
+    """Raise if a C entry reported a CUDA error for its launch (a
+    negative code: a driver ``CUresult`` while encoding a TMA map)."""
+    if code > 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {code}")
+    if code < 0:
+        raise RuntimeError(f"CUDA kernel {name}: cuTensorMapEncodeTiled "
+                           f"failed with CUresult {-code}")
