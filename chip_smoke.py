@@ -50,7 +50,14 @@ each phase failing the script on error:
 8. the four dense configurations at ``reduced()`` on the card and on the
    CPU (f32, TF32 off): prefill and 3 decode steps, logits within 1e-4.
 
-The kernel phase also holds ``flash_attention`` against its plain
+The kernel phase runs ``sub2_pgd`` at S = 1 and 16 (K = 100, the warp
+route) and S = 1, K = 1024 (the block route), with inputs NaN past K and
+every SM's shared memory NaN before each checked launch, timed by host
+loop and by CUDA-graph replay beside a latency floor; on the warp route
+it also times every speculative depth (each bit for bit the shipped
+one's) and the block route on the same rows.  It times ``fedavg_agg``
+against ``w @ u`` in turns, at the CNN's and the MLP's widths.  It also
+holds ``flash_attention`` against its plain
 version at the prefill (one KV group), decode and edge-case shapes, in
 bf16 and f32, each launch after every SM's shared memory is filled with
 NaN and with the keys past ``kv_len`` set to NaN, and times it beside
@@ -86,6 +93,16 @@ BF16_OPS_PER_S = 989e12
 # sub2_pgd kernel (transcendentals counted as one): gradient and softmax
 # ~25, step ~5, 32 bisection trips x 4, objective ~12.
 SUB2_OPS_PER_COORD_STEP = 170
+# The latency floor of sub2_pgd's warp route: per PGD step, the dependent
+# warp butterflies of 5 stages (the objective's sum and max, the softmax
+# sum, the gradient sum, the step's max, the bracket's min and max) and,
+# per speculative round, one of log2(G) stages (G the group width the
+# instance's selected count gives), at the cycles assumed for one
+# dependent shuffle and its add.  Shares must sum to 1 within f32
+# rounding.
+SUB2_STEP_BUTTERFLIES = 5
+SUB2_SHFL_CYCLES = 30
+SUB2_SUM_TOL = 1e-5
 # f32 operations per class of the stream_update kernel (add, clamp,
 # rescale, sum, divide, square, log2, two products, two sums) and per
 # coordinate of compress_update's quant pass (add, abs, max, divide,
@@ -103,6 +120,8 @@ TOPK_OPS_PER_COORD = 5
 QUANT_FLIP_LIMIT = 1e-4
 STREAM_TOL = 1e-4
 P_CNN, P_MLP = 21840, 159010
+# Turns of fedavg_agg against w @ u (each side first in half of them).
+FEDAVG_TURNS = 10
 SEED = 0
 # The subsystems of paths 2-5.
 FAULTS = dict(drop_prob=0.1, max_retries=2, straggler_prob=0.05,
@@ -169,15 +188,51 @@ def phase_fedavg(torch, dev, k: int, p: int) -> dict:
     if not err <= 1e-5:
         raise AssertionError(f"fedavg_agg K={k} P={p}: max err {err}")
     it = iter(range(10 ** 9))
-    ms = time_ms(lambda: fk.fedavg_agg(us[next(it) % n], w), 200)
+
+    def kernel():
+        return fk.fedavg_agg(us[next(it) % n], w)
+
+    def library():
+        return w @ us[next(it) % n]
+    # The kernel and one PyTorch call in turns, each side first in half of
+    # them, by host loop and by CUDA-graph replay: medians, the quartile
+    # spread of each side and the turns each side wins.
+    times = {(fn, how): [] for fn in ("kernel", "library")
+             for how in ("loop", "graph")}
+    for turn in range(FEDAVG_TURNS):
+        order = (("kernel", kernel), ("library", library))
+        for name, fn in order if turn % 2 == 0 else order[::-1]:
+            times[(name, "loop")].append(time_ms(fn, 200))
+            times[(name, "graph")].append(graph_ms(torch, fn, 200))
     plain_ms = time_ms(lambda: fk.fedavg_agg_plain(us[next(it) % n], w), 200)
-    library_ms = time_ms(lambda: w @ us[next(it) % n], 200)
     b_ms, b_by = bound(k * p * 4 + k * 4 + p * 4, 2 * k * p)
+    read = {}
+    for how in ("loop", "graph"):
+        ker, lib = times[("kernel", how)], times[("library", how)]
+        wins = sum(a < b for a, b in zip(ker, lib))
+        read[how] = (f"{how}: kernel median {median(ker):.5f} (quartiles "
+                     f"{quartiles(ker)}), w @ u median {median(lib):.5f} "
+                     f"(quartiles {quartiles(lib)}), kernel faster in {wins} "
+                     f"of {FEDAVG_TURNS} turns")
+    ms = median(times[("kernel", "loop")])
+    library_ms = median(times[("library", "loop")])
     print(f"[kernel] fedavg_agg K={k} P={p}: max_abs_err={err:.3g} "
           f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms(w@u)="
-          f"{library_ms:.5f} bound_ms={b_ms:.5f} ({b_by})", flush=True)
+          f"{library_ms:.5f} bound_ms={b_ms:.5f} ({b_by}); in turns, "
+          f"{read['loop']}; {read['graph']}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+def median(xs) -> float:
+    ys = sorted(xs)
+    mid = len(ys) // 2
+    return ys[mid] if len(ys) % 2 else 0.5 * (ys[mid - 1] + ys[mid])
+
+
+def quartiles(xs) -> str:
+    ys = sorted(xs)
+    return f"{ys[len(ys) // 4]:.5f}-{ys[(3 * len(ys)) // 4]:.5f}"
 
 
 def phase_diversity(torch, dev, labels, mask, c: int) -> dict:
@@ -229,35 +284,136 @@ def sub2_instances(torch, dev, s: int, k: int):
     return args, wcfg
 
 
-def phase_sub2(torch, dev, s: int, k: int) -> dict:
-    from repro_torch.core import bandwidth
-    from repro_torch.kernels import sub2_pgd as sk
-    args, wcfg = sub2_instances(torch, dev, s, k)
-    p = bandwidth.Sub2Params()
-    kw = dict(rho=p.rho, lr=p.pgd_lr, tau=p.smooth_tau, iters=p.pgd_iters,
-              bandwidth_hz=wcfg.bandwidth_hz, min_alpha=wcfg.min_alpha)
-    a_k, o_k = sk.sub2_pgd(*args, **kw)
-    a_p, o_p = sk.sub2_pgd_plain(*args, **kw)
+def nan_padded(torch, t):
+    """``t`` copied to the front of a NaN-filled buffer that runs 1024 - K
+    floats past its end (at S = 1 the first K columns of a (1, 1024) row),
+    so that a kernel reading past K reads NaN."""
+    k = t.shape[-1]
+    buf = torch.full((t.numel() + 1024 - k,), float("nan"), device=t.device)
+    buf[:t.numel()] = t.reshape(-1)
+    return buf[:t.numel()].view(t.shape)
+
+
+def sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.split()[0])
+
+
+def sub2_check(torch, args, plain, run, label: str):
+    """One launch by ``run`` after every SM's shared memory is filled
+    with NaN, against the plain version's ``(alpha, objective)`` on the
+    same ``args``: finite shares that sum to 1 over the selected set
+    (zeros elsewhere, and for an empty selection), the alpha and
+    objective errors within the limits.  Returns ``(alpha, objective,
+    alpha error, objective relative error)``."""
+    from repro_torch.kernels import _check
+    _check.fill_shared_memory(args[0].device)
+    a_k, o_k = run()
+    a_p, o_p = plain
     torch.cuda.synchronize()
+    sel = args[0] > 0
     err = float((a_k - a_p).abs().max())
-    rel_obj = float(((o_k - o_p).abs() / o_p.abs()).max())
+    rel_obj = float(((o_k - o_p).abs() / o_p.abs().clamp_min(1e-30)).max())
+    sums = torch.where(sel, a_k, 0.0).sum(-1)
+    any_sel = sel.any(-1)
+    sum_err = float((sums - any_sel.float()).abs().max())
+    if not (bool(a_k.isfinite().all()) and bool(o_k.isfinite().all())):
+        raise AssertionError(f"sub2_pgd {label}: non-finite output after "
+                             f"NaN past K and NaN shared memory")
+    if not (sum_err <= SUB2_SUM_TOL and bool((a_k[~sel] == 0).all())):
+        raise AssertionError(f"sub2_pgd {label}: shares off the simplex "
+                             f"(sum error {sum_err})")
     # The reference's own tolerance between this descent and its autodiff
     # oracle (tests/test_allocator.py): the kernel's analytic gradient and
     # the plain version's autograd one round differently, and the
     # normalised steps amplify that along the objective's flat valley.
     if not (err <= 1e-2 and rel_obj <= 1e-3):
-        raise AssertionError(f"sub2_pgd S={s}: alpha err {err}, "
+        raise AssertionError(f"sub2_pgd {label}: alpha err {err}, "
                              f"objective rel err {rel_obj}")
-    if not bool(torch.all(torch.isfinite(a_k))):
-        raise AssertionError("sub2_pgd produced non-finite shares")
+    return a_k, o_k, err, rel_obj
+
+
+def phase_sub2(torch, dev, s: int, k: int) -> dict:
+    """sub2_pgd at S instances of K devices through the wrapper's route,
+    inputs NaN past K and shared memory NaN before each checked launch:
+    errors against the plain version, time by host loop and by CUDA-graph
+    replay.  On the warp route also every speculative depth (each must
+    give the shipped depth's output bit for bit) and the block route on
+    the same rows."""
+    from repro_torch.core import bandwidth
+    from repro_torch.kernels import sub2_pgd as sk
+    args, wcfg = sub2_instances(torch, dev, s, k)
+    args = [nan_padded(torch, t) for t in args]
+    p = bandwidth.Sub2Params()
+    kw = dict(rho=p.rho, lr=p.pgd_lr, tau=p.smooth_tau, iters=p.pgd_iters,
+              bandwidth_hz=wcfg.bandwidth_hz, min_alpha=wcfg.min_alpha)
+    which = sk.route(k)
+    plain = sk.sub2_pgd_plain(*args, **kw)
+    before = dict(sk.sub2_pgd.route_launches)
+    a_k, o_k, err, rel_obj = sub2_check(
+        torch, args, plain, lambda: sk.sub2_pgd(*args, **kw), f"S={s} K={k}")
+    routed = {r: n - before[r] for r, n in sk.sub2_pgd.route_launches.items()}
+    if routed != {r: int(r == which) for r in routed}:
+        raise AssertionError(f"sub2_pgd K={k}: launches {routed}, expected "
+                             f"one through {which}")
     ms = time_ms(lambda: sk.sub2_pgd(*args, **kw), 20)
+    graph = graph_ms(torch, lambda: sk.sub2_pgd(*args, **kw), 20)
     plain_ms = time_ms(lambda: sk.sub2_pgd_plain(*args, **kw), 2, warmup=1)
     b_ms, b_by = bound(s * k * 4 * 7 + s * 4,
                        s * 2 * k * p.pgd_iters * SUB2_OPS_PER_COORD_STEP)
-    print(f"[kernel] sub2_pgd S={s} K={k} iters={p.pgd_iters}: "
-          f"max_abs_err(alpha)={err:.3g} rel_err(obj)={rel_obj:.3g} "
-          f"ms={ms:.4f} plain_ms={plain_ms:.2f} bound_ms={b_ms:.6f} "
-          f"({b_by})", flush=True)
+    floor = ""
+    if which != "block":
+        # The slowest instance's group width sets the bisection's stages.
+        n_sel = int((args[0] > 0).sum(1).max())
+        width = 2
+        while 16 * width < n_sel:
+            width *= 2
+        rounds = -(-sk.DEFAULT_PROJ_ITERS // sk.SPEC_DEPTH)
+        stages = SUB2_STEP_BUTTERFLIES * 5 + rounds * int(math.log2(width))
+        clock = sm_clock_mhz()
+        floor_ms = p.pgd_iters * stages * SUB2_SHFL_CYCLES / (clock * 1e3)
+        floor = (f"; latency floor {floor_ms:.5f} ms ({stages} dependent "
+                 f"shuffle stages per step: {SUB2_STEP_BUTTERFLIES} x 5 + "
+                 f"{rounds} rounds x log2(G = {width}), {n_sel} selected, "
+                 f"x {SUB2_SHFL_CYCLES} cycles at the {clock:.0f} MHz max SM "
+                 f"clock)")
+    print(f"[kernel] sub2_pgd S={s} K={k} iters={p.pgd_iters} route {which}"
+          f" (depth {sk.SPEC_DEPTH}): max_abs_err(alpha)={err:.3g} "
+          f"rel_err(obj)={rel_obj:.3g} (limits 1e-2, 1e-3) ms={ms:.5f} "
+          f"(graph {graph:.5f}) plain_ms={plain_ms:.2f} bound_ms="
+          f"{b_ms:.6f} ({b_by}){floor}", flush=True)
+    if which != "block":
+        outs = {}
+        for depth in range(1, sk.MAX_SPEC_DEPTH + 1):
+            def run(depth=depth):
+                return sk.launch(*args, which=which, depth=depth, **kw)
+            outs[depth] = sub2_check(torch, args, plain, run,
+                                     f"S={s} K={k} depth {depth}")[:2]
+            d_graph = graph_ms(torch, run, 20)
+            same = torch.equal(outs[depth][0], a_k) and \
+                torch.equal(outs[depth][1], o_k)
+            print(f"[kernel] sub2_pgd S={s} K={k} route {which} depth "
+                  f"{depth} ({-(-sk.DEFAULT_PROJ_ITERS // depth)} rounds of "
+                  f"bisection): graph {d_graph:.5f} ms; output "
+                  f"{'bit for bit' if same else 'DIFFERS from'} depth "
+                  f"{sk.SPEC_DEPTH}'s", flush=True)
+            if not same:
+                raise AssertionError(f"sub2_pgd depth {depth} differs from "
+                                     f"depth {sk.SPEC_DEPTH}")
+
+        def blk():
+            return sk.launch(*args, which="block", **kw)
+        _, _, b_err, b_rel = sub2_check(torch, args, plain, blk,
+                                        f"S={s} K={k} block route")
+        print(f"[kernel] sub2_pgd S={s} K={k} block route on the same rows:"
+              f" max_abs_err(alpha)={b_err:.3g} rel_err(obj)={b_rel:.3g} "
+              f"ms={time_ms(blk, 20):.5f} (graph {graph_ms(torch, blk, 20):.5f})",
+              flush=True)
+    print(f"[kernel] sub2_pgd launches by route so far "
+          f"{sk.sub2_pgd.route_launches}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
@@ -568,11 +724,19 @@ def flash_sdpa(torch, q, k, v, *, causal, window, kv_len):
     return call, call().transpose(1, 2)
 
 
+_WARMUP_STREAMS: dict = {}
+
+
 def graph_ms(torch, fn, calls: int) -> float:
     """Device time per call of ``fn``: ``calls`` calls captured in one
     CUDA graph and replayed, so the host's per-call work (checks, tensor
-    maps, the launch itself) is not counted."""
-    side = torch.cuda.Stream()
+    maps, the launch itself) is not counted.  The warm-up runs on one
+    side stream per device for the whole process: a cuBLAS call on a new
+    stream allocates a workspace that stays allocated."""
+    dev = torch.cuda.current_device()
+    if dev not in _WARMUP_STREAMS:
+        _WARMUP_STREAMS[dev] = torch.cuda.Stream()
+    side = _WARMUP_STREAMS[dev]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(2):
@@ -777,9 +941,10 @@ def _counters():
 def reset_counts():
     for fn in _counters().values():
         fn.launches = 0
-    from repro_torch.kernels import flash_attention
-    for route in flash_attention.flash_attention.route_launches:
-        flash_attention.flash_attention.route_launches[route] = 0
+    from repro_torch.kernels import flash_attention, sub2_pgd
+    for fn in (flash_attention.flash_attention, sub2_pgd.sub2_pgd):
+        for route in fn.route_launches:
+            fn.route_launches[route] = 0
 
 
 def read_counts() -> dict:
@@ -997,6 +1162,8 @@ def phase_path(torch, dev, data, net, wcfg, path: int, **path_kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    from repro_torch.kernels import sub2_pgd as sk
+    sub2_routes = dict(sk.sub2_pgd.route_launches)
     params, recs = out[:2]
     # The same rounds again, warm: the first run of the process pays its
     # one-time set-up (CUDA context, cuDNN/cuBLAS initialisation and
@@ -1021,8 +1188,8 @@ def phase_path(torch, dev, data, net, wcfg, path: int, **path_kw):
                   f"das_iters={r.iterations}", flush=True)
     print(f"[path {path}] K={data.num_devices} cap={data.capacity} CNN, "
           f"{rounds} {unit}s: first run {wall:.3f}s, warm run {warm:.3f}s "
-          f"= {warm / rounds:.3f}s per {unit}; launches {counts}",
-          flush=True)
+          f"= {warm / rounds:.3f}s per {unit}; launches {counts}; sub2_pgd "
+          f"by route {sub2_routes}", flush=True)
     want = expected_counts(path, rounds, sum(r.iterations for r in recs))
     if counts != want:
         raise AssertionError(f"path {path} launch counts {counts}, "
@@ -1178,12 +1345,12 @@ def phase_profile(torch, dev, data, net, wcfg, path: int,
     # The port's own kernels, by their __global__ names: device time per
     # launch inside the run (the kernel phase's back-to-back timing of a
     # tiny kernel measures the host's launch rate instead).
-    for kname in ("diversity_kernel", "sub2_pgd_kernel",
-                  "fedavg_agg_kernel", "stream_update_kernel",
-                  "compress_update_kernel", "fedavg_agg_masked_kernel",
-                  "fedavg_agg_stale_kernel"):
+    for kname in ("diversity_kernel", "sub2_pgd_warp_kernel",
+                  "sub2_pgd_block_kernel", "fedavg_agg_kernel",
+                  "stream_update_kernel", "compress_update_kernel",
+                  "fedavg_agg_masked_kernel", "fedavg_agg_stale_kernel"):
         hits = [(tot, n) for name, (tot, n) in by_name.items()
-                if f"::{kname}(" in name]
+                if f"::{kname}(" in name or f"::{kname}<" in name]
         if hits:
             tot, n = map(sum, zip(*hits))
             print(f"[profile] path {path} {kname}: {n} launches, device "
@@ -1593,6 +1760,7 @@ def main() -> int:
     }
     phase_fedavg(torch, dev, 100, P_MLP)
     phase_sub2(torch, dev, 16, 100)
+    phase_sub2(torch, dev, 1, 1024)
     phase_stream(torch, dev, 16, 100, 10)
     phase_compress(torch, dev, "quant", 100, P_MLP)
     phase_compress(torch, dev, "topk", 100, P_CNN)

@@ -33,6 +33,19 @@ __device__ __forceinline__ float warp_reduce(float v) {
   return v;
 }
 
+// Two independent warp reductions in one butterfly, both in flight: each
+// lane ends with the same two results (the tree of warp_reduce).
+template <typename OpA, typename OpB>
+__device__ __forceinline__ void warp_reduce_pair(float& a, float& b) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ra = __shfl_xor_sync(0xffffffffu, a, off);
+    const float rb = __shfl_xor_sync(0xffffffffu, b, off);
+    a = OpA::apply(a, ra);
+    b = OpB::apply(b, rb);
+  }
+}
+
 // One reduction over the block; `scratch` holds at least 33 floats.
 template <typename Op>
 __device__ __forceinline__ float block_reduce(float v, float* scratch) {

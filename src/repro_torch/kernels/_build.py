@@ -51,7 +51,7 @@ SIGNATURES = {
                             _P],
     "diversity_stats": [_P, _P, _P, _I, _I, _I, _P],
     "sub2_pgd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                 _F, _F, _F, _F, _I, _F, _F, _I, _P],
+                 _F, _F, _F, _F, _I, _F, _F, _I, _I, _I, _P],
     "flash_attention_fwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _F, _P],
     "flash_attention_fwd_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

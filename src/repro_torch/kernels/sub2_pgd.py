@@ -1,15 +1,28 @@
 """Fused Sub2 projected-gradient descent (paper Eq. 15 inner solve).
 
 Replaces the TPU kernel ``sub2_pgd_kernel`` of
-``src/repro/kernels/sub2_pgd.py``.  CUDA source: ``csrc/sub2_pgd.cu`` —
-one block per instance (grid = S), one thread per device coordinate
-(K <= 1024), both starting points carried as a pair, every reduction a
-block reduction, the simplex projection a 32-trip theta bisection, the
-better start picked in the kernel.  Bound on the H100 by operations and
-latency: a chain of ``iters * ~40`` dependent block reductions.
+``src/repro/kernels/sub2_pgd.py``.  CUDA source: ``csrc/sub2_pgd.cu``.
+Bound on the H100 by neither bytes nor operations but by the latency of
+a chain of dependent steps: every PGD step waits on about six
+reductions, the simplex projection's 32 bisection trips, and the
+divisions and transcendentals between them.  The design shortens that
+chain:
 
-Rows are ``(S, K)`` from the start (the scenario-batched driver needs no
-other kernel); :func:`sub2_pgd_solve` is the single-instance entry the
+- the warp route (K <= 256) gives each (instance, start) pair its own
+  warp, 4 (K <= 128) or 8 (K <= 256) coordinates per lane in registers,
+  so every reduction is a shuffle butterfly with no shared memory and no
+  barrier, and divides without the compiler's per-division branch;
+- its projection takes the next :data:`SPEC_DEPTH` bisection trips at
+  once: every midpoint they can visit, summed over the packed active set
+  by groups of lanes, one ballot, then the bracket -- the trip-by-trip
+  loop's theta, bit for bit;
+- the block route (256 < K <= 1024) keeps one thread per coordinate and
+  block reductions, where the rows no longer fit a warp's registers.
+
+:func:`route` picks the route by K alone; ``sub2_pgd.launches`` counts
+every launch and ``sub2_pgd.route_launches`` each route's.  Rows are
+``(S, K)`` from the start (the scenario-batched driver needs no other
+kernel); :func:`sub2_pgd_solve` is the single-instance entry the
 ``fused_pgd`` allocator calls.
 """
 
@@ -25,6 +38,22 @@ from repro_torch.kernels import _build, _check
 N_STARTS = 2          # water-filling + uniform
 DEFAULT_PROJ_ITERS = 32
 MAX_K = 1024
+# Coordinates per lane of each route (0: the block route, one thread per
+# coordinate), and the largest K each takes.
+ROUTE_COORDS = {"warp4": 4, "warp8": 8, "block": 0}
+ROUTE_MAX_K = {"warp4": 128, "warp8": 256, "block": MAX_K}
+# Bisection trips per speculative round of the warp route's projection
+# (1 is the trip-by-trip loop); the fastest of 1 to 4 in the depth sweep
+# of ``chip_smoke.py``'s sub2 phase (see csrc/sub2_pgd.cu).
+SPEC_DEPTH = 3
+MAX_SPEC_DEPTH = 4
+
+
+def route(k: int) -> str:
+    """The kernel route for rows of ``k`` devices (``1 <= k <= 1024``)."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"sub2_pgd kernel takes 1 <= K <= {MAX_K}, got {k}")
+    return next(name for name, top in ROUTE_MAX_K.items() if k <= top)
 
 
 def sub2_pgd_plain(selected: torch.Tensor, t_train: torch.Tensor,
@@ -118,8 +147,8 @@ def sub2_pgd(selected: torch.Tensor, t_train: torch.Tensor,
     ``((S, K) alpha, (S,) objective)``.
 
     ``snr_coeff`` is c = g P / (B N0).  CPU tensors take
-    :func:`sub2_pgd_plain`; CUDA tensors launch the kernel (f32,
-    contiguous, K <= 1024) or raise.
+    :func:`sub2_pgd_plain`; CUDA tensors launch the kernel through
+    :func:`route` (f32, contiguous, 1 <= K <= 1024) or raise.
     """
     kw = dict(rho=rho, lr=lr, tau=tau, iters=iters,
               bandwidth_hz=bandwidth_hz, min_alpha=min_alpha,
@@ -127,9 +156,29 @@ def sub2_pgd(selected: torch.Tensor, t_train: torch.Tensor,
     if selected.device.type == "cpu":
         return sub2_pgd_plain(selected, t_train, snr_coeff, tx_power,
                               payload_bits, alpha0, **kw)
+    return launch(selected, t_train, snr_coeff, tx_power, payload_bits,
+                  alpha0, which=route(selected.shape[1]), **kw)
+
+
+def launch(selected: torch.Tensor, t_train: torch.Tensor,
+           snr_coeff: torch.Tensor, tx_power: torch.Tensor,
+           payload_bits: torch.Tensor, alpha0: torch.Tensor, *, which: str,
+           depth: int = SPEC_DEPTH, rho: float, lr: float, tau: float,
+           iters: int, bandwidth_hz: float, min_alpha: float,
+           proj_iters: int = DEFAULT_PROJ_ITERS
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch on CUDA tensors through the route ``which`` (any route
+    whose K limit holds) and ``depth`` trips per speculative round: what
+    :func:`sub2_pgd` does with :func:`route`'s choice, open to the card
+    checks that compare routes and depths."""
     s, k = selected.shape
-    if k > MAX_K:
-        raise ValueError(f"sub2_pgd kernel takes K <= {MAX_K}, got {k}")
+    if which not in ROUTE_COORDS or not 1 <= k <= ROUTE_MAX_K[which]:
+        raise ValueError(f"sub2_pgd route {which!r} does not take K = {k}")
+    if not 1 <= depth <= MAX_SPEC_DEPTH:
+        raise ValueError(f"sub2_pgd depth must be 1..{MAX_SPEC_DEPTH}, "
+                         f"got {depth}")
+    if which != "block" and not tau > 0.0:
+        raise ValueError(f"sub2_pgd's warp route takes tau > 0, got {tau}")
     dev = selected.device
     rows = (("selected", selected), ("t_train", t_train),
             ("snr_coeff", snr_coeff), ("tx_power", tx_power),
@@ -144,13 +193,15 @@ def sub2_pgd(selected: torch.Tensor, t_train: torch.Tensor,
         *(t.data_ptr() for _, t in rows), alpha0.data_ptr(),
         alpha.data_ptr(), obj.data_ptr(), s, k, rho, 1.0 - rho, lr, tau,
         iters, bandwidth_hz / math.log(2.0), min_alpha, proj_iters,
-        _check.stream_handle(dev))
-    _build.check(code, "sub2_pgd")
+        ROUTE_COORDS[which], depth, _check.stream_handle(dev))
+    _build.check(code, f"sub2_pgd ({which})")
     sub2_pgd.launches += 1
+    sub2_pgd.route_launches[which] += 1
     return alpha, obj
 
 
 sub2_pgd.launches = 0
+sub2_pgd.route_launches = dict.fromkeys(ROUTE_COORDS, 0)
 
 
 def sub2_pgd_solve(selected: torch.Tensor, t_train: torch.Tensor,

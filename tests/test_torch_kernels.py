@@ -10,6 +10,7 @@ fixture, which skip without a card (run them on one with
 ``python -m pytest -q tests/test_torch_kernels.py``).
 """
 
+import math
 import re
 
 import pytest
@@ -32,6 +33,16 @@ from repro_torch.kernels import fedavg_agg as tagg  # noqa: E402
 from repro_torch.kernels import sub2_pgd as tpgd  # noqa: E402
 
 WCFG = jw.WirelessConfig()
+
+
+@pytest.fixture
+def one_thread():
+    """Small tensors: one intra-op thread, so the test workers that share
+    the machine do not oversubscribe its cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture
@@ -250,6 +261,226 @@ def test_sub2_kernel_on_card(cuda_device, s):
     a_p, o_p = tpgd.sub2_pgd_plain(*args, **kw)
     torch.testing.assert_close(a.cpu(), a_p, rtol=0, atol=1e-2)
     torch.testing.assert_close(o.cpu(), o_p, rtol=1e-3, atol=0)
+
+
+# The warp route's projection, emulated in plain torch, one row at a time:
+# the kernel's bisection layout (the active coordinates packed in
+# coordinate order, -inf past them, packed entry i + G m on lane i of each
+# group of G lanes, G the least power of two >= 2 with 16 G covering
+# them), its balanced per-lane sums, its group butterfly and its round of
+# speculative midpoints.
+
+def _groups(v, act):
+    """(K,) -> (16, G): packed entry i + G m at [m, i]."""
+    packed = v[act]
+    g = 2
+    while 16 * g < packed.numel():
+        g *= 2
+    w = torch.full((16 * g,), -math.inf)
+    w[:packed.numel()] = packed
+    return w.view(16, g)
+
+
+def _sums(w, mids):
+    """group_sums: (16, G) x (N,) -> (N,) totals of max(v - mid, 0) (a
+    balanced tree over each lane's 16, then the butterfly)."""
+    t = torch.clamp_min(w[None] - mids[:, None, None], 0.0)
+    while t.shape[1] > 1:
+        t = t[:, 0::2] + t[:, 1::2]
+    t = t[:, 0]
+    lane = torch.arange(t.shape[-1])
+    off = 1
+    while off < t.shape[-1]:
+        t = t + t[..., lane ^ off]
+        off <<= 1
+    return t[..., 0]
+
+
+def _bracket(v, act):
+    """(min - 1, max) over the active coordinates; (inf, -inf) for none."""
+    return (torch.where(act, v, torch.tensor(math.inf)).min() - 1.0,
+            torch.where(act, v, torch.tensor(-math.inf)).max())
+
+
+def _theta_trips(v, act, proj_iters):
+    """The trip-by-trip bisection."""
+    w = _groups(v, act)
+    lo, hi = _bracket(v, act)
+    for _ in range(proj_iters):
+        mid = 0.5 * (lo + hi)
+        if _sums(w, mid[None])[0] >= 1.0:
+            lo = mid
+        else:
+            hi = mid
+    return 0.5 * (lo + hi)
+
+
+def _ascending(depth):
+    """Heap nodes of a bisection tree in ascending order of midpoint: the
+    in-order walk (2n + 2, n, 2n + 1)."""
+    n_cand = (1 << depth) - 1
+
+    def walk(n):
+        return [] if n >= n_cand else walk(2 * n + 2) + [n] + walk(2 * n + 1)
+    return walk(0)
+
+
+def _theta_speculative(v, act, proj_iters, depth):
+    """bisect<G, D>: rounds of D trips (then one of the remainder), each
+    the 2^D - 1 midpoints of its trips in heap order, summed at once; with
+    t of them at s >= 1, lo and hi become the t-th and (t+1)-th of (lo,
+    the midpoints in ascending order, hi)."""
+    w = _groups(v, act)
+    lo, hi = _bracket(v, act)
+    trips = proj_iters
+    while trips:
+        d = min(depth, trips)
+        trips -= d
+        n_cand = (1 << d) - 1
+        blo, bhi, mids = [lo], [hi], []
+        for n in range(n_cand):
+            mids.append(0.5 * (blo[n] + bhi[n]))
+            if 2 * n + 2 < n_cand:
+                blo += [mids[n], blo[n]]
+                bhi += [bhi[n], mids[n]]
+        t = int((_sums(w, torch.stack(mids)) >= 1.0).sum())
+        ends = [lo] + [mids[n] for n in _ascending(d)] + [hi]
+        lo, hi = ends[t], ends[t + 1]
+    return 0.5 * (lo + hi)
+
+
+@pytest.mark.parametrize("k", [1, 2, 31, 100, 256])
+@pytest.mark.parametrize("depth", [2, 3, 4])
+def test_sub2_speculative_bisection_is_the_trip_by_trip_theta(k, depth,
+                                                              one_thread):
+    """The kernel's speculative projection keeps the bisection's own
+    iterates: theta bit for bit the 32-trip loop's, on random steps with
+    random masks (1 to 256 active coordinates, so every group width),
+    also with a trip count that is not a multiple of the depth.  An
+    all-masked row gives NaN in both (the kernel then writes zeros)."""
+    rng = np.random.default_rng(100 * k + depth)
+    rows = 6
+    v = (rng.random((rows, k)) * 2.0 / k
+         + 0.3 * rng.standard_normal((rows, k)) / k).astype(np.float32)
+    mask = rng.random((rows, k)) < rng.random((rows, 1))
+    mask[:, 0] = True
+    mask[0] = True
+    v, act = torch.from_numpy(v), torch.from_numpy(mask)
+    none = torch.zeros((k,), dtype=torch.bool)
+    assert bool(torch.isnan(_theta_trips(v[0], none, 7)))
+    assert bool(torch.isnan(_theta_speculative(v[0], none, 7, depth)))
+    for row in range(rows):
+        for proj_iters in (7, tpgd.DEFAULT_PROJ_ITERS):
+            want = _theta_trips(v[row], act[row], proj_iters)
+            got = _theta_speculative(v[row], act[row], proj_iters, depth)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        # And it is the simplex projection's theta: the shares sum to 1.
+        share = torch.clamp_min(v[row][act[row]] - want, 0.0).sum()
+        assert float(share) == pytest.approx(1.0, abs=2e-6)
+
+
+@pytest.mark.parametrize("k,want", [(1, "warp4"), (100, "warp4"),
+                                    (128, "warp4"), (129, "warp8"),
+                                    (256, "warp8"), (257, "block"),
+                                    (1024, "block")])
+def test_sub2_route_by_k(k, want):
+    assert tpgd.route(k) == want
+    assert k <= tpgd.ROUTE_MAX_K[want]
+
+
+@pytest.mark.parametrize("k", [0, 1025])
+def test_sub2_route_rejects_k_out_of_range(k):
+    with pytest.raises(ValueError, match="1 <= K <= 1024"):
+        tpgd.route(k)
+
+
+def _sub2_rows(s, k, seed):
+    """S Table-I instances of K devices on the CPU, from the port's own
+    samplers: (sel, t_train, c, power, bits) rows and (S, 2, K) starts
+    (water-filling, uniform).  About 40% selected; with S >= 3, row 1
+    selects no device (its starts are zeros)."""
+    gen = torch.Generator().manual_seed(seed)
+    wcfg = tw.WirelessConfig()
+    rows = {n: [] for n in ("sel", "tt", "c", "pw", "bits", "a0")}
+    for i in range(s):
+        net = tw.sample_network(gen, k, wcfg)
+        gains = tw.sample_fading(gen, net)
+        sizes = torch.randint(50, 901, (k,), generator=gen)
+        tt = tw.train_time(sizes, net, wcfg)
+        sel = (torch.rand((k,), generator=gen) < 0.4).float()
+        sel[0] = 1.0
+        if i == 1 and s >= 3:
+            sel = torch.zeros((k,))
+            a0 = torch.zeros((2, k))
+        else:
+            wf, _ = tbw.min_time_allocation(sel, tt, gains, net.tx_power,
+                                            wcfg)
+            a0 = torch.stack([wf, sel / sel.sum()])
+        rows["sel"].append(sel)
+        rows["tt"].append(tt)
+        rows["c"].append(gains * net.tx_power
+                         / (wcfg.bandwidth_hz * wcfg.noise_psd))
+        rows["pw"].append(net.tx_power)
+        rows["bits"].append(torch.full((k,), wcfg.model_bits))
+        rows["a0"].append(a0)
+    return [torch.stack(rows[n]).float().contiguous()
+            for n in ("sel", "tt", "c", "pw", "bits", "a0")]
+
+
+def _nan_padded(t, device):
+    """``t`` on ``device`` at the front of a NaN-filled buffer running
+    1024 - K floats past its end (at S = 1 the first K columns of a
+    (1, 1024) row): a read past K reads NaN."""
+    k = t.shape[-1]
+    buf = torch.full((t.numel() + 1024 - k,), float("nan"), device=device)
+    buf[:t.numel()] = t.reshape(-1).to(device)
+    return buf[:t.numel()].view(t.shape)
+
+
+@pytest.mark.parametrize("s", [1, 3, 16])
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 100, 128, 129, 256, 257, 1024])
+def test_sub2_routes_on_card(cuda_device, k, s):
+    """Every route at its edges of K, against the plain version (the
+    existing limits), one launch through route(K), NaN past K and in
+    shared memory: finite shares that sum to 1 over the selected set,
+    zeros elsewhere and for the empty selection."""
+    from repro_torch.kernels import _check
+    args = _sub2_rows(s, k, 7000 + 100 * s + k)
+    kw = dict(_PGD_KW, iters=200)
+    on_card = [_nan_padded(t, cuda_device) for t in args]
+    before = dict(tpgd.sub2_pgd.route_launches)
+    launches = tpgd.sub2_pgd.launches
+    _check.fill_shared_memory(cuda_device)
+    a, o = tpgd.sub2_pgd(*on_card, **kw)
+    torch.cuda.synchronize()
+    a, o = a.cpu(), o.cpu()
+    assert tpgd.sub2_pgd.launches == launches + 1
+    assert {r: n - before[r] for r, n in tpgd.sub2_pgd.route_launches.items()
+            } == {r: int(r == tpgd.route(k)) for r in tpgd.ROUTE_COORDS}
+    assert bool(a.isfinite().all()) and bool(o.isfinite().all())
+    sel = args[0] > 0
+    assert bool((a[~sel] == 0).all())
+    any_sel = sel.any(1)
+    torch.testing.assert_close(torch.where(sel, a, 0.0).sum(1),
+                               any_sel.float(), rtol=0, atol=1e-5)
+    assert bool((o[~any_sel] == 0).all())
+    a_p, o_p = tpgd.sub2_pgd_plain(*args, **kw)
+    torch.testing.assert_close(a, a_p, rtol=0, atol=1e-2)
+    torch.testing.assert_close(o, o_p, rtol=1e-3, atol=0)
+
+
+def test_sub2_launch_rejects_what_its_route_does_not_take():
+    """The checks before any launch: a route past its K, a depth out of
+    range, and tau <= 0 on a warp route (whose softmax max is the max
+    round time over tau)."""
+    rows = [torch.ones((1, 200))] * 5 + [torch.ones((1, 2, 200))]
+    kw = dict(_PGD_KW)
+    with pytest.raises(ValueError, match="does not take K = 200"):
+        tpgd.launch(*rows, which="warp4", **kw)
+    with pytest.raises(ValueError, match="depth"):
+        tpgd.launch(*rows, which="warp8", depth=5, **kw)
+    with pytest.raises(ValueError, match="tau > 0"):
+        tpgd.launch(*rows, which="warp8", **dict(kw, tau=0.0))
 
 
 def test_min_time_start_is_the_reference_water_filling():
