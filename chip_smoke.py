@@ -55,15 +55,31 @@ route) and S = 1, K = 1024 (the block route), with inputs NaN past K and
 every SM's shared memory NaN before each checked launch, timed by host
 loop and by CUDA-graph replay beside a latency floor; on the warp route
 it also times every speculative depth (each bit for bit the shipped
-one's) and the block route on the same rows.  It times ``fedavg_agg``
-against ``w @ u`` in turns, at the CNN's and the MLP's widths.  It also
+one's) and the block route on the same rows.  It checks ``fedavg_agg``,
+``fedavg_agg_masked`` and ``fedavg_agg_stale`` at the CNN's and the
+MLP's widths after a NaN fill of shared memory (two launches bit for
+bit, the all-ones mask and staleness identities bit for bit, each launch
+through the route of P and the matrix's address) and times each in
+turns against its one-line PyTorch expression (``w @ u``, ``(w * m) @
+u``, ``((w * m) * s) @ u``), by host loop and by graph replay.  It checks
+``compress_update`` in both modes at both widths, at S = 16, at an odd P
+split over a cluster and at a row too long for the on-chip route, every
+launch after a NaN fill (topk bit for bit the plain version on every
+route and speculative depth, quant within the flip limit), times it by
+host loop and by graph replay beside the stream route (the earlier
+design) on the same rows, and times the on-chip route's choices (cluster
+size; topk's speculative depth and full trips), each bit for bit the
+shipped choice's output.  It also
 holds ``flash_attention`` against its plain
 version at the prefill (one KV group), decode and edge-case shapes, in
 bf16 and f32, each launch after every SM's shared memory is filled with
 NaN and with the keys past ``kv_len`` set to NaN, and times it beside
-SDPA.  It has two rows in the kernels line: ``flash_attention``, the
-bf16 prefill on the tensor cores, and ``flash_attention_decode``, the
-decode kernel, each with its route's launches on path 6.
+SDPA.  The kernels line has two rows for ``flash_attention`` (the bf16
+prefill on the tensor cores, and ``flash_attention_decode``, the decode
+kernel, each with its route's launches on path 6) and two for
+``compress_update`` (its quant launches on path 3, and
+``compress_update_topk``, path 3's topk round).  Each path prints its
+launches by route.
 
 The last two lines are the ``kernels`` JSON record and the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -120,6 +136,9 @@ TOPK_OPS_PER_COORD = 5
 QUANT_FLIP_LIMIT = 1e-4
 STREAM_TOL = 1e-4
 P_CNN, P_MLP = 21840, 159010
+# compress_update's extra checks: an odd P split over a cluster of 8, and
+# a row too long for the on-chip route.
+P_ODD, P_LONG = 100003, 200001
 # Turns of fedavg_agg against w @ u (each side first in half of them).
 FEDAVG_TURNS = 10
 SEED = 0
@@ -134,7 +153,8 @@ ASYNC = dict(availability="diurnal", duty=0.6, period=24.0,
              phase_spread=0.5, buffer_size=2, staleness_decay=0.5,
              num_events=6)
 PATH4_CAP = 16
-# The stale kernel's limit against its plain version (as its siblings).
+# The FedAvg kernels' limit against their plain versions: K-term f32 sums
+# in another order.
 STALE_TOL = 1e-5
 
 
@@ -173,30 +193,12 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_fedavg(torch, dev, k: int, p: int) -> dict:
-    from repro_torch.kernels import fedavg_agg as fk
-    gen = torch.Generator(device=dev).manual_seed(SEED + p)
-    n = cycling(k * p * 4)
-    us = [torch.randn((k, p), generator=gen, device=dev) for _ in range(n)]
-    w = torch.softmax(torch.randn((k,), generator=gen, device=dev), 0)
-    got = fk.fedavg_agg(us[0], w)
-    want = fk.fedavg_agg_plain(us[0], w)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    # f32 sums of K products in another order (the plain version is a
-    # cuBLAS reduction): a few ulps of the O(1) result.
-    if not err <= 1e-5:
-        raise AssertionError(f"fedavg_agg K={k} P={p}: max err {err}")
-    it = iter(range(10 ** 9))
-
-    def kernel():
-        return fk.fedavg_agg(us[next(it) % n], w)
-
-    def library():
-        return w @ us[next(it) % n]
-    # The kernel and one PyTorch call in turns, each side first in half of
-    # them, by host loop and by CUDA-graph replay: medians, the quartile
-    # spread of each side and the turns each side wins.
+def in_turns(torch, kernel, library, label: str) -> tuple[dict, str]:
+    """``kernel`` and ``library`` (one PyTorch call computing the same
+    function) in FEDAVG_TURNS turns, each side first in half of them, by
+    host loop and by CUDA-graph replay.  Returns the medians (``loop``,
+    ``graph``, ``library_loop``, ``library_graph``) and a line with each
+    side's quartile spread and the turns the kernel wins."""
     times = {(fn, how): [] for fn in ("kernel", "library")
              for how in ("loop", "graph")}
     for turn in range(FEDAVG_TURNS):
@@ -204,24 +206,71 @@ def phase_fedavg(torch, dev, k: int, p: int) -> dict:
         for name, fn in order if turn % 2 == 0 else order[::-1]:
             times[(name, "loop")].append(time_ms(fn, 200))
             times[(name, "graph")].append(graph_ms(torch, fn, 200))
-    plain_ms = time_ms(lambda: fk.fedavg_agg_plain(us[next(it) % n], w), 200)
-    b_ms, b_by = bound(k * p * 4 + k * 4 + p * 4, 2 * k * p)
-    read = {}
+    read, out = [], {}
     for how in ("loop", "graph"):
         ker, lib = times[("kernel", how)], times[("library", how)]
         wins = sum(a < b for a, b in zip(ker, lib))
-        read[how] = (f"{how}: kernel median {median(ker):.5f} (quartiles "
-                     f"{quartiles(ker)}), w @ u median {median(lib):.5f} "
-                     f"(quartiles {quartiles(lib)}), kernel faster in {wins} "
-                     f"of {FEDAVG_TURNS} turns")
-    ms = median(times[("kernel", "loop")])
-    library_ms = median(times[("library", "loop")])
-    print(f"[kernel] fedavg_agg K={k} P={p}: max_abs_err={err:.3g} "
-          f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms(w@u)="
-          f"{library_ms:.5f} bound_ms={b_ms:.5f} ({b_by}); in turns, "
-          f"{read['loop']}; {read['graph']}", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+        out[how], out[f"library_{how}"] = median(ker), median(lib)
+        read.append(f"{how}: kernel median {median(ker):.5f} (quartiles "
+                    f"{quartiles(ker)}), {label} median {median(lib):.5f} "
+                    f"(quartiles {quartiles(lib)}), kernel faster in {wins} "
+                    f"of {FEDAVG_TURNS} turns")
+    return out, "; ".join(read)
+
+
+def fedavg_checked(torch, fn, args, plain, label: str) -> tuple:
+    """Two launches of the FedAvg entry point ``fn`` on ``args``, each after
+    every SM's shared memory is filled with NaN: the same bits twice,
+    within 1e-5 of ``plain`` (K-term f32 sums in another order than the
+    plain version's cuBLAS reduction: a few ulps of the O(1) result), one
+    launch through the route of (P, address).  Returns ``(output, max
+    abs error, route)``."""
+    from repro_torch.kernels import _check
+    from repro_torch.kernels import fedavg_agg as fk
+    which = fk.route(args[0].shape[1], args[0].data_ptr())
+    before = fn.route_launches[which]
+    outs = []
+    for _ in range(2):
+        _check.fill_shared_memory(args[0].device)
+        outs.append(fn(*args))
+    want = plain(*args)
+    torch.cuda.synchronize()
+    if fn.route_launches[which] != before + 2:
+        raise AssertionError(f"{label}: launches not through route {which}")
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError(f"{label}: two launches on the same inputs "
+                             f"differ")
+    err = float((outs[0] - want).abs().max())
+    if not err <= STALE_TOL:
+        raise AssertionError(f"{label}: max err {err}")
+    return outs[0], err, which
+
+
+def phase_fedavg(torch, dev, k: int, p: int) -> dict:
+    from repro_torch.kernels import fedavg_agg as fk
+    gen = torch.Generator(device=dev).manual_seed(SEED + p)
+    n = cycling(k * p * 4)
+    us = [torch.randn((k, p), generator=gen, device=dev) for _ in range(n)]
+    w = torch.softmax(torch.randn((k,), generator=gen, device=dev), 0)
+    _, err, which = fedavg_checked(torch, fk.fedavg_agg, (us[0], w),
+                                   fk.fedavg_agg_plain, f"fedavg_agg K={k} "
+                                   f"P={p}")
+    it = iter(range(10 ** 9))
+    turns, read = in_turns(
+        torch, lambda: fk.fedavg_agg(us[next(it) % n], w),
+        lambda: w @ us[next(it) % n], "w @ u")
+    plain_ms = time_ms(lambda: fk.fedavg_agg_plain(us[next(it) % n], w), 200)
+    host_us = host_issue_us(torch, lambda: fk.fedavg_agg(us[0], w), 200)
+    b_ms, b_by = bound(k * p * 4 + k * 4 + p * 4, 2 * k * p)
+    print(f"[kernel] fedavg_agg K={k} P={p} route {which}: max_abs_err="
+          f"{err:.3g} (NaN shared memory, two launches bit for bit) ms="
+          f"{turns['loop']:.5f} (host {host_us:.2f} us per call) "
+          f"plain_ms={plain_ms:.5f} library_ms(w@u)="
+          f"{turns['library_loop']:.5f} bound_ms={b_ms:.5f} ({b_by}); in "
+          f"turns, {read}", flush=True)
+    return dict(max_abs_err=err, ms=turns["loop"], plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=turns["library_loop"])
 
 
 def median(xs) -> float:
@@ -447,61 +496,181 @@ def phase_stream(torch, dev, s: int, k: int, c: int) -> dict:
                 bound_by=b_by, library_ms=None)
 
 
-def phase_compress(torch, dev, mode: str, k: int, p: int) -> dict:
+def compress_inputs(torch, gen, mode: str, s: int, k: int, p: int):
+    """One set of (S, K, P) rows (S = 1: (K, P)): updates of a per-row
+    scale, a residual, and quant's noise (topk: a (…, K) placeholder)."""
+    shape = (s, k, p) if s > 1 else (k, p)
+    scale = torch.rand(shape[:-1] + (1,), generator=gen, device=gen.device)
+    u = torch.randn(shape, generator=gen, device=gen.device) * scale
+    r = 0.1 * torch.randn(shape, generator=gen, device=gen.device)
+    noise = torch.rand(shape, generator=gen, device=gen.device) \
+        if mode == "quant" else torch.zeros(shape[:-1], device=gen.device)
+    return u, r, noise
+
+
+def compress_check(torch, dev, mode: str, s: int, k: int, p: int) -> tuple:
+    """compress_update at S x K rows of P through the wrapper's route,
+    then the same rows through every route and, on the on-chip route,
+    every speculative depth, each launch after every SM's shared memory is
+    filled with NaN: topk bit for bit the plain version, quant within
+    QUANT_FLIP_LIMIT with r' bit for bit wherever the codes agree, and the
+    wrapper's two launches the same bits.  Returns the wrapper's max abs
+    error and the check's widths, selection and keyword arguments."""
+    from repro_torch.kernels import _check
     from repro_torch.kernels import compress as cu
-    gen = torch.Generator(device=dev).manual_seed(SEED + p)
-    n = cycling(k * p * (12 if mode == "quant" else 8))
-    scale = torch.rand((k, 1), generator=gen, device=dev)
-    sets = []
-    for _ in range(n):
-        u = torch.randn((k, p), generator=gen, device=dev) * scale
-        r = 0.1 * torch.randn((k, p), generator=gen, device=dev)
-        noise = torch.rand((k, p), generator=gen, device=dev) \
-            if mode == "quant" else torch.zeros((k,), device=dev)
-        sets.append((u, r, noise))
-    sel = (torch.rand((k,), generator=gen, device=dev) < 0.8).float()
-    widths = torch.full((k,), 8.0 if mode == "quant" else 32.0, device=dev)
-    keep = max(1, round(0.05 * p))
-    kw = dict(mode=mode, keep=keep)
-    u, r, noise = sets[0]
-    c, r_new = cu.compress_update(u, r, widths, sel, noise, **kw)
-    c_p, r_p = cu.compress_update_plain(u, r, widths, sel, noise, **kw)
+    gen = torch.Generator(device=dev).manual_seed(SEED + p + s)
+    u, r, noise = compress_inputs(torch, gen, mode, s, k, p)
+    rows = u.shape[:-1]
+    sel = (torch.rand(rows, generator=gen, device=dev) < 0.8).float()
+    widths = torch.full(rows, 8.0 if mode == "quant" else 32.0, device=dev)
+    kw = dict(mode=mode, keep=max(1, round(0.05 * p)))
+    args = (u, r, widths, sel, noise)
+    label = f"compress_update {mode} S={s} K={k} P={p}"
+    which = cu.route(p)
+    before = dict(cu.compress_update.route_launches)
+    outs = []
+    for _ in range(2):
+        _check.fill_shared_memory(dev)
+        outs.append(cu.compress_update(*args, **kw))
+    routed = {key: n - before[key]
+              for key, n in cu.compress_update.route_launches.items()}
+    if routed != {key: 2 * (key == f"{mode}/{which}") for key in routed}:
+        raise AssertionError(f"{label}: launches {routed}, expected two "
+                             f"through {which}")
+    batch = [a if s > 1 else a[None] for a in args]
+    runs = {f"{which} (wrapper)": outs[0]}
+    for route, depth in [("stream", cu.SPEC_DEPTH)] + (
+            [("onchip", d) for d in range(1, cu.MAX_SPEC_DEPTH + 1)]
+            if which == "onchip" and mode == "topk" else []):
+        _check.fill_shared_memory(dev)
+        c, r_new = cu.launch(*batch, which=route, depth=depth,
+                             thresh_iters=cu.DEFAULT_THRESH_ITERS, **kw)
+        runs[f"{route} depth {depth}"] = (c.view(u.shape), r_new.view(u.shape))
+    c_p, r_p = cu.compress_update_plain(*args, **kw)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError(f"{label}: two launches on the same inputs "
+                             f"differ")
+    for name, (c, r_new) in runs.items():
+        flipped = float((c != c_p).float().mean())
+        r_flipped = float((r_new != r_p).float().mean())
+        if mode == "topk" and not (torch.equal(c, c_p)
+                                   and torch.equal(r_new, r_p)):
+            raise AssertionError(f"{label} {name}: not bit for bit the "
+                                 f"plain version")
+        if mode == "quant" and not (flipped <= QUANT_FLIP_LIMIT
+                                    and r_flipped <= QUANT_FLIP_LIMIT):
+            raise AssertionError(f"{label} {name}: flipped share {flipped}, "
+                                 f"residual share {r_flipped}")
+        # Where the codes agree, the residual v - c (or r, unselected) must
+        # be bit for bit the plain one: the flips are the only difference.
+        same = c == c_p
+        if mode == "quant" and not torch.equal(r_new[same], r_p[same]):
+            raise AssertionError(f"{label} {name}: residual differs where "
+                                 f"the codes agree")
+    c, r_new = outs[0]
     err = max(float((c - c_p).abs().max()), float((r_new - r_p).abs().max()))
     flipped = float((c != c_p).float().mean())
     r_flipped = float((r_new != r_p).float().mean())
-    if mode == "topk" and not (torch.equal(c, c_p) and torch.equal(r_new,
-                                                                   r_p)):
-        raise AssertionError(f"compress_update topk P={p}: max err {err}")
-    if mode == "quant" and not (flipped <= QUANT_FLIP_LIMIT
-                                and r_flipped <= QUANT_FLIP_LIMIT):
-        raise AssertionError(f"compress_update quant P={p}: flipped share "
-                             f"{flipped}, residual share {r_flipped}")
-    # Where the codes agree, the residual v - c (or r, unselected) must be
-    # bit for bit the plain one: the flips are the only difference.
-    same = c == c_p
-    if mode == "quant" and not torch.equal(r_new[same], r_p[same]):
-        raise AssertionError(f"compress_update quant P={p}: residual differs "
-                             f"where the codes agree")
+    if which == "onchip":
+        which += f" ({cu.cluster_blocks(p)} blocks a row)"
+    print(f"[kernel] {label} route {which}: max_abs_err={err:.3g} "
+          f"flipped_share={flipped:.3g} "
+          f"residual_share={r_flipped:.3g} (limit {QUANT_FLIP_LIMIT:g} "
+          f"quant, exact topk) after NaN shared memory, two launches bit "
+          f"for bit; the same on {', '.join(runs)}", flush=True)
+    return err, widths, sel, kw
+
+
+def compress_smem_mirror() -> None:
+    """The wrapper's mirror of the on-chip route's shared memory (which
+    cluster sizes fit a row) against the C entry's, around the edges."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import compress as cu
+    lib = _build.library()
+    for p in (1, 3, 1001, P_CNN, 24576, 24577, 49153, P_ODD, P_MLP,
+              196608, 196609, P_LONG):
+        for nb in (1, 2, 4, 8, 16):
+            for i, mode in enumerate(cu.MODES):
+                if lib.compress_update_smem(p, nb, i) != \
+                        cu.onchip_smem_bytes(p, nb, mode):
+                    raise AssertionError(f"compress smem mirror at P={p} "
+                                         f"nb={nb} {mode}")
+
+
+def phase_compress(torch, dev, mode: str, k: int, p: int) -> dict:
+    """compress_update at K rows of P: the checks of ``compress_check``,
+    then the wrapper's time by host loop and by CUDA-graph replay (inputs
+    cycled past the L2), beside the stream route (the earlier design) on
+    the same rows, and on the on-chip route the design's choices: every
+    cluster size that fits and, for topk, every speculative depth and
+    count of full trips."""
+    from repro_torch.kernels import compress as cu
+    err, widths, sel, kw = compress_check(
+        torch, dev, mode, 1, k, p)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3 * p)
+    n = cycling(k * p * (12 if mode == "quant" else 8))
+    sets = [compress_inputs(torch, gen, mode, 1, k, p) for _ in range(n)]
     it = iter(range(10 ** 9))
 
     def call(fn):
         u, r, noise = sets[next(it) % n]
         return fn(u, r, widths, sel, noise, **kw)
 
+    def routed(which, **how):
+        def fn(u, r, widths, sel, noise, **kw):
+            return cu.launch(u[None], r[None], widths[None], sel[None],
+                             noise[None], which=which,
+                             thresh_iters=cu.DEFAULT_THRESH_ITERS,
+                             **dict(kw, **how))
+        return lambda: call(fn)
+
     ms = time_ms(lambda: call(cu.compress_update), 50)
+    graph = graph_ms(torch, lambda: call(cu.compress_update), 20)
+    host_us = host_issue_us(torch, lambda: call(cu.compress_update), 50)
+    stream = graph_ms(torch, routed("stream"), 20)
     plain_ms = time_ms(lambda: call(cu.compress_update_plain), 5, warmup=1)
     if mode == "quant":
         b_ms, b_by = bound(20 * k * p + 8 * k, k * p * QUANT_OPS_PER_COORD)
     else:
         b_ms, b_by = bound(16 * k * p + 8 * k, k * p * (
             TOPK_OPS_PER_COORD + 32 * TOPK_OPS_PER_COORD_TRIP))
-    print(f"[kernel] compress_update {mode} K={k} P={p}: max_abs_err="
-          f"{err:.3g} flipped_share={flipped:.3g} residual_share="
-          f"{r_flipped:.3g} (limit {QUANT_FLIP_LIMIT:g} quant, exact topk) "
-          f"ms={ms:.5f} "
-          f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by})",
-          flush=True)
+    which = cu.route(p)
+    print(f"[kernel] compress_update {mode} K={k} P={p} route {which}: "
+          f"ms={ms:.5f} (graph {graph:.5f}; host {host_us:.2f} us per call; "
+          f"the stream route, the earlier design, on the same rows: graph "
+          f"{stream:.5f}) plain_ms="
+          f"{plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}; {b_ms / graph:.3f} "
+          f"of it by the graph)", flush=True)
+    if which == "onchip":
+        # The design's choices, each timed by graph replay and each bit
+        # for bit the shipped launch's output on the first set of rows.
+        shipped = dict(nb=cu.cluster_blocks(p), depth=cu.SPEC_DEPTH,
+                       full_trips=cu.FULL_TRIPS)
+        choices = [dict(shipped, nb=nb) for nb in (1, 2, 4, 8)
+                   if cu.onchip_smem_bytes(p, nb, mode)]
+        if mode == "topk":
+            choices += [dict(shipped, depth=d)
+                        for d in range(1, cu.MAX_SPEC_DEPTH + 1)]
+            choices += [dict(shipped, full_trips=f) for f in (2, 3, 4, 5, 6)]
+        u, r, noise = sets[0]
+        args = (u[None], r[None], widths[None], sel[None], noise[None])
+        want = cu.launch(*args, which="onchip", **shipped, **kw,
+                         thresh_iters=cu.DEFAULT_THRESH_ITERS)
+        read = []
+        for how in choices:
+            got = cu.launch(*args, which="onchip", **how, **kw,
+                            thresh_iters=cu.DEFAULT_THRESH_ITERS)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"compress_update {mode} P={p} {how}: "
+                                     f"differs from the shipped {shipped}")
+            read.append(f"nb {how['nb']} depth {how['depth']} full trips "
+                        f"{how['full_trips']}: "
+                        f"{graph_ms(torch, routed('onchip', **how), 20):.5f}")
+        print(f"[kernel] compress_update {mode} K={k} P={p} on chip, graph "
+              f"ms by (blocks a row, depth, full trips), each bit for bit "
+              f"the shipped {tuple(shipped.values())}: {'; '.join(read)}",
+              flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 
@@ -513,30 +682,33 @@ def phase_masked(torch, dev, k: int, p: int) -> dict:
     us = [torch.randn((k, p), generator=gen, device=dev) for _ in range(n)]
     w = torch.softmax(torch.randn((k,), generator=gen, device=dev), 0)
     m = (torch.rand((k,), generator=gen, device=dev) < 0.8).float()
-    got = fk.fedavg_agg_masked(us[0], w, m)
-    want = fk.fedavg_agg_masked_plain(us[0], w, m)
-    ones = fk.fedavg_agg_masked(us[0], w, torch.ones_like(m))
-    unmasked = fk.fedavg_agg(us[0], w)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    # Same limit as fedavg_agg: K-term f32 sums in another order.
-    if not err <= 1e-5:
-        raise AssertionError(f"fedavg_agg_masked K={k} P={p}: err {err}")
+    label = f"fedavg_agg_masked K={k} P={p}"
+    _, err, which = fedavg_checked(torch, fk.fedavg_agg_masked,
+                                   (us[0], w, m), fk.fedavg_agg_masked_plain,
+                                   label)
+    ones, _, _ = fedavg_checked(torch, fk.fedavg_agg_masked,
+                                (us[0], w, torch.ones_like(m)),
+                                fk.fedavg_agg_masked_plain, label)
+    unmasked, _, _ = fedavg_checked(torch, fk.fedavg_agg, (us[0], w),
+                                    fk.fedavg_agg_plain, label)
     if not torch.equal(ones, unmasked):
         raise AssertionError("fedavg_agg_masked with an all-ones mask is "
                              "not bitwise fedavg_agg")
     it = iter(range(10 ** 9))
-    ms = time_ms(lambda: fk.fedavg_agg_masked(us[next(it) % n], w, m), 200)
+    turns, read = in_turns(
+        torch, lambda: fk.fedavg_agg_masked(us[next(it) % n], w, m),
+        lambda: (w * m) @ us[next(it) % n], "(w * m) @ u")
     plain_ms = time_ms(
         lambda: fk.fedavg_agg_masked_plain(us[next(it) % n], w, m), 200)
-    library_ms = time_ms(lambda: (w * m) @ us[next(it) % n], 200)
     b_ms, b_by = bound(k * p * 4 + k * 8 + p * 4, 2 * k * p)
-    print(f"[kernel] fedavg_agg_masked K={k} P={p}: max_abs_err={err:.3g} "
-          f"all-ones bitwise fedavg_agg: yes ms={ms:.5f} plain_ms="
-          f"{plain_ms:.5f} library_ms((w*m)@u)={library_ms:.5f} bound_ms="
-          f"{b_ms:.5f} ({b_by})", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms)
+    print(f"[kernel] {label} route {which}: max_abs_err={err:.3g} (NaN "
+          f"shared memory, two launches bit for bit) all-ones bitwise "
+          f"fedavg_agg: yes ms={turns['loop']:.5f} plain_ms={plain_ms:.5f} "
+          f"library_ms((w*m)@u)={turns['library_loop']:.5f} bound_ms="
+          f"{b_ms:.5f} ({b_by}); in turns, {read}", flush=True)
+    return dict(max_abs_err=err, ms=turns["loop"], plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=turns["library_loop"])
 
 
 def phase_stale(torch, dev, k: int, p: int) -> dict:
@@ -548,31 +720,34 @@ def phase_stale(torch, dev, k: int, p: int) -> dict:
     m = (torch.rand((k,), generator=gen, device=dev) < 0.5).float()
     tau = torch.randint(0, 5, (k,), generator=gen, device=dev).float()
     s = (1.0 + tau) ** -0.5
-    got = fk.fedavg_agg_stale(us[0], w, m, s)
-    want = fk.fedavg_agg_stale_plain(us[0], w, m, s)
-    ones = fk.fedavg_agg_stale(us[0], w, m, torch.ones_like(s))
-    masked = fk.fedavg_agg_masked(us[0], w, m)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    # Same limit as its siblings: K-term f32 sums in another order.
-    if not err <= STALE_TOL:
-        raise AssertionError(f"fedavg_agg_stale K={k} P={p}: err {err}")
+    label = f"fedavg_agg_stale K={k} P={p}"
+    _, err, which = fedavg_checked(torch, fk.fedavg_agg_stale,
+                                   (us[0], w, m, s), fk.fedavg_agg_stale_plain,
+                                   label)
+    ones, _, _ = fedavg_checked(torch, fk.fedavg_agg_stale,
+                                (us[0], w, m, torch.ones_like(s)),
+                                fk.fedavg_agg_stale_plain, label)
+    masked, _, _ = fedavg_checked(torch, fk.fedavg_agg_masked, (us[0], w, m),
+                                  fk.fedavg_agg_masked_plain, label)
     if not torch.equal(ones, masked):
         raise AssertionError("fedavg_agg_stale with all-ones s is not "
                              "bitwise fedavg_agg_masked")
     it = iter(range(10 ** 9))
-    ms = time_ms(lambda: fk.fedavg_agg_stale(us[next(it) % n], w, m, s),
-                 200)
+    turns, read = in_turns(
+        torch, lambda: fk.fedavg_agg_stale(us[next(it) % n], w, m, s),
+        lambda: ((w * m) * s) @ us[next(it) % n], "((w * m) * s) @ u")
     plain_ms = time_ms(
         lambda: fk.fedavg_agg_stale_plain(us[next(it) % n], w, m, s), 200)
-    library_ms = time_ms(lambda: (w * m * s) @ us[next(it) % n], 200)
     b_ms, b_by = bound(k * p * 4 + k * 12 + p * 4, 2 * k * p)
-    print(f"[kernel] fedavg_agg_stale K={k} P={p}: max_abs_err={err:.3g} "
-          f"(limit {STALE_TOL:g}) all-ones s bitwise fedavg_agg_masked: "
-          f"yes ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms((w*m*s)@u)="
-          f"{library_ms:.5f} bound_ms={b_ms:.5f} ({b_by})", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms)
+    print(f"[kernel] {label} route {which}: max_abs_err={err:.3g} (limit "
+          f"{STALE_TOL:g}; NaN shared memory, two launches bit for bit) "
+          f"all-ones s bitwise fedavg_agg_masked: yes ms={turns['loop']:.5f} "
+          f"plain_ms={plain_ms:.5f} library_ms((w*m*s)@u)="
+          f"{turns['library_loop']:.5f} bound_ms={b_ms:.5f} ({b_by}); in "
+          f"turns, {read}", flush=True)
+    return dict(max_abs_err=err, ms=turns["loop"], plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=turns["library_loop"])
 
 
 # Flash attention at danube's head geometry.  f32 (both routes): within
@@ -941,10 +1116,15 @@ def _counters():
 def reset_counts():
     for fn in _counters().values():
         fn.launches = 0
-    from repro_torch.kernels import flash_attention, sub2_pgd
-    for fn in (flash_attention.flash_attention, sub2_pgd.sub2_pgd):
-        for route in fn.route_launches:
+        for route in getattr(fn, "route_launches", {}):
             fn.route_launches[route] = 0
+
+
+def route_counts() -> str:
+    """The launches of each kernel that has routes, by route."""
+    return "; ".join(f"{name} {fn.route_launches}"
+                     for name, fn in _counters().items()
+                     if hasattr(fn, "route_launches"))
 
 
 def read_counts() -> dict:
@@ -1162,8 +1342,7 @@ def phase_path(torch, dev, data, net, wcfg, path: int, **path_kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    from repro_torch.kernels import sub2_pgd as sk
-    sub2_routes = dict(sk.sub2_pgd.route_launches)
+    routes = route_counts()
     params, recs = out[:2]
     # The same rounds again, warm: the first run of the process pays its
     # one-time set-up (CUDA context, cuDNN/cuBLAS initialisation and
@@ -1188,8 +1367,8 @@ def phase_path(torch, dev, data, net, wcfg, path: int, **path_kw):
                   f"das_iters={r.iterations}", flush=True)
     print(f"[path {path}] K={data.num_devices} cap={data.capacity} CNN, "
           f"{rounds} {unit}s: first run {wall:.3f}s, warm run {warm:.3f}s "
-          f"= {warm / rounds:.3f}s per {unit}; launches {counts}; sub2_pgd "
-          f"by route {sub2_routes}", flush=True)
+          f"= {warm / rounds:.3f}s per {unit}; launches {counts}", flush=True)
+    print(f"[path {path}] launches by route: {routes}", flush=True)
     want = expected_counts(path, rounds, sum(r.iterations for r in recs))
     if counts != want:
         raise AssertionError(f"path {path} launch counts {counts}, "
@@ -1219,11 +1398,12 @@ def phase_path(torch, dev, data, net, wcfg, path: int, **path_kw):
         want = expected_counts(3, 1, recs3[0].iterations)
         print(f"[path 3] one topk round: acc={recs3[0].accuracy:.4f} "
               f"sel={recs3[0].n_selected} ok={recs3[0].n_success} "
-              f"launches {got}", flush=True)
+              f"launches {got}; by route: {route_counts()}", flush=True)
         if got != want:
             raise AssertionError(f"topk launch counts {got}, expected "
                                  f"{want}")
         check_records(torch, recs3, params, data.num_devices)
+        counts = dict(counts, compress_update_topk=got["compress_update"])
     return counts, recs
 
 
@@ -1347,8 +1527,9 @@ def phase_profile(torch, dev, data, net, wcfg, path: int,
     # tiny kernel measures the host's launch rate instead).
     for kname in ("diversity_kernel", "sub2_pgd_warp_kernel",
                   "sub2_pgd_block_kernel", "fedavg_agg_kernel",
-                  "stream_update_kernel", "compress_update_kernel",
-                  "fedavg_agg_masked_kernel", "fedavg_agg_stale_kernel"):
+                  "stream_update_kernel", "compress_onchip_kernel",
+                  "compress_stream_kernel", "fedavg_agg_masked_kernel",
+                  "fedavg_agg_stale_kernel"):
         hits = [(tot, n) for name, (tot, n) in by_name.items()
                 if f"::{kname}(" in name or f"::{kname}<" in name]
         if hits:
@@ -1716,6 +1897,8 @@ KERNELS = {
                       "src/repro/kernels/stream_update.py:58"),
     "compress_update": ("src/repro_torch/csrc/compress.cu",
                         "src/repro/kernels/compress.py:86"),
+    "compress_update_topk": ("src/repro_torch/csrc/compress.cu",
+                             "src/repro/kernels/compress.py:86"),
     "fedavg_agg_masked": ("src/repro_torch/csrc/fedavg_agg.cu",
                           "src/repro/kernels/fedavg_agg.py:100"),
     "fedavg_agg_stale": ("src/repro_torch/csrc/fedavg_agg.cu",
@@ -1743,6 +1926,7 @@ def main() -> int:
     print(f"[build] kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
 
+    compress_smem_mirror()
     data, net, wcfg = full_width_world(torch, dev)
     data_dev = data.to(dev)
     # The rows of the kernels line: each kernel at the shapes its path
@@ -1754,6 +1938,8 @@ def main() -> int:
         "sub2_pgd": phase_sub2(torch, dev, 1, 100),
         "stream_update": phase_stream(torch, dev, 1, 100, 10),
         "compress_update": phase_compress(torch, dev, "quant", 100, P_CNN),
+        "compress_update_topk": phase_compress(torch, dev, "topk", 100,
+                                               P_CNN),
         "fedavg_agg_masked": phase_masked(torch, dev, 100, P_CNN),
         "fedavg_agg_stale": phase_stale(torch, dev, 100, P_CNN),
         **phase_flash(torch, dev),
@@ -1763,8 +1949,11 @@ def main() -> int:
     phase_sub2(torch, dev, 1, 1024)
     phase_stream(torch, dev, 16, 100, 10)
     phase_compress(torch, dev, "quant", 100, P_MLP)
-    phase_compress(torch, dev, "topk", 100, P_CNN)
     phase_compress(torch, dev, "topk", 100, P_MLP)
+    for mode in ("quant", "topk"):
+        compress_check(torch, dev, mode, 16, 100, P_CNN)
+        compress_check(torch, dev, mode, 1, 7, P_ODD)
+        compress_check(torch, dev, mode, 1, 3, P_LONG)
     phase_masked(torch, dev, 100, P_MLP)
     phase_stale(torch, dev, 100, P_MLP)
     del data_dev
@@ -1773,7 +1962,8 @@ def main() -> int:
     # from zero just before that path's run.
     owner = {"diversity": 1, "fedavg_agg": 1, "sub2_pgd": 1,
              "stream_update": 2, "fedavg_agg_masked": 2,
-             "compress_update": 3, "fedavg_agg_stale": 4,
+             "compress_update": 3, "compress_update_topk": 3,
+             "fedavg_agg_stale": 4,
              "flash_attention": 6, "flash_attention_decode": 6}
     by_path, recs = {}, {}
     for path in (1, 2, 3):

@@ -4,117 +4,248 @@
 //
 // Replaces the TPU kernel fedavg_agg_kernel (src/repro/kernels/
 // fedavg_agg.py, _fedavg_kernel), which tiled P into VMEM blocks and
-// reduced a (K, BLOCK_P) tile on the VPU.  Here one thread owns one
-// coordinate p and walks the K client rows in order, accumulating in
-// f32; neighbouring threads read neighbouring addresses of each row, so
-// every load is coalesced.  The ragged tail is masked (p < P), not
-// padded.  The K weights sit in shared memory.
+// reduced a (K, BLOCK_P) tile on the VPU.
 //
 // Bound on the H100: bytes.  K*P*4 bytes of updates are read once and
 // P*4 written, against 2*K*P flops — about 0.5 flop/byte, far below the
 // card's ridge point, so the kernel can at best stream the (K, P) matrix
-// at HBM rate (K=100, P=21,840: 8.7 MB, ~2.6 us at 3.35 TB/s).
+// at HBM rate (K=100, P=21,840: 8.7 MB, ~2.6 us at 3.35 TB/s).  At that
+// size the matrix is gone in about one memory latency, so what counts is
+// how many bytes are in flight at once: ~3.35 TB/s x ~0.8 us, some
+// 2.7 MB over the card, about 20 KB per SM.
 //
-// The masked kernel replaces fedavg_agg_masked_kernel (the fault
-// subsystem's aggregate over the uploads that landed).  It folds the mask
-// into the weights as they are staged in shared memory and then runs the
-// very same column loop, so an all-ones mask (w * 1.0 == w exactly) gives
-// the unmasked kernel's result bit for bit.  Nothing renormalises.
+// Design: split-K streaming.  A block splits the K rows over kGroups = 16
+// row groups (row k to group k % 16) of 16 threads; each thread owns VEC
+// neighbouring columns and reads them with one VEC-wide load (float4,
+// float2 or float, the widest that P and the matrix's address allow: the
+// wrapper's route), so a block owns 16 * VEC columns and a group reads
+// 64 * VEC contiguous bytes of a row.  Each thread issues kUnroll = 8
+// rows' loads before it waits on any (256 threads x 8 x 16 bytes = 32 KB
+// in flight a block at float4), and the first batch is issued before the
+// weights are staged, so the staging's round trip hides under it.  The
+// grid is ceil(P / (16 * VEC)) blocks: 342 at the CNN's P = 21,840 with
+// float4, over two per SM.  Each thread sums its rows in ascending k with
+// fmaf; the 16 partial sums of a column then meet in shared memory and
+// one thread adds them in group order.  The order does not depend on VEC,
+// so every route gives the same bits, and no atomics: the same inputs
+// give the same bits on every launch.
 //
-// The stale kernel replaces fedavg_agg_stale_kernel (the event-driven
-// driver's buffered flush, which discounts each arrived update by its
-// model-version staleness s = (1 + tau)^-gamma).  It stages
-// (w * m) * s, rounded after each product in the reference's
-// left-to-right order, and runs the same column loop: an all-ones s
-// (x * 1.0 == x exactly) gives the masked kernel's result bit for bit,
-// the identity the event driver's synchronous limit leans on.  The
-// three (K,) rows are noise beside the (K, P) matrix: the same byte
-// bound as its siblings.
+// The three entry points differ only in how they stage the K weights in
+// shared memory (w, w * m, (w * m) * s, each product rounded by
+// __fmul_rn in the reference's left-to-right order) and then run the same
+// reduction, so an all-ones mask (w * 1.0 == w exactly) gives the
+// unmasked result bit for bit and an all-ones s the masked one: the
+// identity the event driver's synchronous limit leans on.  Nothing
+// renormalises.  The (K,) rows are noise beside the (K, P) matrix: the
+// same byte bound for all three.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kGroups = 16;                    // row groups of a block
+constexpr int kLanes = kThreads / kGroups;     // threads on one row
+constexpr int kUnroll = 8;
 constexpr int kMaxSharedK = 4096;
 
-// The column loop both kernels share: `w` holds the staged weights.
-__device__ __forceinline__ void weighted_column_sum(
-    const float* __restrict__ updates, const float* w,
-    float* __restrict__ out, int K, long long P) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  const float* col = updates + p;
-  float acc = 0.0f;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) acc += w[k] * __ldg(col + (long long)k * P);
-  out[p] = acc;
+template <int VEC>
+__device__ __forceinline__ void load_vec(float (&x)[VEC],
+                                         const float* __restrict__ p) {
+  if constexpr (VEC == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = t.x;
+    x[1] = t.y;
+    x[2] = t.z;
+    x[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    x[0] = t.x;
+    x[1] = t.y;
+  } else {
+    x[0] = __ldg(p);
+  }
 }
 
-__global__ void fedavg_agg_kernel(const float* __restrict__ updates,
-                                  const float* __restrict__ weights,
-                                  float* __restrict__ out, int K,
-                                  long long P) {
-  __shared__ float w[kMaxSharedK];
-  for (int k = threadIdx.x; k < K; k += blockDim.x) w[k] = weights[k];
-  __syncthreads();
-  weighted_column_sum(updates, w, out, K, P);
+// Rows k0, k0 + kGroups, ... of this thread's columns.
+template <int VEC>
+__device__ __forceinline__ void load_batch(float (&x)[kUnroll][VEC],
+                                           const float* __restrict__ col,
+                                           int k0, int K, long long P,
+                                           bool live) {
+#pragma unroll
+  for (int i = 0; i < kUnroll; ++i) {
+    const int k = k0 + i * kGroups;
+    if (live && k < K) {
+      load_vec<VEC>(x[i], col + (long long)k * P);
+    } else {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) x[i][v] = 0.0f;
+    }
+  }
 }
 
-__global__ void fedavg_agg_masked_kernel(const float* __restrict__ updates,
-                                         const float* __restrict__ weights,
-                                         const float* __restrict__ mask,
-                                         float* __restrict__ out, int K,
-                                         long long P) {
+// The reduction all three kernels share.  `stage(k)` gives weight k as
+// the entry point folds it; it runs once per k, into shared memory.
+template <int VEC, typename Stage>
+__device__ __forceinline__ void split_k_sum(const float* __restrict__ updates,
+                                            float* __restrict__ out, int K,
+                                            long long P, Stage stage) {
+  constexpr int kCols = kLanes * VEC;
   __shared__ float w[kMaxSharedK];
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
-    w[k] = __fmul_rn(weights[k], mask[k]);
+  __shared__ float part[kGroups][kCols];
+  const int g = threadIdx.x / kLanes;
+  const int l = threadIdx.x % kLanes;
+  const long long col = (long long)blockIdx.x * kCols + l * VEC;
+  const bool live = col < P;           // P % VEC == 0: all VEC or none
+  const float* src = updates + col;
+
+  float x[kUnroll][VEC];
+  load_batch<VEC>(x, src, g, K, P, live);
+  for (int k = threadIdx.x; k < K; k += kThreads) w[k] = stage(k);
   __syncthreads();
-  weighted_column_sum(updates, w, out, K, P);
+
+  float acc[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
+  for (int k0 = g;;) {
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      const int k = k0 + i * kGroups;
+      if (k < K) {
+        const float wk = w[k];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[v] = fmaf(wk, x[i][v], acc[v]);
+      }
+    }
+    k0 += kUnroll * kGroups;
+    if (k0 >= K) break;
+    load_batch<VEC>(x, src, k0, K, P, live);
+  }
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) part[g][l * VEC + v] = acc[v];
+  __syncthreads();
+  if (threadIdx.x < kCols) {
+    const long long c = (long long)blockIdx.x * kCols + threadIdx.x;
+    if (c < P) {
+      float s = part[0][threadIdx.x];
+#pragma unroll
+      for (int r = 1; r < kGroups; ++r) s += part[r][threadIdx.x];
+      out[c] = s;
+    }
+  }
 }
 
-__global__ void fedavg_agg_stale_kernel(const float* __restrict__ updates,
-                                        const float* __restrict__ weights,
-                                        const float* __restrict__ mask,
-                                        const float* __restrict__ stale,
-                                        float* __restrict__ out, int K,
-                                        long long P) {
-  __shared__ float w[kMaxSharedK];
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
-    w[k] = __fmul_rn(__fmul_rn(weights[k], mask[k]), stale[k]);
-  __syncthreads();
-  weighted_column_sum(updates, w, out, K, P);
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+fedavg_agg_kernel(const float* __restrict__ updates,
+                  const float* __restrict__ weights, float* __restrict__ out,
+                  int K, long long P) {
+  split_k_sum<VEC>(updates, out, K, P, [=](int k) { return weights[k]; });
 }
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+fedavg_agg_masked_kernel(const float* __restrict__ updates,
+                         const float* __restrict__ weights,
+                         const float* __restrict__ mask,
+                         float* __restrict__ out, int K, long long P) {
+  split_k_sum<VEC>(updates, out, K, P, [=](int k) {
+    return __fmul_rn(weights[k], mask[k]);
+  });
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+fedavg_agg_stale_kernel(const float* __restrict__ updates,
+                        const float* __restrict__ weights,
+                        const float* __restrict__ mask,
+                        const float* __restrict__ stale,
+                        float* __restrict__ out, int K, long long P) {
+  split_k_sum<VEC>(updates, out, K, P, [=](int k) {
+    return __fmul_rn(__fmul_rn(weights[k], mask[k]), stale[k]);
+  });
+}
+
+// The launch shared by the entry points: `vec` is the wrapper's route
+// (1, 2 or 4 floats a load); refused unless P and both row pointers
+// allow it.
+bool valid(const float* updates, const float* out, int K, long long P,
+           int vec) {
+  if (K < 1 || K > kMaxSharedK || P < 1) return false;
+  if (vec != 1 && vec != 2 && vec != 4) return false;
+  const uintptr_t align = (uintptr_t)vec * sizeof(float);
+  return P % vec == 0 && (uintptr_t)updates % align == 0 &&
+         (uintptr_t)out % align == 0;
+}
+
+template <int VEC>
+unsigned grid(long long P) {
+  constexpr int kCols = kLanes * VEC;
+  return (unsigned)((P + kCols - 1) / kCols);
+}
+
+template <template <int> class Launch, typename... Args>
+int dispatch(int vec, Args... args) {
+  switch (vec) {
+    case 4: Launch<4>::run(args...); break;
+    case 2: Launch<2>::run(args...); break;
+    default: Launch<1>::run(args...); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int VEC>
+struct Plain {
+  static void run(const float* u, const float* w, float* out, int K,
+                  long long P, cudaStream_t s) {
+    fedavg_agg_kernel<VEC><<<grid<VEC>(P), kThreads, 0, s>>>(u, w, out, K,
+                                                             P);
+  }
+};
+
+template <int VEC>
+struct Masked {
+  static void run(const float* u, const float* w, const float* m,
+                  float* out, int K, long long P, cudaStream_t s) {
+    fedavg_agg_masked_kernel<VEC><<<grid<VEC>(P), kThreads, 0, s>>>(
+        u, w, m, out, K, P);
+  }
+};
+
+template <int VEC>
+struct Stale {
+  static void run(const float* u, const float* w, const float* m,
+                  const float* st, float* out, int K, long long P,
+                  cudaStream_t s) {
+    fedavg_agg_stale_kernel<VEC><<<grid<VEC>(P), kThreads, 0, s>>>(
+        u, w, m, st, out, K, P);
+  }
+};
 
 }  // namespace
 
 extern "C" int fedavg_agg_f32(const float* updates, const float* weights,
-                              float* out, int K, long long P,
+                              float* out, int K, long long P, int vec,
                               cudaStream_t stream) {
-  if (K < 1 || K > kMaxSharedK || P < 1) return (int)cudaErrorInvalidValue;
-  const long long blocks = (P + kThreads - 1) / kThreads;
-  fedavg_agg_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
-      updates, weights, out, K, P);
-  return (int)cudaGetLastError();
+  if (!valid(updates, out, K, P, vec)) return (int)cudaErrorInvalidValue;
+  return dispatch<Plain>(vec, updates, weights, out, K, P, stream);
 }
 
 extern "C" int fedavg_agg_masked_f32(const float* updates,
                                      const float* weights, const float* mask,
-                                     float* out, int K, long long P,
+                                     float* out, int K, long long P, int vec,
                                      cudaStream_t stream) {
-  if (K < 1 || K > kMaxSharedK || P < 1) return (int)cudaErrorInvalidValue;
-  const long long blocks = (P + kThreads - 1) / kThreads;
-  fedavg_agg_masked_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
-      updates, weights, mask, out, K, P);
-  return (int)cudaGetLastError();
+  if (!valid(updates, out, K, P, vec)) return (int)cudaErrorInvalidValue;
+  return dispatch<Masked>(vec, updates, weights, mask, out, K, P, stream);
 }
 
 extern "C" int fedavg_agg_stale_f32(const float* updates,
                                     const float* weights, const float* mask,
                                     const float* stale, float* out, int K,
-                                    long long P, cudaStream_t stream) {
-  if (K < 1 || K > kMaxSharedK || P < 1) return (int)cudaErrorInvalidValue;
-  const long long blocks = (P + kThreads - 1) / kThreads;
-  fedavg_agg_stale_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
-      updates, weights, mask, stale, out, K, P);
-  return (int)cudaGetLastError();
+                                    long long P, int vec,
+                                    cudaStream_t stream) {
+  if (!valid(updates, out, K, P, vec)) return (int)cudaErrorInvalidValue;
+  return dispatch<Stale>(vec, updates, weights, mask, stale, out, K, P,
+                         stream);
 }

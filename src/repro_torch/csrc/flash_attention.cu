@@ -58,9 +58,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
 #include "flash_attention.cuh"
 
 using namespace flash;
+using repro::cluster_rank;
+using repro::cluster_sync;
+using repro::ld_cluster;
 
 namespace {
 
@@ -378,33 +382,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[2],
 // Barrier of the consumer warps only.
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(DEC_CONSUMERS) : "memory");
-}
-
-// Thread block clusters: this block's rank, a barrier of every thread of
-// the cluster, and a load from the same shared variable of block `rank`.
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
-  uint32_t addr;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(addr)
-               : "r"(smem_u32(p)), "r"(rank));
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
-               : "=f"(v)
-               : "r"(addr)
-               : "memory");
-  return v;
 }
 
 // One block per (b, KV head, chunk of GR of its G query heads, kv

@@ -3,14 +3,21 @@
 Replaces the TPU kernels ``fedavg_agg_kernel``,
 ``fedavg_agg_masked_kernel`` and ``fedavg_agg_stale_kernel`` of
 ``src/repro/kernels/fedavg_agg.py``.
-CUDA source: ``csrc/fedavg_agg.cu`` — one thread per coordinate p, a
-loop over the K clients in order, f32 accumulation, the ragged tail
-masked.  Bound on the H100 by bytes: the (K, P) f32 matrix is read once
-at HBM rate.  The masked form folds the upload-success mask into the
-weights and shares the unmasked kernel's loop, so an all-ones mask is
-bitwise :func:`fedavg_agg`; the stale form folds the staleness
-multiplier in after the mask, so an all-ones multiplier is bitwise
+CUDA source: ``csrc/fedavg_agg.cu`` — a split-K streaming reduction:
+each block splits the K rows over 16 row groups, each thread keeps 8
+rows' loads of its columns in flight, and the groups' partial sums meet
+in shared memory in one fixed order (no atomics, and the same order on
+every route, so a launch's bits depend on the inputs alone).  Bound on
+the H100 by bytes: the (K, P) f32 matrix is read once at HBM rate.  The
+masked form folds the upload-success mask into the weights and shares
+the unmasked kernel's reduction, so an all-ones mask is bitwise
+:func:`fedavg_agg`; the stale form folds the staleness multiplier in
+after the mask, so an all-ones multiplier is bitwise
 :func:`fedavg_agg_masked`.
+
+:func:`route` picks the width of each load (``vec4``, ``vec2`` or
+``scalar``) from P and the matrix's address alone; each wrapper counts
+its launches in ``launches`` and by route in ``route_launches``.
 """
 
 from __future__ import annotations
@@ -18,6 +25,40 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, _check
+
+# Floats per load of each route.
+ROUTE_VEC = {"vec4": 4, "vec2": 2, "scalar": 1}
+
+
+def route(p: int, address: int) -> str:
+    """The widest load every row of a contiguous ``(K, p)`` f32 matrix at
+    ``address`` allows: ``p`` a multiple of the width and the first row
+    aligned to it (then every row is).  K does not enter."""
+    for name, vec in ROUTE_VEC.items():
+        if p % vec == 0 and address % (4 * vec) == 0:
+            return name
+    raise AssertionError("an f32 pointer is 4-byte aligned")
+
+
+def _launch(wrapper, entry: str, updates: torch.Tensor,
+            rows: tuple) -> torch.Tensor:
+    """Check the operands, launch ``entry`` with the route of
+    ``updates`` and count it on ``wrapper``.  ``rows`` are the (K,)
+    operands in the C entry's order."""
+    k, p = updates.shape
+    dev = updates.device
+    _check.cuda_operand("updates", updates, torch.float32, (k, p), dev)
+    for name, t in rows:
+        _check.cuda_operand(name, t, torch.float32, (k,), dev)
+    out = torch.empty((p,), dtype=torch.float32, device=dev)
+    which = route(p, updates.data_ptr())
+    code = getattr(_build.library(), entry)(
+        updates.data_ptr(), *(t.data_ptr() for _, t in rows),
+        out.data_ptr(), k, p, ROUTE_VEC[which], _check.stream_handle(dev))
+    _build.check(code, wrapper.__name__)
+    wrapper.launches += 1
+    wrapper.route_launches[which] += 1
+    return out
 
 
 def fedavg_agg_plain(updates: torch.Tensor,
@@ -36,20 +77,12 @@ def fedavg_agg(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """
     if updates.device.type == "cpu":
         return fedavg_agg_plain(updates, weights)
-    k, p = updates.shape
-    dev = updates.device
-    _check.cuda_operand("updates", updates, torch.float32, (k, p), dev)
-    _check.cuda_operand("weights", weights, torch.float32, (k,), dev)
-    out = torch.empty((p,), dtype=torch.float32, device=dev)
-    code = _build.library().fedavg_agg_f32(
-        updates.data_ptr(), weights.data_ptr(), out.data_ptr(), k, p,
-        _check.stream_handle(dev))
-    _build.check(code, "fedavg_agg")
-    fedavg_agg.launches += 1
-    return out
+    return _launch(fedavg_agg, "fedavg_agg_f32", updates,
+                   (("weights", weights),))
 
 
 fedavg_agg.launches = 0
+fedavg_agg.route_launches = dict.fromkeys(ROUTE_VEC, 0)
 
 
 def fedavg_agg_masked_plain(updates: torch.Tensor, weights: torch.Tensor,
@@ -71,21 +104,12 @@ def fedavg_agg_masked(updates: torch.Tensor, weights: torch.Tensor,
     """
     if updates.device.type == "cpu":
         return fedavg_agg_masked_plain(updates, weights, mask)
-    k, p = updates.shape
-    dev = updates.device
-    _check.cuda_operand("updates", updates, torch.float32, (k, p), dev)
-    _check.cuda_operand("weights", weights, torch.float32, (k,), dev)
-    _check.cuda_operand("mask", mask, torch.float32, (k,), dev)
-    out = torch.empty((p,), dtype=torch.float32, device=dev)
-    code = _build.library().fedavg_agg_masked_f32(
-        updates.data_ptr(), weights.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), k, p, _check.stream_handle(dev))
-    _build.check(code, "fedavg_agg_masked")
-    fedavg_agg_masked.launches += 1
-    return out
+    return _launch(fedavg_agg_masked, "fedavg_agg_masked_f32", updates,
+                   (("weights", weights), ("mask", mask)))
 
 
 fedavg_agg_masked.launches = 0
+fedavg_agg_masked.route_launches = dict.fromkeys(ROUTE_VEC, 0)
 
 
 def fedavg_agg_stale_plain(updates: torch.Tensor, weights: torch.Tensor,
@@ -110,19 +134,9 @@ def fedavg_agg_stale(updates: torch.Tensor, weights: torch.Tensor,
     """
     if updates.device.type == "cpu":
         return fedavg_agg_stale_plain(updates, weights, mask, stale)
-    k, p = updates.shape
-    dev = updates.device
-    _check.cuda_operand("updates", updates, torch.float32, (k, p), dev)
-    _check.cuda_operand("weights", weights, torch.float32, (k,), dev)
-    _check.cuda_operand("mask", mask, torch.float32, (k,), dev)
-    _check.cuda_operand("stale", stale, torch.float32, (k,), dev)
-    out = torch.empty((p,), dtype=torch.float32, device=dev)
-    code = _build.library().fedavg_agg_stale_f32(
-        updates.data_ptr(), weights.data_ptr(), mask.data_ptr(),
-        stale.data_ptr(), out.data_ptr(), k, p, _check.stream_handle(dev))
-    _build.check(code, "fedavg_agg_stale")
-    fedavg_agg_stale.launches += 1
-    return out
+    return _launch(fedavg_agg_stale, "fedavg_agg_stale_f32", updates,
+                   (("weights", weights), ("mask", mask), ("stale", stale)))
 
 
 fedavg_agg_stale.launches = 0
+fedavg_agg_stale.route_launches = dict.fromkeys(ROUTE_VEC, 0)

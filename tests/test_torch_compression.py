@@ -33,6 +33,16 @@ K = 12
 QUANT_FLIP_SHARE = 1e-3
 
 
+@pytest.fixture
+def one_thread():
+    """Small tensors: one intra-op thread, so the test workers that share
+    the machine do not oversubscribe its cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 
@@ -250,3 +260,165 @@ def test_compress_kernel_on_card():
                                      keep=1092)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# ---------------------------------------------------------------------------
+# The on-chip route: its choice by P, and its bisection emulated in plain
+# torch.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("p,nb", [
+    (1, 1), (1001, 1), (21840, 1), (24576, 1), (24577, 2), (49152, 2),
+    (49153, 4), (100003, 8), (159010, 8), (196608, 8)])
+def test_compress_route_and_cluster_by_p(p, nb):
+    """Rows up to 8 x 24576 floats stay on chip, over the least power of
+    two of blocks whose share fits one block; every block's shared memory
+    (topk's with its warps' pools) lets two blocks share an SM."""
+    assert tcu.route(p) == "onchip"
+    assert tcu.cluster_blocks(p) == nb
+    for mode in tcu.MODES:
+        smem = tcu.onchip_smem_bytes(p, nb, mode)
+        assert 0 < smem <= 113 * 1024 and smem % 16 == 0
+        assert 4 * -(-p // nb) <= smem
+    if nb > 1:
+        assert tcu.onchip_smem_bytes(p, nb // 2, "quant") == 0
+
+
+@pytest.mark.parametrize("p", [196609, 300000])
+def test_compress_long_rows_take_the_stream_route(p):
+    assert tcu.route(p) == "stream"
+    with pytest.raises(ValueError, match="stream route"):
+        tcu.cluster_blocks(p)
+    assert tcu.onchip_smem_bytes(p, tcu.MAX_CLUSTER, "topk") == 0
+
+
+def _hi_trips(av, keep, iters):
+    """The plain version's threshold bisection, trip by trip."""
+    lo, hi = torch.zeros((), dtype=torch.float32), av.max()
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        if int((av >= mid).sum()) > keep:
+            lo = mid
+        else:
+            hi = mid
+    return hi
+
+
+def _hi_onchip(av, keep, iters, depth, full_trips):
+    """The on-chip kernel's bisection: full_trips trips over the whole
+    row, then the magnitudes in [lo, hi) kept (those at or above hi
+    counted once), then passes of `depth` trips: every midpoint of the
+    tree of brackets in heap order, counted at once, and the bracket the
+    largest midpoint whose count exceeds keep (or lo) and the least of the
+    others (or hi)."""
+    lo, hi = torch.zeros((), dtype=torch.float32), av.max()
+    left = iters
+    for _ in range(min(full_trips, iters)):
+        mid = 0.5 * (lo + hi)
+        if int((av >= mid).sum()) > keep:
+            lo = mid
+        else:
+            hi = mid
+        left -= 1
+    above = int((av >= hi).sum())
+    pool = av[(av >= lo) & (av < hi)]
+    while left:
+        d = min(depth, left)
+        left -= d
+        n = (1 << d) - 1
+        blo, bhi, mids = [lo], [hi], []
+        for j in range(n):
+            mids.append(0.5 * (blo[j] + bhi[j]))
+            if 2 * j + 2 < n:
+                blo += [mids[j], blo[j]]
+                bhi += [bhi[j], mids[j]]
+        over = [above + int((pool >= mid).sum()) > keep for mid in mids]
+        lo = max([lo] + [m for m, o in zip(mids, over) if o])
+        hi = min([hi] + [m for m, o in zip(mids, over) if not o])
+    return hi
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("full_trips", [0, 4, 32])
+def test_onchip_bisection_is_the_trip_by_trip_threshold(depth, full_trips,
+                                                        one_thread):
+    """The kernel's bisection keeps the trip-by-trip iterates: hi bit for
+    bit the 32-trip loop's (and a 7-trip loop's, a count that is not a
+    multiple of the depth), so the kept set is compress_update_plain's,
+    on Gaussian rows, rows of ties (at, above and below the threshold),
+    an all-zero row and a single non-zero, with keep = 1, 5 %, half and
+    P."""
+    rng = np.random.default_rng(10 * depth + full_trips)
+    p = 1500
+    rows = [rng.standard_normal(p) * s for s in (1.0, 0.01, 30.0)]
+    ties = np.round(rng.standard_normal(p) * 4.0) / 4.0
+    rows += [ties, np.zeros(p), np.eye(1, p, 7)[0] * -2.5,
+             np.where(rng.random(p) < 0.5, 0.75, rng.random(p))]
+    v = torch.from_numpy(np.stack(rows).astype(np.float32))
+    zeros = torch.zeros_like(v)
+    for keep in (1, 75, p // 2, p):
+        c, _ = tcu.compress_update_plain(
+            v, zeros, torch.full((len(rows),), 32.0), torch.ones(len(rows)),
+            torch.zeros(len(rows)), mode="topk", keep=keep)
+        for row in range(len(rows)):
+            av = v[row].abs()
+            for iters in (7, tcu.DEFAULT_THRESH_ITERS):
+                want = _hi_trips(av, keep, iters)
+                got = _hi_onchip(av, keep, iters, depth, full_trips)
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)), (row, keep, iters)
+            kept = torch.where(av >= got, v[row], 0.0)
+            assert torch.equal(kept, c[row])
+
+
+@pytest.mark.parametrize("mode", ["quant", "topk"])
+@pytest.mark.parametrize("s,k,p", [(1, 100, 21840), (1, 100, 159010),
+                                   (1, 7, 100003), (16, 100, 21840),
+                                   (1, 5, 1001), (1, 3, 200001)])
+def test_compress_routes_on_card(mode, s, k, p):
+    """Every launch after every SM's shared memory is filled with NaN:
+    topk bit for bit the plain version (every depth on the on-chip
+    route), quant within the flip share with r' bitwise wherever the codes
+    agree; the same bits on a second launch; the stream route on the same
+    rows alike (needs a CUDA device)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels import _check
+    dev = torch.device("cuda")
+    u, r, sel, noise = _inputs(p + s, (s, k, p))
+    widths = np.full((s, k), 8.0 if mode == "quant" else 32.0, np.float32)
+    if mode == "topk":
+        noise = noise[..., 0]
+    args = [_t(x) for x in (u, r, widths, sel, noise)]
+    keep = max(1, round(0.05 * p))
+    kw = dict(mode=mode, keep=keep, thresh_iters=tcu.DEFAULT_THRESH_ITERS)
+    c_p, r_p = tcu.compress_update_plain(*args, **kw)
+    on_card = [a.to(dev) for a in args]
+    before = dict(tcu.compress_update.route_launches)
+    _check.fill_shared_memory(dev)
+    got = tcu.compress_update(*on_card, **kw)
+    routed = {key: n - before[key]
+              for key, n in tcu.compress_update.route_launches.items()}
+    assert routed == {key: int(key == f"{mode}/{tcu.route(p)}")
+                      for key in routed}
+    runs = [((tcu.route(p), tcu.SPEC_DEPTH), got)]
+    routes = [("stream", tcu.SPEC_DEPTH)]
+    if tcu.route(p) == "onchip" and mode == "topk":
+        routes += [("onchip", d) for d in range(1, tcu.MAX_SPEC_DEPTH + 1)]
+    for which, depth in routes:
+        _check.fill_shared_memory(dev)
+        runs.append(((which, depth), tcu.launch(*on_card, which=which,
+                                                depth=depth, **kw)))
+    _check.fill_shared_memory(dev)
+    again = tcu.compress_update(*on_card, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for label, (c, r_new) in runs:
+        c, r_new = c.cpu(), r_new.cpu()
+        if mode == "topk":
+            assert torch.equal(c, c_p) and torch.equal(r_new, r_p), label
+            continue
+        assert_quant_close(c.numpy(), c_p.numpy(), u + r, widths)
+        same = c == c_p
+        assert torch.equal(r_new[same], r_p[same]), label
+        assert float((r_new != r_p).float().mean()) <= QUANT_FLIP_SHARE

@@ -307,7 +307,8 @@ def test_masked_fedavg_kernel_on_card():
     dev = torch.device("cuda")
     for p in (21840, 159010, 1001):
         u = _t(rng.standard_normal((100, p)).astype(np.float32)).to(dev)
-        w = torch.softmax(_t(rng.standard_normal(100)), 0).to(dev)
+        w = torch.softmax(_t(rng.standard_normal(100).astype(np.float32)),
+                          0).to(dev)
         m = _t((rng.random(100) > 0.2).astype(np.float32)).to(dev)
         before = tagg.fedavg_agg_masked.launches
         got = tagg.fedavg_agg_masked(u, w, m)

@@ -88,16 +88,87 @@ def test_fedavg_cpu_wrapper_takes_plain_version():
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("k,p", [(100, 21840), (100, 159010), (7, 1001)])
+@pytest.mark.parametrize("p,address,want", [
+    (21840, 0, "vec4"), (21840, 256, "vec4"), (64, 4096, "vec4"),
+    (159010, 0, "vec2"), (21840, 8, "vec2"), (21840, 24, "vec2"),
+    (6, 16, "vec2"), (1001, 0, "scalar"), (21840, 4, "scalar"),
+    (21840, 12, "scalar"), (159010, 4, "scalar"), (1, 16, "scalar")])
+def test_fedavg_route_by_width_and_alignment(p, address, want):
+    """The widest load every row allows: P a multiple of the width and the
+    matrix's first row aligned to it (then every row is, at any K)."""
+    assert tagg.route(p, address) == want
+    vec = tagg.ROUTE_VEC[want]
+    assert p % vec == 0 and address % (4 * vec) == 0
+    wider = [v for v in tagg.ROUTE_VEC.values() if v > vec]
+    assert all(p % v or address % (4 * v) for v in wider)
+
+
+@pytest.mark.parametrize("k,p", [(100, 21840), (100, 159010), (7, 1001),
+                                 (4096, 64)])
 def test_fedavg_kernel_on_card(cuda_device, k, p):
+    """Each entry point after every SM's shared memory is filled with NaN:
+    within 1e-5 of its plain version, the same bits on a second launch,
+    and the all-ones identities (mask: fedavg_agg; staleness: the masked
+    form) bit for bit, all through the route of (P, address)."""
+    from repro_torch.kernels import _check
     u, w = _fedavg_inputs(k, p, 3)
-    u_t, w_t = (torch.from_numpy(x).to(cuda_device) for x in (u, w))
-    before = tagg.fedavg_agg.launches
-    got = tagg.fedavg_agg(u_t, w_t)
-    torch.cuda.synchronize()
-    assert tagg.fedavg_agg.launches == before + 1
-    torch.testing.assert_close(got.cpu(), tagg.fedavg_agg_plain(
-        torch.from_numpy(u), torch.from_numpy(w)), rtol=1e-5, atol=1e-5)
+    rng = np.random.default_rng(k + p)
+    m = (rng.random(k) < 0.7).astype(np.float32)
+    st = rng.random(k).astype(np.float32)
+    u_t, w_t, m_t, s_t = (torch.from_numpy(x).to(cuda_device)
+                          for x in (u, w, m, st))
+    ones = torch.ones_like(w_t)
+    runs = {
+        "plain": (tagg.fedavg_agg, (u_t, w_t)),
+        "masked": (tagg.fedavg_agg_masked, (u_t, w_t, m_t)),
+        "stale": (tagg.fedavg_agg_stale, (u_t, w_t, m_t, s_t)),
+        "mask ones": (tagg.fedavg_agg_masked, (u_t, w_t, ones)),
+        "stale ones": (tagg.fedavg_agg_stale, (u_t, w_t, m_t, ones)),
+    }
+    which = tagg.route(p, u_t.data_ptr())
+    got = {}
+    for name, (fn, args) in runs.items():
+        before = (fn.launches, fn.route_launches[which])
+        outs = []
+        for _ in range(2):
+            _check.fill_shared_memory(cuda_device)
+            outs.append(fn(*args))
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.route_launches[which]) == (
+            before[0] + 2, before[1] + 2)
+        assert torch.equal(outs[0], outs[1]), name
+        got[name] = outs[0].cpu()
+    cpu = [torch.from_numpy(x) for x in (u, w, m, st)]
+    for name, want in (("plain", tagg.fedavg_agg_plain(*cpu[:2])),
+                       ("masked", tagg.fedavg_agg_masked_plain(*cpu[:3])),
+                       ("stale", tagg.fedavg_agg_stale_plain(*cpu))):
+        torch.testing.assert_close(got[name], want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got["mask ones"], got["plain"])
+    assert torch.equal(got["stale ones"], got["masked"])
+
+
+@pytest.mark.parametrize("offset,want", [(1, "scalar"), (2, "vec2"),
+                                         (4, "vec4")])
+def test_fedavg_kernel_takes_views_on_card(cuda_device, offset, want):
+    """A matrix that starts ``offset`` floats into its buffer takes the
+    load its address allows, and agrees with the aligned launch bit for
+    bit (the reduction's order does not depend on the width)."""
+    k, p = 9, 4096
+    u, w = _fedavg_inputs(k, p, 5)
+    buf = torch.zeros((k * p + 4,), device=cuda_device)
+    buf[offset:offset + k * p] = torch.from_numpy(u.reshape(-1)).to(
+        cuda_device)
+    view = buf[offset:offset + k * p].view(k, p)
+    w_t = torch.from_numpy(w).to(cuda_device)
+    assert tagg.route(p, view.data_ptr()) == want
+    aligned = tagg.fedavg_agg(torch.from_numpy(u).to(cuda_device), w_t)
+    assert torch.equal(tagg.fedavg_agg(view, w_t), aligned)
+
+
+def test_fedavg_kernel_refuses_k_over_its_shared_weights(cuda_device):
+    u = torch.zeros((4097, 8), device=cuda_device)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        tagg.fedavg_agg(u, torch.zeros((4097,), device=cuda_device))
 
 
 def test_fedavg_kernel_rejects_bad_operands(cuda_device):
