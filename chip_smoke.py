@@ -50,7 +50,15 @@ each phase failing the script on error:
 8. the four dense configurations at ``reduced()`` on the card and on the
    CPU (f32, TF32 off): prefill and 3 decode steps, logits within 1e-4.
 
-The kernel phase runs ``sub2_pgd`` at S = 1 and 16 (K = 100, the warp
+The kernel phase first prints, from ``cuobjdump -sass``, the size and
+the atomic instructions of the ``stream_update``, ``diversity`` and
+empty kernels, and times the empty kernel (``csrc/launch_floor.cu``, the
+launch floor) by CUDA-graph replay, host loop and the profiler.  It
+checks ``diversity`` on path 1's rows and on uniform labels of the same
+shape, and ``stream_update`` at S = 1 and 16, each after a NaN fill of
+shared memory (two launches bit for bit, through the route the wrapper
+predicts), and times each by host loop, graph replay and the profiler,
+as multiples of the floor.  It runs ``sub2_pgd`` at S = 1 and 16 (K = 100, the warp
 route) and S = 1, K = 1024 (the block route), with inputs NaN past K and
 every SM's shared memory NaN before each checked launch, timed by host
 loop and by CUDA-graph replay beside a latency floor; on the warp route
@@ -92,6 +100,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -284,26 +293,153 @@ def quartiles(xs) -> str:
     return f"{ys[len(ys) // 4]:.5f}-{ys[(3 * len(ys)) // 4]:.5f}"
 
 
-def phase_diversity(torch, dev, labels, mask, c: int) -> dict:
+def profiled_ms(torch, fn, kname: str, calls: int = 50) -> float:
+    """Mean device time a launch of the kernels named ``kname`` (a
+    ``__global__`` name, template arguments aside) over ``calls``
+    back-to-back calls of ``fn`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA
+          and (f"{kname}(" in e.name or f"{kname}<" in e.name)]
+    if not us:
+        raise AssertionError(f"profiler saw no {kname} launch")
+    return sum(us) / len(us) / 1e3
+
+
+# Kernels whose SASS size and atomics the kernel phase prints.
+SASS_KERNELS = ("stream_update_kernel", "diversity_kernel",
+                "launch_floor_kernel")
+
+
+def sass_sizes(lib) -> None:
+    """Each SASS_KERNELS function of the built library ``lib``, from
+    ``cuobjdump -sass``: its instructions (16 bytes each) and its atomic
+    instructions (a float add on shared memory that compiles to a
+    compare-and-swap loop shows as ``ATOMS.CAS``)."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    funcs: dict = {}
+    name = None
+    for line in out.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            funcs[name] = []
+            continue
+        ins = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+([^;]*);", line)
+        if ins and name:
+            funcs[name].append(ins.group(1).strip())
+    for kname in SASS_KERNELS:
+        found = [(n, ops) for n, ops in funcs.items() if kname in n]
+        if not found:
+            raise AssertionError(f"cuobjdump shows no {kname}")
+        for n, ops in found:
+            mnemonics = {re.sub(r"^@\S+\s+", "", op).split()[0]
+                         for op in ops}
+            atoms = sorted(m for m in mnemonics
+                           if m.startswith(("ATOM", "RED.")))
+            print(f"[sass] {n}: {len(ops)} instructions ({16 * len(ops)} "
+                  f"bytes), atomics {atoms or 'none'}", flush=True)
+
+
+def phase_floor(torch, dev) -> dict:
+    """The empty kernel (``csrc/launch_floor.cu``): by graph replay, by
+    host loop and by the profiler's device time a launch, and the host's
+    time a call.  Every small kernel's graph time is set beside it."""
+    from repro_torch.kernels import _check
+
+    def empty():
+        _check.launch_floor(dev)
+    floor = dict(graph=graph_ms(torch, empty, 200), loop=time_ms(empty, 200),
+                 device=profiled_ms(torch, empty, "launch_floor_kernel"),
+                 host_us=host_issue_us(torch, empty, 200))
+    print(f"[kernel] launch floor (an empty kernel, one warp): graph "
+          f"{floor['graph']:.5f} ms, host loop {floor['loop']:.5f} ms, "
+          f"profiler {floor['device']:.5f} ms a launch, host "
+          f"{floor['host_us']:.2f} us per call", flush=True)
+    return floor
+
+
+def small_kernel_times(torch, fn, kname: str, floor: dict) -> tuple:
+    """A small kernel's time beside the launch floor: ``(host-loop ms,
+    line)``, the line with its graph-replay and profiler times, each as
+    a multiple of the floor's, and the host's time a call."""
+    ms = time_ms(fn, 200)
+    graph = graph_ms(torch, fn, 200)
+    device = profiled_ms(torch, fn, kname)
+    host_us = host_issue_us(torch, fn, 200)
+    return ms, (f"ms={ms:.5f} (graph {graph:.5f} = "
+                f"{graph / floor['graph']:.2f}x the floor; profiler "
+                f"{device:.5f} a launch = {device / floor['device']:.2f}x; "
+                f"host {host_us:.2f} us per call)")
+
+
+def twice_checked(torch, dev, fn, counter, which: str, label: str):
+    """Two launches of ``fn`` through route ``which`` of ``counter``'s
+    ``route_launches``, each after every SM's shared memory is filled
+    with NaN: the same bits twice.  Returns the first output."""
+    from repro_torch.kernels import _check
+    before = counter.route_launches[which]
+    outs = []
+    for _ in range(2):
+        _check.fill_shared_memory(dev)
+        outs.append(fn())
+    torch.cuda.synchronize()
+    if counter.route_launches[which] != before + 2:
+        raise AssertionError(f"{label}: launches not through route {which}")
+    for a, b in zip(*(o if isinstance(o, tuple) else (o,) for o in outs)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: two launches on the same inputs "
+                                 f"differ")
+    return outs[0]
+
+
+def phase_diversity(torch, dev, labels, mask, c: int, floor: dict) -> dict:
+    """diversity on the path's rows (label-sorted shards: a few classes a
+    row) and on uniform random labels of the same shape under the same
+    mask: checked after NaN shared memory, two launches bit for bit,
+    timed beside the launch floor.  Returns the path rows' record."""
     from repro_torch.kernels import diversity as dk
     k, n = labels.shape
-    got = dk.diversity_stats(labels, mask, c)
-    want = dk.diversity_stats_plain(labels, mask, c)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    # Exact integer counts; gini/shannon sums over C classes in another
-    # order.
-    if not err <= 1e-5:
-        raise AssertionError(f"diversity K={k} N={n}: max err {err}")
-    ms = time_ms(lambda: dk.diversity_stats(labels, mask, c), 200)
-    plain_ms = time_ms(lambda: dk.diversity_stats_plain(labels, mask, c),
-                       50)
+    gen = torch.Generator(device=dev).manual_seed(SEED + n)
+    uniform = torch.randint(0, c, (k, n), generator=gen, device=dev,
+                            dtype=torch.int32)
+    plain_ms = time_ms(lambda: dk.diversity_stats_plain(labels, mask, c), 50)
     b_ms, b_by = bound(k * n * 8 + k * 12, k * n * 2)
-    print(f"[kernel] diversity K={k} N={n} C={c}: max_abs_err={err:.3g} "
-          f"ms={ms:.5f} plain_ms={plain_ms:.5f} bound_ms={b_ms:.6f} "
-          f"({b_by})", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    recs = []
+    for name, lab in (("path rows", labels), ("uniform labels", uniform)):
+        which = dk.route(n, lab.data_ptr(), mask.data_ptr())
+        got = twice_checked(torch, dev,
+                            lambda: dk.diversity_stats(lab, mask, c),
+                            dk.diversity_stats, which,
+                            f"diversity {name}")
+        want = dk.diversity_stats_plain(lab, mask, c)
+        err = float((got - want).abs().max())
+        # Exact integer counts; gini/shannon sums over C classes in
+        # another order.
+        if not (err <= 1e-5 and torch.equal(got[:, 2], want[:, 2])):
+            raise AssertionError(f"diversity {name} K={k} N={n}: max err "
+                                 f"{err}")
+        ms, line = small_kernel_times(
+            torch, lambda: dk.diversity_stats(lab, mask, c),
+            "diversity_kernel", floor)
+        print(f"[kernel] diversity K={k} N={n} C={c} {name} route {which}: "
+              f"max_abs_err={err:.3g} (NaN shared memory, two launches bit "
+              f"for bit, exact counts) {line} plain_ms={plain_ms:.5f} "
+              f"bound_ms={b_ms:.6f} ({b_by})", flush=True)
+        recs.append(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    return recs[0]
 
 
 def sub2_instances(torch, dev, s: int, k: int):
@@ -467,7 +603,10 @@ def phase_sub2(torch, dev, s: int, k: int) -> dict:
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def phase_stream(torch, dev, s: int, k: int, c: int) -> dict:
+def phase_stream(torch, dev, s: int, k: int, c: int, floor: dict) -> dict:
+    """stream_update at S scenarios of K devices and C classes through
+    the route of C: checked after NaN shared memory, two launches bit for
+    bit, timed beside the launch floor."""
     from repro_torch.kernels import stream_update as su
     gen = torch.Generator(device=dev).manual_seed(SEED + s)
     h = torch.randint(0, 900, (s, k, c), generator=gen, device=dev).float()
@@ -477,20 +616,24 @@ def phase_stream(torch, dev, s: int, k: int, c: int) -> dict:
     sel = (torch.rand((s, k), generator=gen, device=dev) < 0.4).float()
     args = (h, d, arr, stale, sel)
     kw = dict(decay=0.8, size_cap=900.0)     # the full world's capacity
-    got = su.stream_update(*args, **kw)
+    which = su.route(c)
+    got = twice_checked(torch, dev, lambda: su.stream_update(*args, **kw),
+                        su.stream_update, which, f"stream_update S={s}")
     want = su.stream_update_plain(*args, **kw)
-    torch.cuda.synchronize()
     # Relative to each output's scale: counts and sizes reach 900.
     err = max(float(((g - w).abs() / w.abs().clamp_min(1.0)).max())
               for g, w in zip(got, want))
     if not err <= STREAM_TOL:
         raise AssertionError(f"stream_update S={s}: rel err {err}")
-    ms = time_ms(lambda: su.stream_update(*args, **kw), 200)
+    ms, line = small_kernel_times(
+        torch, lambda: su.stream_update(*args, **kw), "stream_update_kernel",
+        floor)
     plain_ms = time_ms(lambda: su.stream_update_plain(*args, **kw), 100)
     b_ms, b_by = bound(s * k * c * 12 + s * k * 28,
                        s * k * c * STREAM_OPS_PER_CLASS)
-    print(f"[kernel] stream_update S={s} K={k} C={c}: max_rel_err={err:.3g} "
-          f"(limit {STREAM_TOL:g}) ms={ms:.5f} plain_ms={plain_ms:.5f} "
+    print(f"[kernel] stream_update S={s} K={k} C={c} route {which}: "
+          f"max_rel_err={err:.3g} (limit {STREAM_TOL:g}; NaN shared memory, "
+          f"two launches bit for bit) {line} plain_ms={plain_ms:.5f} "
           f"bound_ms={b_ms:.7f} ({b_by})", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
@@ -1470,12 +1613,13 @@ def phase_sync_limit(torch, dev, data, net, wcfg) -> dict:
     return counts
 
 
-def phase_profile(torch, dev, data, net, wcfg, path: int,
+def phase_profile(torch, dev, data, net, wcfg, path: int, floor: dict,
                   **path_kw) -> None:
     """One more full-width round (path 4: its events) under
     torch.profiler: per phase scope the host time and the device time of
-    its kernels; the top kernels; the device's busy and idle share of
-    the run."""
+    its kernels; the top kernels, the port's own with their device time
+    a launch as a multiple of the launch floor's; the device's busy and
+    idle share of the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import bandwidth
@@ -1535,7 +1679,9 @@ def phase_profile(torch, dev, data, net, wcfg, path: int,
         if hits:
             tot, n = map(sum, zip(*hits))
             print(f"[profile] path {path} {kname}: {n} launches, device "
-                  f"{tot / n / 1e3:.5f} ms per launch", flush=True)
+                  f"{tot / n / 1e3:.5f} ms per launch = "
+                  f"{tot / n / 1e3 / floor['device']:.2f}x the launch "
+                  f"floor's", flush=True)
     what = f"{ASYNC['num_events']}-event run_events" if path == 4 \
         else "1-round run_federated"
     print(f"[profile] path {path} {what} at full width "
@@ -1927,6 +2073,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f}s", flush=True)
 
     compress_smem_mirror()
+    sass_sizes(_build.build())
+    floor = phase_floor(torch, dev)
     data, net, wcfg = full_width_world(torch, dev)
     data_dev = data.to(dev)
     # The rows of the kernels line: each kernel at the shapes its path
@@ -1934,9 +2082,9 @@ def main() -> int:
     results = {
         "fedavg_agg": phase_fedavg(torch, dev, 100, P_CNN),
         "diversity": phase_diversity(torch, dev, data_dev.labels,
-                                     data_dev.mask, 10),
+                                     data_dev.mask, 10, floor),
         "sub2_pgd": phase_sub2(torch, dev, 1, 100),
-        "stream_update": phase_stream(torch, dev, 1, 100, 10),
+        "stream_update": phase_stream(torch, dev, 1, 100, 10, floor),
         "compress_update": phase_compress(torch, dev, "quant", 100, P_CNN),
         "compress_update_topk": phase_compress(torch, dev, "topk", 100,
                                                P_CNN),
@@ -1947,7 +2095,7 @@ def main() -> int:
     phase_fedavg(torch, dev, 100, P_MLP)
     phase_sub2(torch, dev, 16, 100)
     phase_sub2(torch, dev, 1, 1024)
-    phase_stream(torch, dev, 16, 100, 10)
+    phase_stream(torch, dev, 16, 100, 10, floor)
     phase_compress(torch, dev, "quant", 100, P_MLP)
     phase_compress(torch, dev, "topk", 100, P_MLP)
     for mode in ("quant", "topk"):
@@ -1978,8 +2126,8 @@ def main() -> int:
                                horizon=horizon)
     phase_sync_limit(torch, dev, data, net, wcfg)
     for path in (1, 2, 3):
-        phase_profile(torch, dev, data, net, wcfg, path)
-    phase_profile(torch, dev, data, net, wcfg, 4, horizon=horizon)
+        phase_profile(torch, dev, data, net, wcfg, path, floor)
+    phase_profile(torch, dev, data, net, wcfg, 4, floor, horizon=horizon)
     r16 = {path: phase_card_vs_cpu(torch, dev, path) for path in (1, 2, 3)}
     phase_card_vs_cpu(torch, dev, 4, horizon=half_median_round_time(r16[1]))
     by_path[6] = phase_serve(torch, dev)

@@ -47,10 +47,12 @@ SIGNATURES = {
     "fedavg_agg_stale_f32": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
     "stream_update_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                           _F, _P],
+    "stream_update_route": [_I],
     "compress_update_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
                             _I, _I, _I, _I, _P],
     "compress_update_smem": [_L, _I, _I],
     "diversity_stats": [_P, _P, _P, _I, _I, _I, _P],
+    "diversity_route": [_P, _P, _I],
     "sub2_pgd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                  _F, _F, _F, _F, _I, _F, _F, _I, _I, _I, _P],
     "flash_attention_fwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -64,6 +66,7 @@ SIGNATURES = {
     "flash_attention_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _I, _I, _P],
     "shared_fill": [_I, _I, _P],
+    "launch_floor": [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -42,6 +42,13 @@ def fill_shared_memory(device: torch.device, word: int = NAN_WORD,
                  "shared_fill")
 
 
+def launch_floor(device: torch.device) -> None:
+    """Launch the empty kernel (``csrc/launch_floor.cu``) on the current
+    stream: what one launch costs the card with no work in it."""
+    _build.check(_build.library().launch_floor(stream_handle(device)),
+                 "launch_floor")
+
+
 def half_bf16_ulp(want: torch.Tensor) -> torch.Tensor:
     """Half a bf16 ulp of each f32 value (0 where the value is 0)."""
     want = want.float()

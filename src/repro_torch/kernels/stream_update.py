@@ -2,9 +2,15 @@
 
 Replaces the TPU kernel ``stream_update_kernel`` of
 ``src/repro/kernels/stream_update.py``.  CUDA source:
-``csrc/stream_update.cu`` — one block per scenario, one thread per device
-row with its C <= 64 classes in registers.  Bound on the H100 by bytes
-(a few KB at K = 100, C = 10), in practice by launch latency.
+``csrc/stream_update.cu`` — the S * K device rows as one flat set over
+128-thread blocks, a group of G lanes a row (G = 8, 16 or 32 by C, two
+classes a lane past 32, a compile-time width), lane c of a group on
+class c of its row so that each warp access covers one contiguous span
+of rows, and the row sums as ``__shfl_xor_sync`` butterflies inside the
+group.  Bound on the H100 by
+bytes (a few KB at K = 100, C = 10), in practice by launch latency.
+:func:`route` names the group width C takes; the wrapper counts its
+launches in ``launches`` and by route in ``route_launches``.
 
 ``h' = max(h + delta, 0)``, rescaled to ``size_cap`` where a device
 overflows it (``size_cap > 0``); ``stats`` packs ``[gini, shannon,
@@ -20,8 +26,20 @@ import torch
 from repro_torch.kernels import _build, _check
 
 MAX_CLASSES = 64
+# Lanes a row times classes a lane, by route (``stream_update_route`` of
+# the C source returns the same product).
+ROUTE_LANES = {"g8": 8, "g16": 16, "g32": 32, "g32x2": 64}
 
 Result = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def route(c: int) -> str:
+    """The group a row of ``c`` classes takes: the narrowest of 8, 16 or
+    32 lanes that holds it, two classes a lane for 32 < c <= 64."""
+    if not 1 <= c <= MAX_CLASSES:
+        raise ValueError(f"stream_update takes 1 <= C <= {MAX_CLASSES}, "
+                         f"got {c}")
+    return next(name for name, lanes in ROUTE_LANES.items() if c <= lanes)
 
 
 def stream_update_plain(hists: torch.Tensor, deltas: torch.Tensor,
@@ -72,9 +90,7 @@ def stream_update(hists: torch.Tensor, deltas: torch.Tensor,
         hists, deltas, arrivals, staleness, selected = (
             x[None] for x in (hists, deltas, arrivals, staleness, selected))
     s, k, c = hists.shape
-    if not 1 <= c <= MAX_CLASSES:
-        raise ValueError(f"stream_update takes 1 <= C <= {MAX_CLASSES}, "
-                         f"got {c}")
+    which = route(c)
     dev = hists.device
     for name, t in (("hists", hists), ("deltas", deltas)):
         _check.cuda_operand(name, t, torch.float32, (s, k, c), dev)
@@ -91,9 +107,11 @@ def stream_update(hists: torch.Tensor, deltas: torch.Tensor,
         _check.stream_handle(dev))
     _build.check(code, "stream_update")
     stream_update.launches += 1
+    stream_update.route_launches[which] += 1
     if not batched:
         return h[0], stats[0], stale[0]
     return h, stats, stale
 
 
 stream_update.launches = 0
+stream_update.route_launches = dict.fromkeys(ROUTE_LANES, 0)

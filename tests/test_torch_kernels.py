@@ -229,6 +229,127 @@ def test_diversity_kernel_on_card(cuda_device, k, n, c):
         rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("n,addresses,want", [
+    (900, (0, 0), "vec4"), (900, (256, 4096), "vec4"), (4, (16, 48), "vec4"),
+    (900, (4, 0), "scalar"), (900, (0, 8), "scalar"), (901, (0, 0), "scalar"),
+    (902, (0, 0), "scalar"), (1, (0, 0), "scalar")])
+def test_diversity_route_by_width_and_alignment(n, addresses, want):
+    """16-byte loads where N is a multiple of 4 and both operands' first
+    rows are 16-byte aligned (then every row is); else scalar loads."""
+    assert tdiv.route(n, *addresses) == want
+
+
+def _refuse_library():
+    raise AssertionError("the wrapper reached the kernel library")
+
+
+def test_diversity_rejects_before_any_launch(monkeypatch):
+    """C > 64, wrong dtypes, a wrong shape and a non-contiguous operand
+    raise before the library is loaded or a launch counted (meta tensors
+    take the kernel's path without a card)."""
+    monkeypatch.setattr(_build, "library", _refuse_library)
+    meta = torch.device("meta")
+    lab = torch.zeros((4, 8), dtype=torch.int32, device=meta)
+    mask = torch.zeros((4, 8), device=meta)
+    before = (tdiv.diversity_stats.launches,
+              dict(tdiv.diversity_stats.route_launches))
+    cases = [
+        (ValueError, "num_classes", (lab, mask, 65)),
+        (ValueError, "num_classes", (lab, mask, 0)),
+        (TypeError, "labels must be torch.int32", (lab.long(), mask, 10)),
+        (TypeError, "mask must be torch.float32", (lab, mask.double(), 10)),
+        (ValueError, "mask must have shape",
+         (lab, torch.zeros((4, 9), device=meta), 10)),
+        (ValueError, "labels must be contiguous",
+         (torch.zeros((8, 4), dtype=torch.int32, device=meta).t(), mask,
+          10)),
+    ]
+    for err, match, args in cases:
+        with pytest.raises(err, match=match):
+            tdiv.diversity_stats(*args)
+    assert (tdiv.diversity_stats.launches,
+            tdiv.diversity_stats.route_launches) == before
+
+
+def _sorted_rows(k, n, classes_per_row, c, seed):
+    """Label-sorted rows as the paper's shards make them: each row holds
+    ``classes_per_row`` classes in runs, a {0, 1} mask with a padded
+    tail."""
+    rng = np.random.default_rng(seed)
+    labels = np.zeros((k, n), np.int32)
+    mask = np.zeros((k, n), np.float32)
+    for r in range(k):
+        cls = np.sort(rng.choice(c, classes_per_row, replace=False))
+        size = int(rng.integers(n // 2, n + 1))
+        labels[r, :size] = np.sort(rng.choice(cls, size))
+        mask[r, :size] = 1.0
+    return labels, mask
+
+
+def _diversity_case(case):
+    """(labels, mask, C, labels' offset into its buffer) of a card case."""
+    rng = np.random.default_rng(len(case))
+    if case == "one class":
+        return (*_sorted_rows(100, 900, 1, 10, 1), 10, 0)
+    if case == "two classes":
+        return (*_sorted_rows(100, 900, 2, 10, 2), 10, 0)
+    if case == "n % 4 != 0":
+        return (*_sorted_rows(13, 901, 3, 10, 3), 10, 0)
+    if case == "misaligned view":
+        return (*_sorted_rows(13, 900, 3, 10, 4), 10, 1)
+    if case == "out of range":
+        labels = rng.integers(-3, 13, (9, 900)).astype(np.int32)
+        return labels, np.ones((9, 900), np.float32), 10, 0
+    if case == "K = 1":
+        return (*_sorted_rows(1, 900, 4, 10, 5), 10, 0)
+    if case == "C = 64":
+        return (*_div_inputs(7, 900, 64, 6), 64, 0)
+    if case == "float mask":
+        labels, _ = _sorted_rows(11, 900, 3, 10, 7)
+        return labels, rng.random((11, 900)).astype(np.float32), 10, 0
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "one class", "two classes", "n % 4 != 0", "misaligned view",
+    "out of range", "K = 1", "C = 64", "float mask"])
+def test_diversity_routes_on_card(cuda_device, case):
+    """After every SM's shared memory is filled with NaN, two launches give
+    the same bits through the route ``route`` predicts (the C source's own
+    choice agrees), within 1e-5 of the plain version, with exact counts
+    for a {0, 1} mask: label-sorted rows of one and two classes (every
+    lane of a warp on one class), N % 4 != 0 and a view one label into
+    its buffer (the scalar route), labels outside [0, C), K = 1, C = 64,
+    and a mask in [0, 1)."""
+    from repro_torch.kernels import _check
+    labels, mask, c, offset = _diversity_case(case)
+    k, n = labels.shape
+    buf = torch.zeros((k * n + 4,), dtype=torch.int32, device=cuda_device)
+    buf[offset:offset + k * n] = torch.from_numpy(labels.reshape(-1)).to(
+        cuda_device)
+    lab_t = buf[offset:offset + k * n].view(k, n)
+    mask_t = torch.from_numpy(mask).to(cuda_device)
+    which = tdiv.route(n, lab_t.data_ptr(), mask_t.data_ptr())
+    assert which == ("scalar" if case in ("n % 4 != 0", "misaligned view")
+                     else "vec4")
+    assert _build.library().diversity_route(
+        lab_t.data_ptr(), mask_t.data_ptr(), n) == tdiv.ROUTE_VEC[which]
+    before = tdiv.diversity_stats.route_launches[which]
+    outs = []
+    for _ in range(2):
+        _check.fill_shared_memory(cuda_device)
+        outs.append(tdiv.diversity_stats(lab_t, mask_t, c))
+    torch.cuda.synchronize()
+    assert tdiv.diversity_stats.route_launches[which] == before + 2
+    assert torch.equal(outs[0], outs[1])
+    want = tdiv.diversity_stats_plain(torch.from_numpy(labels),
+                                      torch.from_numpy(mask), c)
+    got = outs[0].cpu()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if case != "float mask":
+        assert torch.equal(got[:, 2], want[:, 2])
+
+
 # ---------------------------------------------------------------------------
 # sub2_pgd
 # ---------------------------------------------------------------------------

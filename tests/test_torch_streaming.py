@@ -29,6 +29,7 @@ from repro_torch.core import scheduler as tsch  # noqa: E402
 from repro_torch.core import streaming as tst  # noqa: E402
 from repro_torch.data import partition as tpart  # noqa: E402
 from repro_torch.data import synthetic as tsyn  # noqa: E402
+from repro_torch.kernels import _build, _check  # noqa: E402
 from repro_torch.kernels import stream_update as tsu  # noqa: E402
 from test_torch_federated import assert_runs_agree, run_pair  # noqa: E402
 
@@ -46,6 +47,14 @@ def _hists(seed, k=K, c=C, zero_rows=(3,)):
 
 def _t(x):
     return torch.from_numpy(np.array(x))
+
+
+@pytest.fixture
+def cuda_device():
+    """The CUDA card, or a skip: these tests launch the CUDA kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
 
 
 @pytest.mark.parametrize("mix", [0.0, 0.1, 0.5])
@@ -197,10 +206,10 @@ def test_placeholder_traces_raise_the_recipe():
     assert set(builtin) <= set(jst.process_names())
 
 
-def _refresh_inputs(seed, shape=(K,)):
+def _refresh_inputs(seed, shape=(K,), c=C):
     rng = np.random.default_rng(seed)
-    h = rng.integers(0, 60, shape + (C,)).astype(np.float32)
-    d = rng.integers(-30, 30, shape + (C,)).astype(np.float32)
+    h = rng.integers(0, 60, shape + (c,)).astype(np.float32)
+    d = rng.integers(-30, 30, shape + (c,)).astype(np.float32)
     arr = np.maximum(d, 0).sum(-1).astype(np.float32)
     stale = rng.random(shape).astype(np.float32) * 50
     sel = (rng.random(shape) > 0.5).astype(np.float32)
@@ -284,17 +293,100 @@ def test_driver_with_streaming_matches_reference():
     assert_runs_agree(jm, recs, jp, tp, atol=1e-4)
 
 
-def test_stream_update_kernel_on_card():
-    """The CUDA kernel against its plain version (needs a CUDA device)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (CUDA kernels have no CPU mode)")
+def test_stream_update_kernel_on_card(cuda_device):
+    """The CUDA kernel against its plain version."""
     for batch in ((), (16,)):
         args = [_t(a) for a in _refresh_inputs(9, batch + (100,))]
         before = tsu.stream_update.launches
-        got = tsu.stream_update(*(a.cuda() for a in args), decay=0.8,
-                                size_cap=300.0)
+        got = tsu.stream_update(*(a.to(cuda_device) for a in args),
+                                decay=0.8, size_cap=300.0)
         torch.cuda.synchronize()
         assert tsu.stream_update.launches == before + 1
         want = tsu.stream_update_plain(*args, decay=0.8, size_cap=300.0)
         for g, w in zip(got, want):
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("c,want", [
+    (1, "g8"), (8, "g8"), (9, "g16"), (10, "g16"), (16, "g16"),
+    (17, "g32"), (32, "g32"), (33, "g32x2"), (64, "g32x2")])
+def test_stream_update_route_by_classes(c, want):
+    """The narrowest group of 8, 16 or 32 lanes that holds C classes, two
+    classes a lane past 32; C out of [1, 64] has no route."""
+    assert tsu.route(c) == want
+    lanes = tsu.ROUTE_LANES[want]
+    assert c <= lanes
+    assert all(c > n for n in tsu.ROUTE_LANES.values() if n < lanes)
+    for bad in (0, 65):
+        with pytest.raises(ValueError, match="1 <= C <= 64"):
+            tsu.route(bad)
+
+
+def _refuse_library():
+    raise AssertionError("the wrapper reached the kernel library")
+
+
+def test_stream_update_rejects_before_any_launch(monkeypatch):
+    """C > 64, a wrong dtype, a wrong shape and a non-contiguous operand
+    raise before the library is loaded or a launch counted (meta tensors
+    take the kernel's path without a card)."""
+    monkeypatch.setattr(_build, "library", _refuse_library)
+    meta = torch.device("meta")
+
+    def args(c=C, **swap):
+        out = dict(h=torch.zeros((2, K, c), device=meta),
+                   d=torch.zeros((2, K, c), device=meta),
+                   arr=torch.zeros((2, K), device=meta),
+                   stale=torch.zeros((2, K), device=meta),
+                   sel=torch.zeros((2, K), device=meta))
+        out.update(swap)
+        return out.values()
+
+    before = (tsu.stream_update.launches,
+              dict(tsu.stream_update.route_launches))
+    cases = [
+        (ValueError, "1 <= C <= 64", args(c=65)),
+        (TypeError, "deltas must be torch.float32",
+         args(d=torch.zeros((2, K, C), device=meta, dtype=torch.float64))),
+        (TypeError, "selected must be torch.float32",
+         args(sel=torch.zeros((2, K), device=meta, dtype=torch.int32))),
+        (ValueError, "arrivals must have shape",
+         args(arr=torch.zeros((2, K + 1), device=meta))),
+        (ValueError, "hists must be contiguous",
+         args(h=torch.zeros((C, K, 2), device=meta).transpose(0, 2))),
+    ]
+    for err, match, operands in cases:
+        with pytest.raises(err, match=match):
+            tsu.stream_update(*operands, decay=0.8, size_cap=0.0)
+    assert (tsu.stream_update.launches,
+            tsu.stream_update.route_launches) == before
+
+
+@pytest.mark.parametrize("s", [1, 3, 16])
+@pytest.mark.parametrize("c", [1, 10, 16, 17, 32, 33, 64])
+def test_stream_update_routes_on_card(cuda_device, c, s):
+    """Each side of every group width, K = 37 rows a scenario (S = 1 and
+    3: a row count that fills no whole block at any width), with and
+    without the cap: after every SM's shared memory is filled with NaN,
+    two launches give the same bits through the route ``route(C)``
+    predicts (the C source's own choice agrees), within 1e-6 of the plain
+    version."""
+    k = 37
+    which = tsu.route(c)
+    assert _build.library().stream_update_route(c) == tsu.ROUTE_LANES[which]
+    args = [_t(a) for a in _refresh_inputs(100 * c + s, (s, k), c)]
+    on_card = [a.to(cuda_device) for a in args]
+    for size_cap in (0.0, 300.0):
+        before = tsu.stream_update.route_launches[which]
+        outs = []
+        for _ in range(2):
+            _check.fill_shared_memory(cuda_device)
+            outs.append(tsu.stream_update(*on_card, decay=0.8,
+                                          size_cap=size_cap))
+        torch.cuda.synchronize()
+        assert tsu.stream_update.route_launches[which] == before + 2
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+        want = tsu.stream_update_plain(*args, decay=0.8, size_cap=size_cap)
+        for g, w in zip(outs[0], want):
             torch.testing.assert_close(g.cpu(), w, rtol=1e-6, atol=1e-6)
