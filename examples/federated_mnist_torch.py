@@ -1,4 +1,4 @@
-"""End-to-end driver of the PyTorch + CUDA port (single scenario).
+"""End-to-end driver of the PyTorch + CUDA port (one scenario, or S).
 
     PYTHONPATH=src python examples/federated_mnist_torch.py \
         [--model cnn|mlp] [--method das|abs|random|full] [--rounds 15]
@@ -8,7 +8,7 @@
         [--stream poisson|drift|shift|evict|static] [--stream-rate 25]
         [--staleness-weight 0.25] [--codec none|quant|topk|adaptive]
         [--bit-width 8] [--dispatch-cap 16]
-        [--carry-dtype float32|bfloat16|float16]
+        [--carry-dtype float32|bfloat16|float16] [--scenarios 1]
 
 The port's counterpart of ``examples/federated_mnist.py``: K devices with
 shard-partitioned synthetic MNIST-like data, DAS/ABS/random/full
@@ -23,7 +23,13 @@ compressed uplinks (the ``compress_update`` kernel); ``--dispatch-cap``
 trains only a dense block of that many admitted devices (the per-round
 line gains a ``drop=`` column) and ``--carry-dtype`` stores the carried
 streaming stats and error-feedback residual at reduced precision, with
-the JAX example's flags and defaults.
+the JAX example's flags and defaults.  ``--scenarios S > 1`` runs S
+independent scenarios (each its own network and random tape, seeded by
+global scenario index) through
+``repro_torch.core.federated.run_federated_batch``, where every kernel
+launches once a round for all of them, and prints each scenario's final
+accuracy and their mean (all in one batch: no chunking or streaming
+aggregation yet).
 """
 
 import argparse
@@ -78,6 +84,8 @@ def main() -> None:
                     choices=["", "float32", "bfloat16", "float16"],
                     help="storage dtype of the carried streaming stats "
                          "and error-feedback residual")
+    ap.add_argument("--scenarios", type=int, default=1,
+                    help="independent scenarios run as one batch")
     args = ap.parse_args()
     dev = resolve_device(args.device)
 
@@ -101,7 +109,8 @@ def main() -> None:
           f"kernel_agg={args.kernel_agg}, device={dev}"
           + (f", stream={args.stream}@{args.stream_rate:g}/round"
              if args.stream else "")
-          + (f", codec={args.codec}" if args.codec else ""))
+          + (f", codec={args.codec}" if args.codec else "")
+          + (f", S={args.scenarios}" if args.scenarios > 1 else ""))
 
     scfg = scheduler.SchedulerConfig(
         method=args.method, n_min=1, n_fixed=args.n_fixed or None,
@@ -117,6 +126,9 @@ def main() -> None:
         use_kernel_agg=args.kernel_agg, stream=stream_cfg,
         compression=comp_cfg, dispatch_cap=args.dispatch_cap or None,
         carry_dtype=args.carry_dtype or None)
+    if args.scenarios > 1:
+        run_batch(args, model, data, wcfg, scfg, fcfg, dev)
+        return
     _, hist = federated.run_federated(
         model=model, data=data, net=net, wcfg=wcfg, scfg=scfg, fcfg=fcfg,
         seed=args.seed + 4, device=dev)
@@ -131,6 +143,29 @@ def main() -> None:
               f"E/dev={r.energy_per_device:7.3f}J{drop}")
     print(f"[feel-torch] total: time={t_tot:.1f}s energy={e_tot:.1f}J "
           f"final acc={hist[-1].accuracy:.4f}")
+
+
+def run_batch(args, model, data, wcfg, scfg, fcfg, dev) -> None:
+    """S scenarios: networks and tapes by global scenario index."""
+    idx = range(args.scenarios)
+    nets = wireless.sample_networks_indexed(args.seed + 2, idx, args.devices,
+                                            wcfg)
+    seeds = federated.scenario_seeds(args.seed + 4, 0, args.scenarios)
+    _, metrics = federated.run_federated_batch(
+        model=model, data=data, nets=nets, wcfg=wcfg, scfg=scfg, fcfg=fcfg,
+        seeds=seeds, device=dev)
+    hists = federated.batch_metrics_to_records(metrics)
+    for s, hist in enumerate(hists):
+        last = hist[-1]
+        print(f"scenario {s:3d}: final acc={last.accuracy:.4f} "
+              f"sel={last.n_selected:3d} "
+              f"T={sum(r.round_time for r in hist):8.1f}s "
+              f"E={sum(r.energy_total for r in hist):8.1f}J "
+              f"das_iters={[r.iterations for r in hist]}")
+    accs = [hist[-1].accuracy for hist in hists]
+    print(f"[feel-torch] S={args.scenarios} final acc mean="
+          f"{sum(accs) / len(accs):.4f} min={min(accs):.4f} "
+          f"max={max(accs):.4f}")
 
 
 if __name__ == "__main__":

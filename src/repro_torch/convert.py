@@ -55,7 +55,9 @@ def paper_net_to_numpy(params: Mapping[str, torch.Tensor]
 
 def network_from_numpy(*, distance_m, pathloss, tx_power, cpu_freq,
                        cycles_per_bit) -> wireless.NetworkState:
-    """A :class:`wireless.NetworkState` of (K,) f32 CPU tensors."""
+    """A :class:`wireless.NetworkState` of f32 CPU tensors: (K,) leaves,
+    or the (S, K) leaves of the reference's stacked ``sample_networks``
+    (a batch's networks)."""
     def t(x):
         return torch.from_numpy(np.array(x, np.float32))
     return wireless.NetworkState(t(distance_m), t(pathloss), t(tx_power),

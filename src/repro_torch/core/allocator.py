@@ -8,6 +8,9 @@ Port of ``repro.core.allocator`` with three entries:
   in one launch of the ``sub2_pgd`` CUDA kernel (its plain PyTorch
   version on CPU tensors).
 
+Every allocator takes ``(K,)`` rows or ``(S, K)`` stacks of S scenarios;
+``fused_pgd`` hands the whole stack to one kernel launch.
+
 ``solve(selected, t_train, gains, tx_power, cfg, alpha0=None,
 data_sizes=None, payload_bits=None) -> (alpha, objective)``; ``alpha0``
 is the warm-start contract (``das_schedule`` passes the previous outer
@@ -80,10 +83,14 @@ class PGD:
 
 @dataclasses.dataclass(frozen=True)
 class FusedPGD:
-    """The PGD double descent in one ``sub2_pgd`` kernel launch.
+    """The PGD double descent in one ``sub2_pgd`` kernel launch for
+    every lane.
 
     The joint-bisection water-filling solve supplies the first start
-    (and consumes the warm start); the uniform share is the second.
+    (and consumes the warm start); the uniform share is the second.  The
+    ``(…, K)`` rows go to the kernel as one ``(S, K)`` batch (S = 1 for
+    a single row) with ``(S, 2, K)`` starts
+    (``kernels.sub2_pgd.sub2_pgd_solve``).
     """
 
     params: bw.Sub2Params = bw.Sub2Params()
@@ -92,12 +99,12 @@ class FusedPGD:
               data_sizes=None, payload_bits=None):
         del data_sizes
         mask = (selected > 0.0).to(torch.float32)
-        n_act = torch.clamp_min(torch.sum(mask), 1.0)
+        n_act = torch.clamp_min(torch.sum(mask, dim=-1, keepdim=True), 1.0)
         bits = cfg.model_bits if payload_bits is None else payload_bits
         wf, _ = bw.min_time_allocation(selected, t_train, gains, tx_power,
                                        cfg, self.params, alpha0=alpha0,
                                        payload_bits=payload_bits)
-        starts = torch.stack([wf, mask / n_act])
+        starts = torch.stack([wf, mask / n_act], dim=-2)
         p = self.params
         return sub2_pgd_kernel.sub2_pgd_solve(
             mask, t_train, gains, tx_power, starts, rho=p.rho,

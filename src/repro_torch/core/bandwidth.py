@@ -11,7 +11,9 @@ Port of the production solvers of ``repro.core.bandwidth``:
 
 The loops are fixed-trip like the reference's, so the port follows its
 iterates.  Both run as plain PyTorch; the fused descent of the
-``fused_pgd`` allocator is the ``sub2_pgd`` CUDA kernel.
+``fused_pgd`` allocator is the ``sub2_pgd`` CUDA kernel.  Every solver
+takes ``(K,)`` rows or ``(S, K)`` stacks of S scenarios and reduces per
+lane over the trailing axis: each bisection's test, each sum and max.
 """
 
 from __future__ import annotations
@@ -149,15 +151,17 @@ def _deadline_bracket(selected: Tensor, t_train: Tensor, gains: Tensor,
                       payload_bits: Optional[Tensor] = None
                       ) -> tuple[Tensor, Tensor, Tensor]:
     """(lo, hi, equal_alpha): lo = max t_train, hi = completion time at
-    the equal-share allocation (feasible)."""
+    the equal-share allocation (feasible); lo and hi ``(…, 1)`` per
+    lane."""
     sel = selected > 0.0
-    n_sel = torch.clamp_min(torch.sum(selected), 1.0)
+    n_sel = torch.clamp_min(torch.sum(selected, dim=-1, keepdim=True), 1.0)
     equal_alpha = torch.where(sel, 1.0 / n_sel, torch.zeros_like(selected))
     t_up_equal = wireless.upload_time(equal_alpha, gains, tx_power, cfg,
                                       payload_bits)
     zero = torch.zeros_like(t_train)
-    hi = torch.max(torch.where(sel, t_train + t_up_equal, zero))
-    lo = torch.max(torch.where(sel, t_train, zero))
+    hi = torch.amax(torch.where(sel, t_train + t_up_equal, zero), dim=-1,
+                    keepdim=True)
+    lo = torch.amax(torch.where(sel, t_train, zero), dim=-1, keepdim=True)
     return lo, hi, equal_alpha
 
 
@@ -172,10 +176,11 @@ def min_time_allocation(selected: Tensor, t_train: Tensor, gains: Tensor,
     One fixed-trip deadline bisection carrying the per-device Newton
     iterate: each probe refines the previous probe's alpha with
     ``joint_newton_steps`` Newton steps, then ``newton_iters`` polish
-    the allocation at T*.  ``alpha0`` seeds the carry.
+    the allocation at T*.  ``alpha0`` seeds the carry.  T* is ``(…,)``,
+    one per lane.
     """
     sel = selected > 0.0
-    any_sel = torch.sum(selected) > 0.0
+    any_sel = torch.sum(selected, dim=-1, keepdim=True) > 0.0
     lo, hi, equal_alpha = _deadline_bracket(selected, t_train, gains,
                                             tx_power, cfg, payload_bits)
     c = gains * tx_power / (cfg.bandwidth_hz * cfg.noise_psd)
@@ -195,32 +200,33 @@ def min_time_allocation(selected: Tensor, t_train: Tensor, gains: Tensor,
     for _ in range(params.time_bisect_iters):
         mid = 0.5 * (lo + hi)
         a_eval, a_carry = probe(mid, a_carry, params.joint_newton_steps)
-        ok = torch.sum(a_eval) <= 1.0
+        ok = torch.sum(a_eval, dim=-1, keepdim=True) <= 1.0
         lo, hi = torch.where(ok, lo, mid), torch.where(ok, mid, hi)
     t_star = hi
     alpha, _ = probe(t_star, a_carry, params.newton_iters)
     # Normalize tiny bisection overshoot back inside the budget.
-    total = torch.sum(alpha)
+    total = torch.sum(alpha, dim=-1, keepdim=True)
     alpha = torch.where(total > 1.0, alpha / total, alpha)
     alpha = torch.where(any_sel, alpha, zero)
     t_star = torch.where(any_sel, t_star, torch.zeros_like(t_star))
-    return alpha, t_star
+    return alpha, t_star[..., 0]
 
 
 def project_simplex(v: Tensor, mask: Tensor, radius: float = 1.0) -> Tensor:
     """Euclidean projection of ``v`` (masked coords) onto the simplex
-    {a >= 0, sum a = radius, a_i = 0 off-mask} (Duchi et al., 2008)."""
+    {a >= 0, sum a = radius, a_i = 0 off-mask} (Duchi et al., 2008), lane
+    by lane over the trailing axis."""
     big_neg = -1e30
-    n = v.shape[0]
-    n_active = torch.clamp_min(torch.sum(mask), 1.0)
+    n = v.shape[-1]
+    n_active = torch.clamp_min(torch.sum(mask, dim=-1, keepdim=True), 1.0)
     vm = torch.where(mask > 0.0, v, torch.full_like(v, big_neg))
-    u = torch.sort(vm, descending=True, stable=True).values
-    css = torch.cumsum(u, dim=0)
+    u = torch.sort(vm, dim=-1, descending=True, stable=True).values
+    css = torch.cumsum(u, dim=-1)
     k = torch.arange(1, n + 1, dtype=v.dtype, device=v.device)
     cond = (u * k > (css - radius)) & (u > big_neg / 2)
-    rho_idx = torch.clamp(torch.sum(cond, dim=0, keepdim=True) - 1, 0,
+    rho_idx = torch.clamp(torch.sum(cond, dim=-1, keepdim=True) - 1, 0,
                           n - 1)
-    theta = ((css[rho_idx] - radius) / (rho_idx + 1.0))[0]
+    theta = (torch.gather(css, -1, rho_idx) - radius) / (rho_idx + 1.0)
     out = torch.clamp_min(v - theta, 0.0)
     out = torch.where(mask > 0.0, out, torch.zeros_like(out))
     return torch.where(n_active > 0.5, out, torch.zeros_like(out))
@@ -259,7 +265,7 @@ def pgd_allocation(selected: Tensor, t_train: Tensor, gains: Tensor,
     objective.  Returns (alpha, objective).
     """
     mask = (selected > 0.0).to(torch.float32)
-    n_act = torch.clamp_min(torch.sum(mask), 1.0)
+    n_act = torch.clamp_min(torch.sum(mask, dim=-1, keepdim=True), 1.0)
 
     def exact_obj(a):
         return sub2_objective(a, selected, t_train, gains, tx_power, cfg,
@@ -272,7 +278,7 @@ def pgd_allocation(selected: Tensor, t_train: Tensor, gains: Tensor,
             obj = sub2_objective(x, selected, t_train, gains, tx_power, cfg,
                                  params.rho, params.smooth_tau,
                                  payload_bits=payload_bits)
-            (g,) = torch.autograd.grad(obj, x)
+            (g,) = torch.autograd.grad(obj.sum(), x)
         return g
 
     def descend(a0):
@@ -280,8 +286,9 @@ def pgd_allocation(selected: Tensor, t_train: Tensor, gains: Tensor,
         best_a, best_o = a, exact_obj(a)
         for i in range(params.pgd_iters):
             g = grad(a) * mask
-            g_t = (g - torch.sum(g) / n_act) * mask     # tangent component
-            gmax = torch.max(torch.abs(g_t))
+            g_t = (g - torch.sum(g, dim=-1, keepdim=True) / n_act) \
+                * mask                                  # tangent component
+            gmax = torch.amax(torch.abs(g_t), dim=-1, keepdim=True)
             frac = torch.tensor(float(i)) / params.pgd_iters
             lr = (params.pgd_lr
                   * (0.5 * (1 + torch.cos(math.pi * frac)))).item()
@@ -289,7 +296,7 @@ def pgd_allocation(selected: Tensor, t_train: Tensor, gains: Tensor,
                 a - lr * g_t / torch.clamp_min(gmax, 1e-12), mask)
             o = exact_obj(a)
             better = o < best_o
-            best_a = torch.where(better, a, best_a)
+            best_a = torch.where(better[..., None], a, best_a)
             best_o = torch.where(better, o, best_o)
         return best_a, best_o
 
@@ -299,4 +306,4 @@ def pgd_allocation(selected: Tensor, t_train: Tensor, gains: Tensor,
     a1, o1 = descend(wf)
     a2, o2 = descend(mask / n_act)
     pick = o1 <= o2
-    return torch.where(pick, a1, a2), torch.where(pick, o1, o2)
+    return torch.where(pick[..., None], a1, a2), torch.where(pick, o1, o2)

@@ -191,7 +191,8 @@ def apply_faults(draw: FaultDraw, selected: Tensor, alpha: Tensor,
     Upload time at the actual payload stretches by :func:`time_mult`;
     energy bills ``attempts`` transmissions; the synchronous round waits
     for every admitted device's straggling compute plus its full retry
-    window.
+    window.  Rows are ``(K,)`` or ``(S, K)``; the round time is one per
+    lane.
     """
     ok = selected * draw.success
     sel = selected > 0.0
@@ -205,7 +206,7 @@ def apply_faults(draw: FaultDraw, selected: Tensor, alpha: Tensor,
                                     airtime_mult=draw.attempts)
     energy = torch.where(sel & torch.isfinite(energy), energy, zero)
     t_total = torch.where(sel, t_train * draw.compute_mult + t_up, zero)
-    return ok, energy, torch.max(t_total)
+    return ok, energy, torch.amax(t_total, dim=-1)
 
 
 def reliability_update(rel: Tensor, selected: Tensor, ok: Tensor,

@@ -1,6 +1,7 @@
 """FEEL orchestration — the paper's Algorithm 1 (FedAvg + scheduling).
 
-Port of the single-scenario driver of ``repro.core.federated``, with the
+Port of the single-scenario driver of ``repro.core.federated`` and its
+S-scenario batch (:func:`run_federated_batch`), with the
 streaming-data, compressed-uplink and unreliable-uplink subsystems
 (``FLConfig.stream`` / ``compression`` / ``faults``), dense-block
 dispatch (``dispatch_cap``) and the reduced-precision carry
@@ -40,6 +41,16 @@ With ``carry_dtype`` the state carried between rounds — the streaming
 stored at reduced precision and upcast to f32 before any arithmetic, at
 the reference's cast points.
 
+:func:`run_federated_batch` runs S independent scenarios in lock step:
+one dataset and initial model, each scenario its own network and random
+tape.  Every tensor of a round carries a leading ``(S,)`` axis (the
+scenarios' K clients train as S x K lanes of one ``vmap``), so each
+kernel launches once a round for all of them, as often as in the single
+driver's round: ``sub2_pgd`` once per DAS outer iteration (lanes that
+converged are frozen, :func:`scheduler.das_schedule`), ``stream_update``,
+``compress_update`` and the FedAvg kernels once, ``diversity`` once a
+run.  The round's code is the single driver's (:func:`_drive`).
+
 Each phase runs under a ``torch.profiler.record_function`` scope
 (``stream_refresh``, ``schedule``, ``local_train``, ``aggregate``,
 ``evaluate``), so a profiler trace splits a round by phase.
@@ -57,7 +68,7 @@ import copy
 import dataclasses
 import functools
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -179,7 +190,8 @@ class RoundRecord:
 
 @dataclasses.dataclass
 class RoundMetrics:
-    """Per-round outputs stacked along a leading ``(R,)`` axis."""
+    """Per-round outputs stacked along a leading ``(R,)`` axis; the batch
+    driver's carry ``(S, R, ...)``."""
 
     accuracy: Tensor      # (R,) NaN on rounds not evaluated
     n_selected: Tensor    # (R,) int32
@@ -223,6 +235,9 @@ class Draws:
       (R,).  Event runs only.
 
     R is :func:`sim_length`: the rounds, or the events of an event run.
+    A batch's tape (:func:`draw_tapes`) stacks S scenarios' tapes along a
+    leading ``(S,)`` axis of every field and always holds the stochastic
+    codecs' ``comp_noise``.
     """
 
     gains: Tensor
@@ -256,31 +271,50 @@ def make_local_trainer(loss_fn: Callable[[Params, Tensor, Tensor, Tensor],
                        cfg: FLConfig) -> Callable:
     """Build the multi-step local SGD of all K clients at once.
 
-    ``trainer(params, images, labels, mask, active, batch_idx)`` starts
-    every client from the global ``params``, takes ``max_steps`` steps
-    with the minibatches ``batch_idx`` (K, max_steps, B) and freezes
-    client k at step s where ``active[k, s] == 0`` — the reference's
-    per-step ``active`` select.  Returns the stacked (K, ...) params.
+    ``trainer(params, images, labels, mask, active, batch_idx, rows=None)``
+    starts every client from the global ``params``, takes ``max_steps``
+    steps with the minibatches ``batch_idx`` (K, max_steps, B) and
+    freezes client k at step s where ``active[k, s] == 0`` — the
+    reference's per-step ``active`` select.  Returns the stacked (K, ...)
+    params.  ``rows`` (K,) names the data row each lane trains on (the
+    dispatch block's devices); by default lane k trains on row k.
+
+    A batch of S scenarios passes ``(S, ...)`` params (scenario s's
+    global model), ``(S, K, max_steps)`` active, ``(S, K, max_steps, B)``
+    minibatches and optionally ``(S, K)`` rows, over one shared dataset:
+    the S x K clients train as one ``vmap`` and come back ``(S, K,
+    ...)``.
     """
     vgrad = torch.func.vmap(torch.func.grad(loss_fn))
 
     def local_sgd(params: Params, images: Tensor, labels: Tensor,
-                  mask: Tensor, active: Tensor, batch_idx: Tensor) -> Params:
-        k = images.shape[0]
-        rows = torch.arange(k, device=images.device)[:, None]
-        p = {n: t.expand(k, *t.shape).clone() for n, t in params.items()}
-        vel = {n: torch.zeros_like(t) for n, t in p.items()}
+                  mask: Tensor, active: Tensor, batch_idx: Tensor,
+                  rows: Optional[Tensor] = None) -> Params:
+        lead, n = active.shape[:-2], active.shape[-2]
+        lanes = math.prod(lead) * n
+        if rows is None:
+            rows = torch.arange(n, device=images.device).expand(lead + (n,))
+        rows = rows.reshape(lanes, 1)
+        batch_idx = batch_idx.reshape((lanes,) + batch_idx.shape[-2:])
+        active = active.reshape(lanes, -1)
+        p = {}
+        for name, t in params.items():
+            leaf = t.shape[len(lead):]
+            p[name] = t.reshape((-1, 1) + leaf).expand(
+                (-1, n) + leaf).contiguous().view((lanes,) + leaf)
+        vel = {name: torch.zeros_like(t) for name, t in p.items()}
         for s in range(active.shape[1]):
-            idx = batch_idx[:, s]                       # (K, B)
+            idx = batch_idx[:, s]                       # (lanes, B)
             g = vgrad(p, synthetic.to_float(images[rows, idx]),
                       labels[rows, idx], mask[rows, idx])
             live = active[:, s] > 0.0
-            for n in p:
-                vel[n] = cfg.momentum * vel[n] + g[n]
-                p_new = p[n] - cfg.learning_rate * vel[n]
-                keep = live.view((k,) + (1,) * (p_new.dim() - 1))
-                p[n] = torch.where(keep, p_new, p[n])
-        return p
+            for name in p:
+                vel[name] = cfg.momentum * vel[name] + g[name]
+                p_new = p[name] - cfg.learning_rate * vel[name]
+                keep = live.view((lanes,) + (1,) * (p_new.dim() - 1))
+                p[name] = torch.where(keep, p_new, p[name])
+        return {name: t.reshape(lead + (n,) + t.shape[1:])
+                for name, t in p.items()}
 
     return local_sgd
 
@@ -292,21 +326,50 @@ def _uniform_dtype(params: Params, what: str) -> None:
                         f"{sorted(map(str, dtypes))}")
 
 
-def _flat_updates(params: Params, client_params: Params) -> Tensor:
-    """The (K, P) client updates ``w_k - g``, leaves in ``params`` order."""
-    k = next(iter(client_params.values())).shape[0]
-    return torch.cat([(client_params[n] - t[None]).reshape(k, -1)
-                      for n, t in params.items()], dim=1)
+def _flat_updates(params: Params, client_params: Params,
+                  lead: tuple = ()) -> Tensor:
+    """The (K, P) client updates ``w_k - g``, leaves in ``params`` order;
+    ``(S, K, P)`` for a batch whose leading axes are ``lead``."""
+    k = next(iter(client_params.values())).shape[len(lead)]
+    return torch.cat([(client_params[n] - t.unsqueeze(len(lead))).reshape(
+        lead + (k, -1)) for n, t in params.items()], dim=-1)
 
 
 def _apply_flat(params: Params, agg: Tensor) -> Params:
-    """``g + agg`` with the (P,) ``agg`` cut back into ``params``'s leaves."""
+    """``g + agg`` with the (P,) ``agg`` cut back into ``params``'s leaves
+    (an (S, P) ``agg`` into (S, ...) leaves)."""
+    lead = agg.shape[:-1]
     out, offset = {}, 0
     for n, t in params.items():
-        out[n] = t + agg[offset:offset + t.numel()].reshape(t.shape).to(
+        size = math.prod(t.shape[len(lead):])
+        out[n] = t + agg[..., offset:offset + size].reshape(t.shape).to(
             t.dtype)
-        offset += t.numel()
+        offset += size
     return out
+
+
+def _lane_dot(w: Tensor, t: Tensor) -> Tensor:
+    """``sum_k w[k] t[k]`` over the K axis after ``w``'s lanes: a
+    ``tensordot`` for (K,) weights, a batched product for (S, K)."""
+    if w.dim() == 1:
+        return torch.tensordot(w, t, dims=1)
+    lead, k = w.shape[:-1], w.shape[-1]
+    out = torch.matmul(w[..., None, :], t.reshape(lead + (k, -1)))
+    return out.reshape(lead + t.shape[w.dim():])
+
+
+def _lane_flag(flag: Tensor, t: Tensor) -> Tensor:
+    """A per-lane flag shaped to broadcast against ``t``'s leaves."""
+    return flag.reshape(flag.shape + (1,) * (t.dim() - flag.dim()))
+
+
+def _lane_index(idx: Tensor) -> tuple:
+    """The advanced index that picks ``idx``'s entries along the device
+    axis lane by lane: ``(idx,)`` for (n,) indices, ``(scenario, idx)``
+    for (S, n)."""
+    if idx.dim() == 1:
+        return (idx,)
+    return (torch.arange(idx.shape[0], device=idx.device)[:, None], idx)
 
 
 def fedavg_aggregate(client_params: Params, weights: Tensor,
@@ -315,22 +378,25 @@ def fedavg_aggregate(client_params: Params, weights: Tensor,
 
     ``weights`` are already normalised over the selected set.  The
     kernel path flattens every leaf into one (K, P) buffer, so the
-    ``fedavg_agg`` kernel launches once per round.
+    ``fedavg_agg`` kernel launches once per round.  (S, K) weights over
+    (S, K, ...) client params aggregate each scenario: one (S, K, P)
+    launch for all of them.
     """
+    lead = weights.shape[:-1]
     if use_kernel:
         _uniform_dtype(client_params, "kernel FedAvg path")
-        leaves = list(client_params.values())
-        k = leaves[0].shape[0]
-        flat = torch.cat([t.reshape(k, -1) for t in leaves], dim=1)
+        k = weights.shape[-1]
+        flat = torch.cat([t.reshape(lead + (k, -1))
+                          for t in client_params.values()], dim=-1)
         agg = fedavg_kernel.fedavg_agg(flat, weights.contiguous())
         out, offset = {}, 0
         for n, t in client_params.items():
-            size = math.prod(t.shape[1:])
-            out[n] = agg[offset:offset + size].reshape(t.shape[1:])
+            leaf = t.shape[len(lead) + 1:]
+            size = math.prod(leaf)
+            out[n] = agg[..., offset:offset + size].reshape(lead + leaf)
             offset += size
         return out
-    return {n: torch.tensordot(weights, t, dims=1)
-            for n, t in client_params.items()}
+    return {n: _lane_dot(weights, t) for n, t in client_params.items()}
 
 
 def fedavg_aggregate_masked(params: Params, client_params: Params,
@@ -340,25 +406,28 @@ def fedavg_aggregate_masked(params: Params, client_params: Params,
     (w^k - g)``, ``weights`` normalised by the caller over the success
     set and ``mask`` the upload-success indicator.  All-zero masked
     weights leave ``g`` unchanged with no branch.  The kernel path
-    flattens the deltas once and launches ``fedavg_agg_masked``."""
+    flattens the deltas once and launches ``fedavg_agg_masked`` (once
+    for all scenarios of (S, K) rows)."""
+    lead = weights.shape[:-1]
     if use_kernel:
         _uniform_dtype(params, "kernel FedAvg path")
         agg = fedavg_kernel.fedavg_agg_masked(
-            _flat_updates(params, client_params), weights.contiguous(),
+            _flat_updates(params, client_params, lead), weights.contiguous(),
             mask.contiguous())
         return _apply_flat(params, agg)
-    return _masked_update(params, {n: client_params[n] - p[None]
-                                   for n, p in params.items()},
-                          weights * mask)
+    return _masked_update(params, {n: client_params[n] - p.unsqueeze(
+        len(lead)) for n, p in params.items()}, weights * mask)
 
 
 def _masked_update(params: Params, deltas: Params, wm: Tensor) -> Params:
     """``g + sum_k wm_k delta_k`` leaf by leaf (broadcast-multiply-reduce
     over the stacked (K, ...) deltas): the plain update-form FedAvg of the
-    fault-aware round and of the event driver's flush."""
+    fault-aware round and of the event driver's flush; (S, K) ``wm`` per
+    scenario."""
+    nl = wm.dim() - 1
     return {n: p + torch.sum(
-        wm.reshape(wm.shape + (1,) * p.dim()) * deltas[n],
-        dim=0).to(p.dtype) for n, p in params.items()}
+        wm.reshape(wm.shape + (1,) * (p.dim() - nl)) * deltas[n],
+        dim=nl).to(p.dtype) for n, p in params.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -375,13 +444,15 @@ def dispatch_plan(selected: Tensor, n_cap: int
     ``n_dropped`` (int32) the admitted devices that did not fit.  The
     rank is a stable sort of ``-selected``: admitted devices first, in
     device order, as ``jnp.argsort``'s stable sort orders them.  No
-    data-dependent shape, no host sync.
+    data-dependent shape, no host sync.  An (S, K) selection plans each
+    scenario along its last axis: ``idx`` (S, n_cap), ``n_dropped`` (S,).
     """
-    n_lanes = min(int(n_cap), selected.shape[0])
-    idx = torch.argsort(-selected, stable=True)[:n_lanes]
-    sel_eff = torch.zeros_like(selected)
-    sel_eff[idx] = selected[idx]
-    n_dropped = (torch.sum(selected) - torch.sum(sel_eff)).to(torch.int32)
+    n_lanes = min(int(n_cap), selected.shape[-1])
+    idx = torch.argsort(-selected, dim=-1, stable=True)[..., :n_lanes]
+    sel_eff = torch.zeros_like(selected).scatter_(
+        -1, idx, torch.gather(selected, -1, idx))
+    n_dropped = (torch.sum(selected, dim=-1)
+                 - torch.sum(sel_eff, dim=-1)).to(torch.int32)
     return idx, sel_eff, n_dropped
 
 
@@ -409,31 +480,35 @@ def _masked_local_train(trainer: Callable, max_steps: int, cfg: FLConfig,
     params scatter back to the (K, ...) layout with the global model as
     filler, before FedAvg.  A device keeps its own minibatches
     (``batch_idx[idx]``) whatever its lane, so ``n_cap >= K`` gives the
-    masked path's result.
+    masked path's result.  With (S, K) rows (a batch; ``params`` (S,
+    ...)) each scenario's clients start from its own model and every
+    step runs the S x K lanes at once.
     """
+    lead = selected.shape[:-1]
     with record_function("local_train"):
         steps_k = cfg.local_epochs * torch.ceil(
             sizes.to(torch.float32) / cfg.batch_size)
         step_idx = torch.arange(max_steps, dtype=torch.float32,
-                                device=sizes.device)[None, :]
-        active = (step_idx < steps_k[:, None]).to(torch.float32)
-        active = active * selected[:, None]         # frozen if unselected
+                                device=sizes.device)
+        active = (step_idx < steps_k[..., None]).to(torch.float32)
+        active = active * selected[..., None]       # frozen if unselected
         if dispatch_idx is None:
             client_params = trainer(params, images, labels, mask, active,
                                     batch_idx)
         else:
-            idx = dispatch_idx
-            block = trainer(params, images[idx], labels[idx], mask[idx],
-                            active[idx], batch_idx[idx])
-            k = images.shape[0]
+            lanes = _lane_index(dispatch_idx)
+            block = trainer(params, images, labels, mask, active[lanes],
+                            batch_idx[lanes], rows=dispatch_idx)
+            k = selected.shape[-1]
             client_params = {}
             for n, t in params.items():
-                full = t.expand(k, *t.shape).clone()
-                full[idx] = block[n]
+                full = t.unsqueeze(len(lead)).expand(
+                    lead + (k,) + t.shape[len(lead):]).clone()
+                full[lanes] = block[n]
                 client_params[n] = full
     # FedAvg weights D_k / D_r over the selected set.
     w = sizes.to(torch.float32) * selected
-    w = w / torch.clamp_min(torch.sum(w), 1.0)
+    w = w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1.0)
     return client_params, w
 
 
@@ -444,14 +519,15 @@ def _train_round(trainer: Callable, max_steps: int, cfg: FLConfig,
                  dispatch_idx: Optional[Tensor] = None) -> Params:
     """Masked local training + FedAvg.  An empty selected set carries
     the previous model forward (the all-zero weights would replace it
-    with zeros); the guard is a select, no host sync."""
+    with zeros); the guard is a select per lane, no host sync."""
     client_params, w = _masked_local_train(
         trainer, max_steps, cfg, params, images, labels, mask, sizes,
         selected, batch_idx, dispatch_idx)
     with record_function("aggregate"):
         agg = fedavg_aggregate(client_params, w, cfg.use_kernel_agg)
-        any_sel = torch.sum(selected) > 0.0
-        return {n: torch.where(any_sel, agg[n], params[n]) for n in params}
+        any_sel = torch.sum(selected, dim=-1) > 0.0
+        return {n: torch.where(_lane_flag(any_sel, p), agg[n], p)
+                for n, p in params.items()}
 
 
 def _train_round_faulty(trainer: Callable, max_steps: int, cfg: FLConfig,
@@ -467,7 +543,7 @@ def _train_round_faulty(trainer: Callable, max_steps: int, cfg: FLConfig,
         selected, batch_idx, dispatch_idx)
     with record_function("aggregate"):
         w = sizes.to(torch.float32) * ok
-        w = w / torch.clamp_min(torch.sum(w), 1.0)
+        w = w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1.0)
         return fedavg_aggregate_masked(params, client_params, w, ok,
                                        cfg.use_kernel_agg)
 
@@ -507,16 +583,16 @@ def _train_round_compressed(trainer: Callable, max_steps: int,
         trainer, max_steps, fcfg, params, images, labels, mask, sizes,
         selected, batch_idx, dispatch_idx)
     with record_function("aggregate"):
-        updates = _flat_updates(params, client_params)
+        updates = _flat_updates(params, client_params, selected.shape[:-1])
         if success is not None:
             w = sizes.to(torch.float32) * selected * success
-            w = w / torch.clamp_min(torch.sum(w), 1.0)
+            w = w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1.0)
         c, residual = compression.apply_codec(
             codec, updates, residual, selected, noise, fcfg.compression,
             gains, index, success=success)
         if cdt is not None:
             residual = residual.to(cdt)
-        return _apply_flat(params, torch.tensordot(w, c, dims=1)), residual
+        return _apply_flat(params, _lane_dot(w, c)), residual
 
 
 def _max_local_steps(cfg: FLConfig, capacity: int) -> int:
@@ -615,10 +691,13 @@ def client_histograms(data: partition_lib.ClientDataset,
     return diversity.label_histogram(data.labels, data.mask, num_classes)
 
 
-def metrics_to_records(metrics: RoundMetrics) -> List[RoundRecord]:
-    """One device->host transfer for the whole run's records."""
-    m = RoundMetrics(*(getattr(metrics, f.name).cpu().numpy()
-                       for f in dataclasses.fields(metrics)))
+def _host_metrics(metrics: RoundMetrics) -> RoundMetrics:
+    return RoundMetrics(*(getattr(metrics, f.name).cpu().numpy()
+                          for f in dataclasses.fields(metrics)))
+
+
+def _records(m: RoundMetrics) -> List[RoundRecord]:
+    """Records from one run's metrics, already on the host as numpy."""
     history: List[RoundRecord] = []
     for r in range(m.selected.shape[0]):
         n_sel = int(m.n_selected[r])
@@ -633,10 +712,60 @@ def metrics_to_records(metrics: RoundMetrics) -> List[RoundRecord]:
     return history
 
 
+def metrics_to_records(metrics: RoundMetrics) -> List[RoundRecord]:
+    """One device->host transfer for the whole run's records."""
+    return _records(_host_metrics(metrics))
+
+
+def batch_metrics_to_records(metrics: RoundMetrics
+                             ) -> List[List[RoundRecord]]:
+    """Per-scenario record lists from ``(S, R, ...)`` stacked metrics:
+    one device->host transfer for the whole batch, then scenario slices
+    of the host copies."""
+    host = _host_metrics(metrics)
+    return [_records(RoundMetrics(*(getattr(host, f.name)[s]
+                                    for f in dataclasses.fields(host))))
+            for s in range(host.selected.shape[0])]
+
+
 def _stack_draws(rounds: List[Dict[str, Tensor]]) -> Dict[str, Tensor]:
     if not rounds or not rounds[0]:
         return {}
     return {n: torch.stack([d[n] for d in rounds]) for n in rounds[0]}
+
+
+def _stack_tapes(tapes: List[Draws]) -> Draws:
+    """Scenario tapes stacked along a leading ``(S,)`` axis."""
+    def stack(name):
+        first = getattr(tapes[0], name)
+        if first is None:
+            return None
+        if isinstance(first, dict):
+            return _stack_draws([getattr(t, name) for t in tapes])
+        return torch.stack([getattr(t, name) for t in tapes])
+    return Draws(*(stack(f.name) for f in dataclasses.fields(Draws)))
+
+
+# Fields of a tape with a round axis (the others are drawn once a run).
+_PER_ROUND = ("gains", "batch_idx", "sched_u", "stream", "faults",
+              "comp_noise", "avail")
+
+
+def _round_major(draws: Draws) -> Draws:
+    """A batch tape's ``(S, R, ...)`` per-round fields as contiguous
+    ``(R, S, ...)``, so round ``r``'s rows are ``field[r]`` as in a
+    single tape."""
+    def move(t):
+        return t.movedim(0, 1).contiguous()
+    out = dataclasses.replace(draws)
+    for name in _PER_ROUND:
+        v = getattr(draws, name)
+        if isinstance(v, dict):
+            v = {n: move(t) for n, t in v.items()}
+        elif v is not None:
+            v = move(v)
+        setattr(out, name, v)
+    return out
 
 
 def draw_tape(gen: torch.Generator, net: wireless.NetworkState,
@@ -688,9 +817,60 @@ def draw_tape(gen: torch.Generator, net: wireless.NetworkState,
     return draws
 
 
+def scenario_seeds(base_seed: int, start: int, count: int) -> List[int]:
+    """Per-scenario generator seeds from global scenario indices:
+    scenario ``i``'s seed is ``wireless.fold_seed(base_seed, i)`` for
+    ``i`` in ``[start, start + count)``, so its tape depends only on
+    ``(base_seed, i)``, never on the batch size or where a chunk starts
+    (the port's counterpart of the reference's ``scenario_keys``)."""
+    return [wireless.fold_seed(base_seed, i)
+            for i in range(start, start + count)]
+
+
+def tile_params(params: Params, num_scenarios: int) -> Params:
+    """``num_scenarios`` copies of ``params`` stacked on a new axis 0:
+    fresh ``(S, ...)`` buffers, the caller's params untouched."""
+    return {n: t.expand((num_scenarios,) + t.shape).clone()
+            for n, t in params.items()}
+
+
+def draw_tapes(seeds: Sequence[int], nets: wireless.NetworkState,
+               num_rounds: int, capacity: int, max_steps: int,
+               batch_size: int, fcfg: Optional[FLConfig] = None,
+               hists: Optional[Tensor] = None,
+               num_coords: Optional[int] = None) -> Draws:
+    """A batch's tape: scenario ``s``'s is exactly :func:`draw_tape` from a
+    generator seeded with ``seeds[s]`` on ``nets.scenario(s)``, followed,
+    for a stochastic codec, by the ``(K, num_coords)`` quantization noise
+    a single run draws from the same generator round by round.  Every
+    field stacked along a leading ``(S,)`` axis, on ``nets``'s device
+    (set-up work: nothing here runs inside a round)."""
+    dev = nets.pathloss.device
+    comp = None if fcfg is None else fcfg.compression
+    noisy = comp is not None and compression.get_codec(comp.codec).stochastic
+    if noisy and num_coords is None:
+        raise ValueError("a stochastic codec's tape needs num_coords (the "
+                         "model's flat parameter count)")
+    tapes = []
+    for s, seed in enumerate(seeds):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        net = nets.scenario(s)
+        tape = draw_tape(gen, net, num_rounds, capacity, max_steps,
+                         batch_size, fcfg, hists)
+        if noisy:
+            tape.comp_noise = torch.stack([
+                torch.rand((net.num_devices, num_coords), generator=gen,
+                           device=dev) for _ in range(num_rounds)])
+        tapes.append(tape)
+    return _stack_tapes(tapes)
+
+
 def _check_tape(draws: Draws, fcfg: FLConfig, k_dev: int,
-                max_steps: int) -> None:
-    want = (sim_length(fcfg), k_dev, max_steps, fcfg.batch_size)
+                max_steps: int, lead: tuple = ()) -> None:
+    """``draws`` against the run: round-major, ``lead`` the batch's
+    scenario axis after the rounds."""
+    want = (sim_length(fcfg),) + lead + (k_dev, max_steps, fcfg.batch_size)
     if tuple(draws.batch_idx.shape) != want:
         raise ValueError(f"batch_idx must be (R, K, max_steps, B) = "
                          f"{want}, got {tuple(draws.batch_idx.shape)}")
@@ -705,11 +885,15 @@ def _check_tape(draws: Draws, fcfg: FLConfig, k_dev: int,
     if fcfg.events is not None and events_lib.get_availability(
             fcfg.events.availability).stochastic:
         needs += ["avail_init", "avail"]
+    comp = fcfg.compression
+    if lead and comp is not None and \
+            compression.get_codec(comp.codec).stochastic:
+        needs.append("comp_noise")
     missing = [n for n in needs if getattr(draws, n) is None]
     if missing:
         raise ValueError(f"the tape lacks {missing} for the configured "
                          f"subsystems; build it with draw_tape(..., fcfg, "
-                         f"hists)")
+                         f"hists) (a batch's with draw_tapes)")
 
 
 # ---------------------------------------------------------------------------
@@ -723,21 +907,36 @@ class _Run:
     Holds the world on the run's device, the model's params, the local
     trainer, the round's scheduler config, the random tape and the
     subsystems' initial state (``st``, ``residual``, ``rel``).
+
+    ``seed`` a sequence of S seeds makes it a batch of S scenarios over
+    the stacked ``net``: ``lead = (S,)`` leads every per-device tensor,
+    the params are tiled ``(S, ...)`` and the tape is
+    :func:`draw_tapes`' (or the caller's, ``(S, R, ...)``), kept
+    round-major.  One scenario has ``lead = ()``.
     """
 
     def __init__(self, model: nn.Module, data: partition_lib.ClientDataset,
                  net: wireless.NetworkState, wcfg: wireless.WirelessConfig,
-                 scfg: scheduler.SchedulerConfig, fcfg: FLConfig, seed: int,
-                 draws: Optional[Draws], eval_every: int,
-                 device: DeviceLike):
+                 scfg: scheduler.SchedulerConfig, fcfg: FLConfig,
+                 seed: Union[int, Sequence[int]], draws: Optional[Draws],
+                 eval_every: int, device: DeviceLike):
         dev = self.dev = resolve_device(device)
+        batch = not isinstance(seed, (int, np.integer))
+        self.lead = (len(seed),) if batch else ()
         self.fcfg, self.wcfg = fcfg, wcfg
         self.data = data = data.to(dev)
         self.net = net = net.to(dev)
+        self.k, cap = data.num_devices, data.capacity
+        if tuple(net.pathloss.shape) != self.lead + (self.k,):
+            raise ValueError(f"the network's rows must be "
+                             f"{self.lead + (self.k,)}, got "
+                             f"{tuple(net.pathloss.shape)}")
         self.model = copy.deepcopy(model).to(dev)
         self.params = paper_nets.params_of(self.model)
+        n_coords = flat_param_size(self.params)
+        if batch:
+            self.params = tile_params(self.params, len(seed))
         loss_fn = functools.partial(paper_nets.loss_fn, self.model)
-        self.k, cap = data.num_devices, data.capacity
         self.length = sim_length(fcfg)
         self.max_steps = _max_local_steps(fcfg, cap)
         self.trainer = make_local_trainer(loss_fn, fcfg)
@@ -749,13 +948,23 @@ class _Run:
         self.flt = flt = faults.active(fcfg.faults)
         hists = client_histograms(data, fcfg.num_classes) \
             if stream is not None else None
-        self.gen = torch.Generator(device=dev)
-        self.gen.manual_seed(seed)
-        if draws is None:
-            draws = draw_tape(self.gen, net, self.length, cap,
-                              self.max_steps, fcfg.batch_size, fcfg, hists)
+        self.gen = None
+        if batch:
+            if draws is None:
+                draws = draw_tapes(seed, net, self.length, cap,
+                                   self.max_steps, fcfg.batch_size, fcfg,
+                                   hists, n_coords)
+            draws = _round_major(draws.to(dev))
+        else:
+            self.gen = torch.Generator(device=dev)
+            self.gen.manual_seed(seed)
+            if draws is None:
+                draws = draw_tape(self.gen, net, self.length, cap,
+                                  self.max_steps, fcfg.batch_size, fcfg,
+                                  hists)
         self.draws = draws = draws.to(dev)
-        _check_tape(draws, fcfg, self.k, self.max_steps)
+        _check_tape(draws, fcfg, self.k, self.max_steps, self.lead)
+        self.sizes = data.sizes.expand(self.lead + (self.k,))
 
         self.st = None
         if stream is None:
@@ -768,23 +977,28 @@ class _Run:
             self.process = streaming.get_process(stream.process)
             self.size_cap = _stream_size_cap(stream, cap)
             self.measure_col = diversity.measure_column(fcfg.measure)
-            self.st = _diet_stream_state(
-                self.process.init(draws.stream_init, hists, stream),
+            self.st = _diet_stream_state(self.process.init(
+                draws.stream_init,
+                hists.expand(self.lead + hists.shape).contiguous(), stream),
                 self.cdt)
         self.residual = None
         if comp is not None:
             self.codec = compression.get_codec(comp.codec)
             self.residual = torch.zeros(
-                (self.k, flat_param_size(self.params)),
+                self.lead + (self.k, n_coords),
                 dtype=self.cdt or torch.float32, device=dev)
         self.rel = None
         if flt is not None:
             self.exp_mult = faults.expected_time_mult(flt)
             self.drop_rates = faults.chronic_rates(draws.chronic_z, flt)
-            self.rel = torch.ones((self.k,), dtype=torch.float32,
-                                  device=dev)
+            self.rel = torch.ones(self.lead + (self.k,),
+                                  dtype=torch.float32, device=dev)
         self.test_x = synthetic.to_float(data.test_images)
-        self.nan = torch.full((), math.nan, device=dev)
+        self.nan = torch.full(self.lead, math.nan, device=dev)
+        self.accuracy = functools.partial(paper_nets.accuracy, self.model)
+        if batch:
+            self.accuracy = torch.func.vmap(self.accuracy,
+                                            in_dims=(0, None, None))
 
     def index(self, r: int, st: Optional[streaming.StreamState],
               ages: Tensor):
@@ -794,9 +1008,9 @@ class _Run:
         if st is None:
             with record_function("schedule"):
                 index = diversity.diversity_index_from_stats(
-                    div=self.div, data_sizes=self.data.sizes, ages=ages,
+                    div=self.div, data_sizes=self.sizes, ages=ages,
                     weights=self.fcfg.index_weights)
-            return index, self.data.sizes, None, None, None
+            return index, self.sizes, None, None, None
         return _stream_round(self.process, self.fcfg, self.size_cap,
                              self.measure_col,
                              _round_of(self.draws.stream, r), st, ages)
@@ -826,7 +1040,7 @@ class _Run:
                  ) -> tuple[Optional[Tensor], Tensor, Tensor]:
         """The dispatch plan -> ``(lanes or None, selection, n_dropped)``."""
         if self.n_cap is None:
-            return None, selected, torch.zeros((), dtype=torch.int32,
+            return None, selected, torch.zeros(self.lead, dtype=torch.int32,
                                                device=self.dev)
         return dispatch_plan(selected, self.n_cap)
 
@@ -860,8 +1074,7 @@ class _Run:
         if not self.do_eval[r]:
             return self.nan
         with torch.no_grad(), record_function("evaluate"):
-            return paper_nets.accuracy(self.model, params, self.test_x,
-                                       self.data.test_labels)
+            return self.accuracy(params, self.test_x, self.data.test_labels)
 
     def advance(self, ages: Tensor, rel: Optional[Tensor],
                 selected: Tensor, ok: Tensor):
@@ -871,6 +1084,14 @@ class _Run:
         if self.flt is not None:
             rel = faults.reliability_update(rel, selected, ok, self.flt)
         return ages, rel
+
+    def iterations(self, result: scheduler.ScheduleResult) -> Tensor:
+        """The round's DAS outer iterations as a ``lead``-shaped int32
+        tensor (a batch's are already one, per lane)."""
+        if isinstance(result.iterations, Tensor):
+            return result.iterations
+        return torch.full(self.lead, result.iterations, dtype=torch.int32,
+                          device=self.dev)
 
 
 def run_federated(*, model: nn.Module,
@@ -899,12 +1120,56 @@ def run_federated(*, model: nn.Module,
     if fcfg.events is not None:
         params, records, _ = events_lib.run_events(**kw)
         return params, records
-    run = _Run(**kw)
+    params, metrics = _drive(_Run(**kw))
+    return params, metrics_to_records(metrics)
+
+
+def run_federated_batch(*, model: nn.Module,
+                        data: partition_lib.ClientDataset,
+                        nets: wireless.NetworkState,
+                        wcfg: wireless.WirelessConfig,
+                        scfg: scheduler.SchedulerConfig,
+                        fcfg: FLConfig, seeds: Sequence[int],
+                        draws: Optional[Draws] = None, eval_every: int = 1,
+                        device: DeviceLike = None
+                        ) -> tuple[Params, RoundMetrics]:
+    """Run S independent FEEL scenarios in lock step on one device.
+
+    The dataset and ``model``'s initial weights are shared; scenario
+    ``s`` has its own network ``nets.scenario(s)`` (leaves ``(S, K)``,
+    :func:`wireless.sample_networks`) and its own random tape: by default
+    :func:`draw_tapes` from ``seeds[s]`` (:func:`scenario_seeds`), so
+    scenario ``s`` equals ``run_federated(seed=seeds[s])`` on its
+    network; ``draws`` (fields ``(S, R, ...)``, any device) replaces it.
+    Every synchronous subsystem runs, alone or composed.  Each kernel
+    launches once a round for all scenarios.
+
+    Returns the final params stacked ``(S, ...)`` per leaf and
+    :class:`RoundMetrics` with leading ``(S, R, ...)`` axes
+    (:func:`batch_metrics_to_records` gives per-scenario records).
+    ``device=None`` means the CUDA card and raises without one.
+    """
+    if fcfg.events is not None:
+        raise NotImplementedError(
+            "the batch driver's event lane is not ported yet (ROADMAP.md "
+            "queue 1, item 8c); run event scenarios one at a time with "
+            "run_federated")
+    if len(seeds) < 1:
+        raise ValueError("run_federated_batch needs at least one seed")
+    return _drive(_Run(model=model, data=data, net=nets, wcfg=wcfg,
+                       scfg=scfg, fcfg=fcfg, seed=list(seeds), draws=draws,
+                       eval_every=eval_every, device=device))
+
+
+def _drive(run: _Run) -> tuple[Params, RoundMetrics]:
+    """The synchronous rounds of a run, one scenario or a batch (every
+    tensor with ``run.lead`` in front) -> ``(params, RoundMetrics)``."""
+    fcfg = run.fcfg
     stream, comp = fcfg.stream, fcfg.compression
     data, trainer, max_steps = run.data, run.trainer, run.max_steps
     params, st, residual, rel = run.params, run.st, run.residual, run.rel
-    ages = torch.zeros((run.k,), dtype=torch.int32, device=run.dev)
-    int32 = dict(dtype=torch.int32, device=run.dev)
+    ages = torch.zeros(run.lead + (run.k,), dtype=torch.int32,
+                       device=run.dev)
     rows: List[tuple] = []
     for r in range(fcfg.num_rounds):
         index, sizes_r, stale, hists_r, st = run.index(r, st, ages)
@@ -937,15 +1202,16 @@ def run_federated(*, model: nn.Module,
         if stream is not None:
             st = _stream_advance(st, hists_r, stale, ok, run.cdt)
         rows.append((run.evaluate(r, params),
-                     torch.sum(selected).to(torch.int32), round_time,
-                     energy, torch.sum(energy), selected,
-                     torch.full((), result.iterations, **int32),
-                     torch.sum(ok).to(torch.int32), n_dropped))
-    return params, metrics_to_records(stack_metrics(rows))
+                     torch.sum(selected, dim=-1).to(torch.int32),
+                     round_time, energy, torch.sum(energy, dim=-1),
+                     selected, run.iterations(result),
+                     torch.sum(ok, dim=-1).to(torch.int32), n_dropped))
+    return params, stack_metrics(rows, dim=len(run.lead))
 
 
-def stack_metrics(rows: List[tuple]) -> RoundMetrics:
-    """Stack per-round ``RoundMetrics`` field tuples on a leading axis."""
-    return RoundMetrics(*(torch.stack([row[i] for row in rows])
+def stack_metrics(rows: List[tuple], dim: int = 0) -> RoundMetrics:
+    """Stack per-round ``RoundMetrics`` field tuples on a round axis at
+    ``dim`` (1 for a batch's ``(S, R, ...)``)."""
+    return RoundMetrics(*(torch.stack([row[i] for row in rows], dim=dim)
                           for i in range(len(dataclasses.fields(
                               RoundMetrics)))))

@@ -7,17 +7,21 @@ Scheduling, Sub1 <-> Sub2 until the (x, alpha) pair stabilises),
 :func:`schedule_impl`.  Every policy solves Sub2 through the
 ``core.allocator`` registry.
 
-The reference's DAS ``while_loop`` with a frozen carry is, for one
-scenario, a loop that stops on convergence; here it is a Python loop
-with one host sync per outer iteration (the convergence test).  The
-uniform draw the abs/random policies rank on is an input (``sched_u``),
-so a test can feed the reference's draw.
+Every policy takes ``(K,)`` rows or ``(S, K)`` stacks of S scenarios
+(the network's leaves stacked alike) and works per lane along the
+trailing axis.  The reference's DAS ``while_loop`` freezes a lane's
+carry once that lane converges; here it is a Python loop with one host
+sync per outer iteration for all lanes at once (the convergence test),
+the converged lanes carried unchanged by ``torch.where`` while the
+others iterate, and the loop stops when no lane changed.  The uniform
+draw the abs/random policies rank on is an input (``sched_u``), so a
+test can feed the reference's draw.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -53,13 +57,18 @@ class SchedulerConfig:
 
 @dataclasses.dataclass
 class ScheduleResult:
-    selected: Tensor     # (K,) {0,1}
-    alpha: Tensor        # (K,) bandwidth shares, sum <= 1
-    t_train: Tensor      # (K,) seconds
-    t_up: Tensor         # (K,) seconds (inf if unselected)
-    energy: Tensor       # (K,) joules (0 if unselected)
-    round_time: Tensor   # scalar, Eq. 7
-    iterations: int      # DAS outer iterations used
+    """One round's schedule; every row ``(…, K)`` with a leading ``(S,)``
+    for a stack of scenarios."""
+
+    selected: Tensor     # (…, K) {0,1}
+    alpha: Tensor        # (…, K) bandwidth shares, sum <= 1
+    t_train: Tensor      # (…, K) seconds
+    t_up: Tensor         # (…, K) seconds (inf if unselected)
+    energy: Tensor       # (…, K) joules (0 if unselected)
+    round_time: Tensor   # (…,) Eq. 7
+    # DAS outer iterations used: a host int for one row, an (S,) int32
+    # tensor for a stack (each lane's own count).
+    iterations: Union[int, Tensor]
 
 
 def staleness_boost(priority: Tensor, staleness: Optional[Tensor],
@@ -86,7 +95,8 @@ def reliability_discount(priority: Tensor, reliability: Optional[Tensor],
 
 def _finalize(selected: Tensor, alpha: Tensor, t_train: Tensor,
               gains: Tensor, net: wireless.NetworkState,
-              cfg: wireless.WirelessConfig, iterations: int = 0,
+              cfg: wireless.WirelessConfig,
+              iterations: Union[int, Tensor] = 0,
               payload_bits: Optional[Tensor] = None) -> ScheduleResult:
     sel_mask = selected > 0.0
     t_up = wireless.upload_time(alpha, gains, net.tx_power, cfg,
@@ -96,8 +106,10 @@ def _finalize(selected: Tensor, alpha: Tensor, t_train: Tensor,
     energy = torch.where(sel_mask, net.tx_power * t_up_fin,
                          torch.zeros_like(t_up))
     t_round = wireless.round_time(selected, t_train, t_up_fin)
+    if not isinstance(iterations, Tensor):
+        iterations = int(iterations)
     return ScheduleResult(selected, alpha, t_train, t_up, energy, t_round,
-                          int(iterations))
+                          iterations)
 
 
 # ---------------------------------------------------------------------------
@@ -113,31 +125,43 @@ def das_schedule(index: Tensor, data_sizes: Tensor, gains: Tensor,
 
     Sub1 prices every device at the current allocation (floored, or
     re-priced at the mean share with ``reentry="mean"``); Sub2 runs
-    through ``alloc`` warm-started with the previous allocation.  The
-    loop stops once the selection and allocation stop moving, or after
-    ``iterations_max`` iterations.
+    through ``alloc`` warm-started with the previous allocation.  A lane
+    stops once its selection and allocation stop moving, or after
+    ``iterations_max`` iterations.  With ``(S, K)`` rows every lane runs
+    each outer iteration (one Sub2 call, one ``sub2_pgd`` launch for all
+    of them), and a lane that has converged keeps its ``(x, alpha,
+    x_prev, alpha_prev, it)`` unchanged until none changed: each lane's
+    result and count are its own run's.
     """
     alloc = alloc or alloc_lib.get(sch.allocator, sch.sub2)
-    k = index.shape[0]
+    k, lead = index.shape[-1], index.shape[:-1]
     t_train = wireless.train_time(data_sizes, net, cfg, sch.local_epochs)
     sub1 = dataclasses.replace(sch.sub1, n_min=sch.n_min)
 
-    x = torch.ones((k,), dtype=torch.float32, device=index.device)
-    alpha = torch.full((k,), 1.0 / k, dtype=torch.float32,
-                       device=index.device)
+    dev = index.device
+    x = torch.ones(lead + (k,), dtype=torch.float32, device=dev)
+    alpha = torch.full(lead + (k,), 1.0 / k, dtype=torch.float32,
+                       device=dev)
     x_prev, alpha_prev = torch.zeros_like(x), torch.zeros_like(alpha)
+    its = torch.zeros(lead, dtype=torch.int32, device=dev) if lead \
+        else None
     it = 0
+    live = None
     while it < sch.iterations_max:
         if it > 0:
-            # One host sync per outer iteration: the convergence test.
-            changed = ((torch.sum(torch.abs(x - x_prev)) >= sch.x_tol)
-                       | (torch.max(torch.abs(alpha - alpha_prev))
+            # One host sync per outer iteration for every lane at once:
+            # the convergence test.  Within it every live lane has taken
+            # ``it`` iterations, so ``iterations_max`` binds them all.
+            changed = ((torch.sum(torch.abs(x - x_prev), dim=-1)
+                        >= sch.x_tol)
+                       | (torch.amax(torch.abs(alpha - alpha_prev), dim=-1)
                           >= sch.alpha_tol))
-            if not bool(changed):
+            if not bool(torch.any(changed)):
                 break
+            live = changed if lead else None
         if sch.reentry == "mean":
-            n_sel = torch.clamp_min(torch.sum(x), 1.0)
-            mean_share = torch.sum(alpha) / n_sel
+            n_sel = torch.clamp_min(torch.sum(x, dim=-1, keepdim=True), 1.0)
+            mean_share = torch.sum(alpha, dim=-1, keepdim=True) / n_sel
             alpha_eval = torch.where(
                 alpha > cfg.min_alpha, alpha,
                 torch.clamp_min(mean_share, 1.0 / k))
@@ -151,10 +175,20 @@ def das_schedule(index: Tensor, data_sizes: Tensor, gains: Tensor,
                                    cfg, alpha0=alpha,
                                    data_sizes=data_sizes,
                                    payload_bits=payload_bits)
-        x_prev, alpha_prev = x, alpha
-        x, alpha = x_new, alpha_new
+        if live is None:    # every lane live
+            x_prev, alpha_prev = x, alpha
+            x, alpha = x_new, alpha_new
+        else:               # converged lanes keep their carry
+            keep = live[..., None]
+            x_prev = torch.where(keep, x, x_prev)
+            alpha_prev = torch.where(keep, alpha, alpha_prev)
+            x = torch.where(keep, x_new, x)
+            alpha = torch.where(keep, alpha_new, alpha)
+        if lead:
+            its = its + (1 if live is None else live.to(torch.int32))
         it += 1
-    return _finalize(x, alpha, t_train, gains, net, cfg, it, payload_bits)
+    return _finalize(x, alpha, t_train, gains, net, cfg,
+                     its if lead else it, payload_bits)
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +197,7 @@ def das_schedule(index: Tensor, data_sizes: Tensor, gains: Tensor,
 
 def _topn_by_priority(priority: Tensor, n: int) -> Tensor:
     return torch.zeros_like(priority).scatter_(
-        0, sel.top_indices(priority, n), 1.0)
+        -1, sel.top_indices(priority, n), 1.0)
 
 
 def topn_schedule(priority: Tensor, n: int, data_sizes: Tensor,
@@ -182,11 +216,13 @@ def topn_schedule(priority: Tensor, n: int, data_sizes: Tensor,
 
 
 def _median(t: Tensor) -> Tensor:
-    """``jnp.median``: the mean of the two middle values for even K
-    (``torch.median`` returns the lower one)."""
-    s = torch.sort(t).values
-    n = t.shape[0]
-    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+    """``jnp.median`` over the trailing axis, kept as a ``(…, 1)`` axis:
+    the mean of the two middle values for even K (``torch.median``
+    returns the lower one)."""
+    s = torch.sort(t, dim=-1).values
+    n = t.shape[-1]
+    return (s[..., (n - 1) // 2:(n - 1) // 2 + 1]
+            + s[..., n // 2:n // 2 + 1]) * 0.5
 
 
 def abs_schedule(ages: Tensor, data_sizes: Tensor, gains: Tensor,
@@ -231,15 +267,15 @@ def abs_schedule(ages: Tensor, data_sizes: Tensor, gains: Tensor,
                                   rate_iters=sch.sub2.newton_iters,
                                   payload_bits=payload_bits)
     # jnp.argsort is stable: equal priorities keep device order.
-    order = torch.sort(-priority, stable=True).indices
-    a_sorted = a_min[order]
-    forced = torch.arange(priority.shape[0],
+    order = torch.sort(-priority, dim=-1, stable=True).indices
+    a_sorted = torch.gather(a_min, -1, order)
+    forced = torch.arange(priority.shape[-1],
                           device=priority.device) < sch.n_min
     a_budget = torch.where(forced & (a_sorted > 1.0),
                            torch.zeros_like(a_sorted), a_sorted)
-    admit_sorted = (torch.cumsum(a_budget, dim=0) <= 1.0) | forced
-    x = torch.zeros_like(priority)
-    x[order] = admit_sorted.to(torch.float32)
+    admit_sorted = (torch.cumsum(a_budget, dim=-1) <= 1.0) | forced
+    x = torch.zeros_like(priority).scatter_(
+        -1, order, admit_sorted.to(torch.float32))
     alpha, _ = alloc.solve(x, t_train, gains, net.tx_power, cfg,
                            data_sizes=data_sizes, payload_bits=payload_bits)
     return _finalize(x, alpha, t_train, gains, net, cfg,

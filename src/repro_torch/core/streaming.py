@@ -20,6 +20,11 @@ statistics.
   only the process-owned fields and the round counter.
 * :func:`refresh` — the fused count-delta accumulation -> diversity
   stats -> staleness decay (the ``stream_update`` kernel).
+
+The state of S scenarios stacks along a leading axis: ``(S, K, C)``
+counts with ``(S, K)`` rows.  Every process's ``init``, ``draw`` and
+``sample`` work on either shape, and :func:`refresh` hands the whole
+stack to one ``stream_update`` launch.
 """
 
 from __future__ import annotations
@@ -67,14 +72,15 @@ class StreamState:
     process.  ``round`` counts the rounds elapsed, on the host.
     """
 
-    hists: Tensor          # (K, C) live class-count matrix
-    staleness: Tensor      # (K,)   decayed not-yet-trained-on arrival mass
-    selected_prev: Tensor  # (K,)   previous round's delivered set {0,1}
+    hists: Tensor          # (…, K, C) live class-count matrix
+    staleness: Tensor      # (…, K)   decayed not-yet-trained-on arrival mass
+    selected_prev: Tensor  # (…, K)   previous round's delivered set {0,1}
     round: int             # rounds elapsed
-    affinity: Tensor       # (K, C) arrival class distribution
-    rates: Tensor          # (K,)   mean arrivals / round
-    drift_class: Tensor    # (K,)   int64 current drift class
-    bank: Optional[Tensor] = None  # (R, K, C) drawn trace (TraceBank only)
+    affinity: Tensor       # (…, K, C) arrival class distribution
+    rates: Tensor          # (…, K)   mean arrivals / round
+    drift_class: Tensor    # (…, K)   int64 current drift class
+    # (…, R, K, C) trace replayed (Trace, TraceBank only)
+    bank: Optional[Tensor] = None
 
 
 def base_state(hists0: Tensor, affinity: Optional[Tensor] = None,
@@ -266,7 +272,10 @@ class Evict:
 
 
 def _replay(d: Tensor, state: StreamState) -> Tuple[Tensor, Tensor]:
-    row = d[state.round % d.shape[0]]
+    """Round ``round % R`` of the ``(…, R, K, C)`` trace, as the state's
+    ``(…, K, C)`` deltas (one shared trace fills every scenario)."""
+    row = torch.broadcast_to(d[..., state.round % d.shape[-3], :, :],
+                             state.hists.shape)
     return row, torch.sum(torch.clamp_min(row, 0.0), dim=-1)
 
 
@@ -359,8 +368,9 @@ class TraceBank:
             raise ValueError(
                 f"trace bank {tuple(b.shape)} does not match the (K, C) "
                 f"device histograms {tuple(hists0.shape)}")
+        # A () row picks one trace, an (S,) row one per scenario.
         return dataclasses.replace(base_state(hists0),
-                                   bank=b[int(draw["row"])])
+                                   bank=b[draw["row"].long()])
 
     def draw(self, gen, state, cfg):
         return {}
@@ -473,5 +483,5 @@ def refresh(hists: Tensor, deltas: Tensor, arrivals: Tensor,
     """
     cap = cfg.size_cap if size_cap is None else size_cap
     return stream_kernel.stream_update(
-        hists, deltas, arrivals, staleness, selected_prev,
-        decay=cfg.staleness_decay, size_cap=cap)
+        hists, deltas.contiguous(), arrivals.contiguous(), staleness,
+        selected_prev, decay=cfg.staleness_decay, size_cap=cap)

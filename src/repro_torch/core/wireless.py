@@ -8,12 +8,16 @@ formula keeps the reference's form (``log2(1 + snr)`` here, unlike the
 ``log1p`` form of ``bandwidth._rate_and_slope``), since swapping forms
 changes the float results.  Randomness comes from an explicit
 ``torch.Generator``.
+
+A :class:`NetworkState` whose leaves carry a leading ``(S,)`` axis is S
+scenarios' networks (:func:`sample_networks`); every formula works per
+device along the trailing axis, and :func:`round_time` reduces per lane.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -38,7 +42,8 @@ class WirelessConfig:
 
 @dataclasses.dataclass
 class NetworkState:
-    """Per-device random draws for one simulation run (all (K,) f32).
+    """Per-device random draws for one simulation run (all (K,) f32, or
+    ``(S, K)`` for S stacked scenarios).
 
     ``pathloss`` is static across rounds; fading is redrawn each round
     by :func:`sample_fading`.
@@ -52,11 +57,38 @@ class NetworkState:
 
     @property
     def num_devices(self) -> int:
-        return self.distance_m.shape[0]
+        return self.distance_m.shape[-1]
 
     def to(self, device: torch.device) -> "NetworkState":
         return NetworkState(*(getattr(self, f.name).to(device)
                               for f in dataclasses.fields(self)))
+
+    def scenario(self, s: int) -> "NetworkState":
+        """Scenario ``s`` of a stacked state, as a (K,) state."""
+        return NetworkState(*(getattr(self, f.name)[s]
+                              for f in dataclasses.fields(self)))
+
+
+def stack_networks(nets: Sequence[NetworkState]) -> NetworkState:
+    """(K,) states stacked along a leading scenario axis."""
+    return NetworkState(*(torch.stack([getattr(n, f.name) for n in nets])
+                          for f in dataclasses.fields(NetworkState)))
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_seed(base_seed: int, index: int) -> int:
+    """A generator seed for item ``index`` of a family rooted at
+    ``base_seed``: splitmix64's finalizer over ``base_seed`` and
+    ``index``, cut to 63 bits.  It depends on the pair alone, as
+    ``jax.random.fold_in`` does (torch cannot reproduce that stream), so
+    scenario ``i``'s draws never depend on how many scenarios share a
+    batch or where a chunk starts."""
+    z = (int(base_seed) * 0x9E3779B97F4A7C15 + int(index) + 1) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
 
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float,
@@ -84,6 +116,34 @@ def sample_network(gen: torch.Generator, num_devices: int,
     cpu_freq = _uniform(gen, (num_devices,), *cfg.cpu_freq_range, device)
     cycles = _uniform(gen, (num_devices,), *cfg.cycles_per_bit_range, device)
     return NetworkState(dist, pathloss, tx_power, cpu_freq, cycles)
+
+
+def sample_networks(gen: torch.Generator, num_scenarios: int,
+                    num_devices: int, cfg: WirelessConfig,
+                    device: Union[str, torch.device] = "cpu"
+                    ) -> NetworkState:
+    """``S`` independent network realizations as one stacked state: each
+    leaf ``(S, K)``, scenario ``s`` the ``s``-th :func:`sample_network`
+    draw from ``gen`` (so the realizations depend on ``S``; see
+    :func:`sample_networks_indexed`)."""
+    return stack_networks([sample_network(gen, num_devices, cfg, device)
+                           for _ in range(num_scenarios)])
+
+
+def sample_networks_indexed(base_seed: int, indices: Sequence[int],
+                            num_devices: int, cfg: WirelessConfig,
+                            device: Union[str, torch.device] = "cpu"
+                            ) -> NetworkState:
+    """Network realizations for explicit global scenario indices:
+    scenario ``i`` is :func:`sample_network` from a generator seeded
+    with :func:`fold_seed` ``(base_seed, i)``, so it depends only on
+    ``(base_seed, i)``, never on how many scenarios share the batch."""
+    nets = []
+    for i in indices:
+        gen = torch.Generator(device=torch.device(device))
+        gen.manual_seed(fold_seed(base_seed, int(i)))
+        nets.append(sample_network(gen, num_devices, cfg, device))
+    return stack_networks(nets)
 
 
 def sample_fading(gen: torch.Generator, net: NetworkState) -> Tensor:
@@ -150,7 +210,8 @@ def train_time(data_sizes: Tensor, net: NetworkState, cfg: WirelessConfig,
 
 
 def round_time(selected: Tensor, t_train: Tensor, t_up: Tensor) -> Tensor:
-    """T = max_k (t_train_k + t_up_k) x_k (Eq. 7); 0 if nothing selected."""
+    """T = max_k (t_train_k + t_up_k) x_k (Eq. 7) over the trailing axis
+    (one value per lane); 0 if nothing selected."""
     total = torch.where(selected > 0.0, t_train + t_up,
                         torch.zeros_like(t_train))
-    return torch.max(total)
+    return torch.amax(total, dim=-1)

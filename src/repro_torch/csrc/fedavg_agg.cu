@@ -30,6 +30,15 @@
 // so every route gives the same bits, and no atomics: the same inputs
 // give the same bits on every launch.
 //
+// A scenario axis: S independent (K, P) problems stacked as (S, K, P)
+// with (S, K) row operands and an (S, P) output run in one launch, the
+// scenario on blockIdx.y.  Each block offsets its pointers to its
+// scenario and then runs the single problem's reduction unchanged, so
+// scenario s of a batched launch gives bit for bit what a launch on its
+// rows alone gives.  A VEC-wide load stays aligned in every scenario:
+// scenario s starts s * K * P floats past the first, a multiple of VEC
+// whenever P is.
+//
 // The three entry points differ only in how they stage the K weights in
 // shared memory (w, w * m, (w * m) * s, each product rounded by
 // __fmul_rn in the reference's left-to-right order) and then run the same
@@ -136,12 +145,18 @@ __device__ __forceinline__ void split_k_sum(const float* __restrict__ updates,
   }
 }
 
+// Scenario blockIdx.y's (K, P) matrix, (K,) rows and (P,) output.
+__device__ __forceinline__ long long scenario() { return blockIdx.y; }
+
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 fedavg_agg_kernel(const float* __restrict__ updates,
                   const float* __restrict__ weights, float* __restrict__ out,
                   int K, long long P) {
-  split_k_sum<VEC>(updates, out, K, P, [=](int k) { return weights[k]; });
+  const long long s = scenario();
+  const float* w = weights + s * K;
+  split_k_sum<VEC>(updates + s * K * P, out + s * P, K, P,
+                   [=](int k) { return w[k]; });
 }
 
 template <int VEC>
@@ -150,8 +165,11 @@ fedavg_agg_masked_kernel(const float* __restrict__ updates,
                          const float* __restrict__ weights,
                          const float* __restrict__ mask,
                          float* __restrict__ out, int K, long long P) {
-  split_k_sum<VEC>(updates, out, K, P, [=](int k) {
-    return __fmul_rn(weights[k], mask[k]);
+  const long long s = scenario();
+  const float* w = weights + s * K;
+  const float* m = mask + s * K;
+  split_k_sum<VEC>(updates + s * K * P, out + s * P, K, P, [=](int k) {
+    return __fmul_rn(w[k], m[k]);
   });
 }
 
@@ -162,17 +180,21 @@ fedavg_agg_stale_kernel(const float* __restrict__ updates,
                         const float* __restrict__ mask,
                         const float* __restrict__ stale,
                         float* __restrict__ out, int K, long long P) {
-  split_k_sum<VEC>(updates, out, K, P, [=](int k) {
-    return __fmul_rn(__fmul_rn(weights[k], mask[k]), stale[k]);
+  const long long s = scenario();
+  const float* w = weights + s * K;
+  const float* m = mask + s * K;
+  const float* st = stale + s * K;
+  split_k_sum<VEC>(updates + s * K * P, out + s * P, K, P, [=](int k) {
+    return __fmul_rn(__fmul_rn(w[k], m[k]), st[k]);
   });
 }
 
 // The launch shared by the entry points: `vec` is the wrapper's route
 // (1, 2 or 4 floats a load); refused unless P and both row pointers
-// allow it.
-bool valid(const float* updates, const float* out, int K, long long P,
-           int vec) {
-  if (K < 1 || K > kMaxSharedK || P < 1) return false;
+// allow it (every scenario's then does too).
+bool valid(const float* updates, const float* out, int S, int K,
+           long long P, int vec) {
+  if (S < 1 || S > 65535 || K < 1 || K > kMaxSharedK || P < 1) return false;
   if (vec != 1 && vec != 2 && vec != 4) return false;
   const uintptr_t align = (uintptr_t)vec * sizeof(float);
   return P % vec == 0 && (uintptr_t)updates % align == 0 &&
@@ -180,9 +202,9 @@ bool valid(const float* updates, const float* out, int K, long long P,
 }
 
 template <int VEC>
-unsigned grid(long long P) {
+dim3 grid(int S, long long P) {
   constexpr int kCols = kLanes * VEC;
-  return (unsigned)((P + kCols - 1) / kCols);
+  return dim3((unsigned)((P + kCols - 1) / kCols), (unsigned)S);
 }
 
 template <template <int> class Launch, typename... Args>
@@ -197,18 +219,18 @@ int dispatch(int vec, Args... args) {
 
 template <int VEC>
 struct Plain {
-  static void run(const float* u, const float* w, float* out, int K,
+  static void run(const float* u, const float* w, float* out, int S, int K,
                   long long P, cudaStream_t s) {
-    fedavg_agg_kernel<VEC><<<grid<VEC>(P), kThreads, 0, s>>>(u, w, out, K,
-                                                             P);
+    fedavg_agg_kernel<VEC><<<grid<VEC>(S, P), kThreads, 0, s>>>(u, w, out,
+                                                                K, P);
   }
 };
 
 template <int VEC>
 struct Masked {
   static void run(const float* u, const float* w, const float* m,
-                  float* out, int K, long long P, cudaStream_t s) {
-    fedavg_agg_masked_kernel<VEC><<<grid<VEC>(P), kThreads, 0, s>>>(
+                  float* out, int S, int K, long long P, cudaStream_t s) {
+    fedavg_agg_masked_kernel<VEC><<<grid<VEC>(S, P), kThreads, 0, s>>>(
         u, w, m, out, K, P);
   }
 };
@@ -216,36 +238,39 @@ struct Masked {
 template <int VEC>
 struct Stale {
   static void run(const float* u, const float* w, const float* m,
-                  const float* st, float* out, int K, long long P,
+                  const float* st, float* out, int S, int K, long long P,
                   cudaStream_t s) {
-    fedavg_agg_stale_kernel<VEC><<<grid<VEC>(P), kThreads, 0, s>>>(
+    fedavg_agg_stale_kernel<VEC><<<grid<VEC>(S, P), kThreads, 0, s>>>(
         u, w, m, st, out, K, P);
   }
 };
 
 }  // namespace
 
+// Every entry takes S scenarios: (S, K, P) updates, (S, K) rows and an
+// (S, P) output, all contiguous (S = 1 for one problem).
 extern "C" int fedavg_agg_f32(const float* updates, const float* weights,
-                              float* out, int K, long long P, int vec,
+                              float* out, int S, int K, long long P, int vec,
                               cudaStream_t stream) {
-  if (!valid(updates, out, K, P, vec)) return (int)cudaErrorInvalidValue;
-  return dispatch<Plain>(vec, updates, weights, out, K, P, stream);
+  if (!valid(updates, out, S, K, P, vec)) return (int)cudaErrorInvalidValue;
+  return dispatch<Plain>(vec, updates, weights, out, S, K, P, stream);
 }
 
 extern "C" int fedavg_agg_masked_f32(const float* updates,
                                      const float* weights, const float* mask,
-                                     float* out, int K, long long P, int vec,
-                                     cudaStream_t stream) {
-  if (!valid(updates, out, K, P, vec)) return (int)cudaErrorInvalidValue;
-  return dispatch<Masked>(vec, updates, weights, mask, out, K, P, stream);
+                                     float* out, int S, int K, long long P,
+                                     int vec, cudaStream_t stream) {
+  if (!valid(updates, out, S, K, P, vec)) return (int)cudaErrorInvalidValue;
+  return dispatch<Masked>(vec, updates, weights, mask, out, S, K, P,
+                          stream);
 }
 
 extern "C" int fedavg_agg_stale_f32(const float* updates,
                                     const float* weights, const float* mask,
-                                    const float* stale, float* out, int K,
-                                    long long P, int vec,
+                                    const float* stale, float* out, int S,
+                                    int K, long long P, int vec,
                                     cudaStream_t stream) {
-  if (!valid(updates, out, K, P, vec)) return (int)cudaErrorInvalidValue;
-  return dispatch<Stale>(vec, updates, weights, mask, stale, out, K, P,
+  if (!valid(updates, out, S, K, P, vec)) return (int)cudaErrorInvalidValue;
+  return dispatch<Stale>(vec, updates, weights, mask, stale, out, S, K, P,
                          stream);
 }

@@ -42,9 +42,9 @@ _F = ctypes.c_float
 # C signatures: every pointer and the stream are c_void_p so ctypes never
 # truncates them to 32 bits.
 SIGNATURES = {
-    "fedavg_agg_f32": [_P, _P, _P, _I, _L, _I, _P],
-    "fedavg_agg_masked_f32": [_P, _P, _P, _P, _I, _L, _I, _P],
-    "fedavg_agg_stale_f32": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
+    "fedavg_agg_f32": [_P, _P, _P, _I, _I, _L, _I, _P],
+    "fedavg_agg_masked_f32": [_P, _P, _P, _P, _I, _I, _L, _I, _P],
+    "fedavg_agg_stale_f32": [_P, _P, _P, _P, _P, _I, _I, _L, _I, _P],
     "stream_update_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                           _F, _P],
     "stream_update_route": [_I],

@@ -22,8 +22,8 @@ chain:
 :func:`route` picks the route by K alone; ``sub2_pgd.launches`` counts
 every launch and ``sub2_pgd.route_launches`` each route's.  Rows are
 ``(S, K)`` from the start (the scenario-batched driver needs no other
-kernel); :func:`sub2_pgd_solve` is the single-instance entry the
-``fused_pgd`` allocator calls.
+kernel); :func:`sub2_pgd_solve` is the entry the ``fused_pgd``
+allocator calls with one row or a batch's stack, one launch either way.
 """
 
 from __future__ import annotations
@@ -213,11 +213,13 @@ def sub2_pgd_solve(selected: torch.Tensor, t_train: torch.Tensor,
                    min_alpha: float,
                    proj_iters: int = DEFAULT_PROJ_ITERS
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Single-instance entry: ``(K,)`` rows + ``(2, K)`` starts ->
-    ``((K,) alpha, () objective)`` (port of ``ops.sub2_pgd``).
+    """The allocator's entry: ``(…, K)`` rows + ``(…, 2, K)`` starts ->
+    ``((…, K) alpha, (…,) objective)`` (port of ``ops.sub2_pgd``), every
+    lane in one :func:`sub2_pgd` launch on ``(S, K)`` rows (S = 1 for a
+    single row).
 
     Gains and power fold into the SNR coefficient here; ``model_bits``
-    (scalar or ``(K,)``) is materialised as a bits row.
+    (scalar or rows) is materialised as a bits row.
     """
     f32 = torch.float32
     c = gains * tx_power / (bandwidth_hz * noise_psd)
@@ -226,10 +228,12 @@ def sub2_pgd_solve(selected: torch.Tensor, t_train: torch.Tensor,
     else:   # a fill, not a host-to-device copy of the scalar
         bits = torch.full(selected.shape, model_bits, dtype=f32,
                           device=selected.device)
-    rows = [x.to(f32)[None].contiguous()
-            for x in (selected, t_train, c, tx_power, bits)]
-    alpha, obj = sub2_pgd(*rows, alpha0.to(f32)[None].contiguous(),
+    k, lead = selected.shape[-1], selected.shape[:-1]
+    rows = [torch.broadcast_to(x, selected.shape).to(f32).reshape(-1, k)
+            .contiguous() for x in (selected, t_train, c, tx_power, bits)]
+    alpha, obj = sub2_pgd(*rows,
+                          alpha0.to(f32).reshape(-1, N_STARTS, k).contiguous(),
                           rho=rho, lr=lr, tau=tau, iters=iters,
                           bandwidth_hz=bandwidth_hz, min_alpha=min_alpha,
                           proj_iters=proj_iters)
-    return alpha[0], obj[0]
+    return alpha.reshape(lead + (k,)), obj.reshape(lead)

@@ -6,6 +6,7 @@ Bandwidth allocation (``core.bandwidth``, ``core.allocator``), selection
 counterparts, on the CPU; each tolerance is stated with its reason.
 """
 
+import dataclasses
 import functools
 
 import pytest
@@ -325,3 +326,135 @@ def test_unknown_method_and_missing_draw_raise():
     with pytest.raises(ValueError):
         tsch.schedule_impl(None, *args,
                            tsch.SchedulerConfig(method="random"))
+
+
+# ---------------------------------------------------------------------------
+# Stacked rows: S scenarios at once, each lane its own (K,) call
+# ---------------------------------------------------------------------------
+
+LANE_SEEDS = (11, 12, 13, 14)
+# A short descent: the stacked rows are held against the port's own
+# (K,) calls.
+SHORT_SUB2 = dataclasses.replace(tbw.Sub2Params.fast(), pgd_iters=30)
+
+
+def _lanes(k=16):
+    """S = 4 scenarios' networks, fading, sizes, ages, draws and
+    re-ranking signals, stacked (S, K)."""
+    worlds = [_world(seed, k) for seed in LANE_SEEDS]
+    tnet = tw.stack_networks([w[3] for w in worlds])
+    tg = torch.stack([w[4] for w in worlds])
+    ts = torch.stack([w[5] for w in worlds])
+    rng = np.random.default_rng(7)
+    shape = (len(LANE_SEEDS), k)
+    rows = dict(index=_t(rng.random(shape), np.float32),
+                ages=_t(rng.integers(0, 5, shape), np.int32),
+                sched_u=_t(rng.random(shape), np.float32),
+                staleness=_t(rng.random(shape) * 60, np.float32),
+                reliability=_t(rng.random(shape), np.float32))
+    return tnet, tg, ts, rows
+
+
+def _assert_lanes_equal(stacked, singles):
+    for s, one in enumerate(singles):
+        for got, want in zip(stacked, one):
+            assert torch.equal(got[s], want), s
+
+
+def test_sub1_on_stacked_rows_is_per_lane():
+    rng = np.random.default_rng(4)
+    shape = (5, 30)
+    energy = _t(rng.exponential(0.5, shape), np.float32)
+    times = _t(rng.uniform(0.05, 0.3, shape), np.float32)
+    index = _t(rng.uniform(0, 1, shape), np.float32)
+    energy[2] = 10.0            # nothing beneficial: the fallback decides
+    params = tsel.Sub1Params(n_min=4)
+    stacked = tsel.solve_sub1(energy, times, index, params)
+    assert tuple(stacked[2].shape) == (5,)
+    _assert_lanes_equal(stacked, [tsel.solve_sub1(energy[s], times[s],
+                                                  index[s], params)
+                                  for s in range(5)])
+
+
+def test_min_time_allocation_and_projection_on_stacked_rows():
+    tnet, tg, ts, rows = _lanes()
+    tt = tw.train_time(ts, tnet, TW)
+    sel = (rows["sched_u"] < 0.6).to(torch.float32)
+    sel[1] = 0.0                # an empty lane
+    a0 = torch.full_like(sel, 1.0 / sel.shape[-1])
+    bits = torch.linspace(2e4, 2e5, sel.shape[-1]).expand_as(sel)
+    for kw in ({}, dict(alpha0=a0), dict(payload_bits=bits)):
+        stacked = tbw.min_time_allocation(sel, tt, tg, tnet.tx_power, TW,
+                                          **kw)
+        assert tuple(stacked[1].shape) == (sel.shape[0],)
+        _assert_lanes_equal(stacked, [tbw.min_time_allocation(
+            sel[s], tt[s], tg[s], tnet.tx_power[s], TW,
+            **{n: v[s] for n, v in kw.items()}) for s in range(4)])
+    v = rows["index"] - 0.3
+    _assert_lanes_equal(
+        (tbw.project_simplex(v, sel),),
+        [(tbw.project_simplex(v[s], sel[s]),) for s in range(4)])
+
+
+@pytest.mark.parametrize("name", ["waterfilling", "pgd", "fused_pgd"])
+def test_allocators_on_stacked_rows_are_per_lane(name):
+    """One call on (S, K) rows (``fused_pgd``: one kernel launch on the
+    card) equals the stack of the (K,) calls."""
+    tnet, tg, ts, rows = _lanes()
+    tt = tw.train_time(ts, tnet, TW)
+    sel = (rows["sched_u"] < 0.6).to(torch.float32)
+    sel[:, 0] = 1.0
+    alloc = talloc.get(name, SHORT_SUB2)
+    alpha, obj = alloc.solve(sel, tt, tg, tnet.tx_power, TW,
+                             alpha0=torch.full_like(sel, 1.0 / 16))
+    assert tuple(obj.shape) == (4,)
+    _assert_lanes_equal((alpha, obj), [alloc.solve(
+        sel[s], tt[s], tg[s], tnet.tx_power[s], TW,
+        alpha0=torch.full_like(sel[s], 1.0 / 16)) for s in range(4)])
+
+
+@pytest.mark.parametrize("kw", _METHODS,
+                         ids=lambda kw: "-".join(map(str, kw.values())))
+def test_every_scheduling_method_on_stacked_rows_is_per_lane(kw):
+    """``schedule_impl`` on S = 4 stacked scenarios equals each lane's
+    own call: selections, shares, times, energies and DAS iteration
+    counts (an (S,) tensor for a stack), whatever the other lanes do."""
+    tnet, tg, ts, rows = _lanes()
+    tcfg = tsch.SchedulerConfig(n_min=2, iterations_max=5,
+                                sub2=SHORT_SUB2, **kw)
+    signals = {n: rows[n] for n in ("staleness", "reliability")} \
+        if "staleness_weight" in kw else {}
+    tr = tsch.schedule_impl(rows["sched_u"], rows["index"], rows["ages"], ts,
+                            tg, tnet, TW, tcfg, **signals)
+    fields = ("selected", "alpha", "t_train", "t_up", "energy",
+              "round_time")
+    singles = [tsch.schedule_impl(
+        rows["sched_u"][s], rows["index"][s], rows["ages"][s], ts[s], tg[s],
+        tnet.scenario(s), TW, tcfg, **{n: a[s] for n, a in signals.items()})
+        for s in range(4)]
+    _assert_lanes_equal([getattr(tr, f) for f in fields],
+                        [[getattr(o, f) for f in fields] for o in singles])
+    its = [o.iterations for o in singles]
+    if kw["method"] == "das" and "n_fixed" not in kw:
+        assert tr.iterations.tolist() == its
+    else:
+        assert tr.iterations == 0 and its == [0] * 4
+
+
+def test_das_freezes_lanes_that_converge_first():
+    """Lanes that converge after different numbers of outer iterations
+    (with ``reentry="mean"`` lane 1 flips its selection to the last
+    iteration, the others converge in 2): a converged lane's result is
+    its own run's while the others go on."""
+    tnet, tg, ts, rows = _lanes()
+    tcfg = tsch.SchedulerConfig(n_min=2, iterations_max=6,
+                                allocator="waterfilling", reentry="mean")
+    tr = tsch.das_schedule(rows["index"], ts, tg, tnet, TW, tcfg)
+    its = tr.iterations.tolist()
+    assert len(set(its)) > 1, its
+    for s in range(4):
+        one = tsch.das_schedule(rows["index"][s], ts[s], tg[s],
+                                tnet.scenario(s), TW, tcfg)
+        assert one.iterations == its[s]
+        assert torch.equal(tr.alpha[s], one.alpha)
+        assert torch.equal(tr.selected[s], one.selected)
