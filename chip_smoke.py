@@ -68,7 +68,30 @@ each phase failing the script on error:
    plain version (``explain_iterations`` prints the numbers), the same
    Sub2 objective (not on path 8, whose binding cap re-prices the round,
    as for path 4 in phase 6), parameters within 5e-3
-   (``BATCH_CARD_CPU_PARAM_TOL``: a CNN near-tie in this world).
+   (``BATCH_CARD_CPU_PARAM_TOL``: a CNN near-tie in this world);
+10. path 10, the event batch: S = 16 scenarios of path 4's config (6
+    events, its ticks, a cap of 16, the bf16 carry) through
+    ``run_federated_batch``, checked as the batch paths are (every kernel
+    as often as in path 4's run: ``fedavg_agg_stale`` once an event for
+    all scenarios; wall per event and per scenario-event beside path 4's;
+    peak memory; the host syncs of a 1-event batch at S = 16 and S = 1),
+    then once more with telemetry on through ``events.run_events``: the
+    same records, the event leaves ``(S, E, K)``, the frames' flushes the
+    buffer log's, a stale flush and a binding cap.  One batched event is
+    profiled in phase 5, and K = 16, S = 3 with a cap of 4 and telemetry
+    on runs on the card and on the CPU: per scenario equal selections,
+    delivered and dropped counts and flushes, DAS iterations as above,
+    parameters within 5e-3 (the bf16 carry's rounding of pending updates
+    compounds over the events; with an f32 carry, also run, within
+    1e-4), the event frame's masks equal and its clock within 1e-4;
+11. path 11, telemetry: path 2 with ``TelemetryConfig()`` (every group
+    on), 3 rounds: under deterministic algorithms parameters and records
+    bit for bit path 2's run beside it, no host sync beyond path 2's in
+    a 1-round run, every frame leaf finite and ``(R, K)`` or ``(R,)``,
+    the warm wall on over off in turns printed, and a JSONL log
+    (``build/telemetry/path11.jsonl``, written by
+    ``sinks.write_round_frames``) that ``python -m
+    repro_torch.telemetry.report`` renders with exit code 0.
 
 The kernel phase first prints, from ``cuobjdump -sass``, the size and
 the atomic instructions of the ``stream_update``, ``diversity`` and
@@ -108,8 +131,9 @@ kernel, each with its route's launches on path 6) and two for
 ``compress_update`` (its quant launches on path 3, and
 ``compress_update_topk``, path 3's topk round), and one row
 ``<kernel>_batch`` for each kernel of a batch path (at S = 16, with that
-path's launches).  Each path prints its launches by route.  At S = 16 the
-kernel phase also checks each FedAvg entry point at the CNN's and the
+path's launches; ``fedavg_agg_stale_batch`` with path 10's).  Each
+path prints its launches by route.  At S = 16 the kernel phase also
+checks each FedAvg entry point at the CNN's and the
 MLP's widths on (S, K, P) updates (after a NaN fill: two launches bit
 for bit, each scenario bit for bit the launch on its rows alone, within
 1e-5 of the plain version) and times it in turns against one
@@ -124,6 +148,7 @@ exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1450,16 +1475,19 @@ def full_width_world(torch, dev):
 
 
 def path_config(path: int, codec: str = "quant", horizon: float = 0.0,
-                cap: int = PATH4_CAP, events: int = ASYNC["num_events"]
-                ) -> tuple[dict, dict]:
+                cap: int = PATH4_CAP, events: int = ASYNC["num_events"],
+                telemetry: bool = False) -> tuple[dict, dict]:
     """(FLConfig subsystem fields, SchedulerConfig extras) of a path.
-    ``horizon``, ``cap`` and ``events`` shape path 4, ``cap`` path 8.
-    The batch paths 7-9 take the configs of paths 1-3; path 8 adds a
-    dispatch cap and the bf16 carry."""
+    ``horizon``, ``cap`` and ``events`` shape paths 4 and 10, ``cap``
+    path 8; ``telemetry`` turns every frame group on.  The batch paths
+    7-10 take the configs of paths 1-4; path 8 adds a dispatch cap and
+    the bf16 carry.  Path 11 is path 2 with telemetry."""
+    from repro_torch import telemetry as tel
     from repro_torch.core import compression, events as ev, faults, \
         streaming
     if path in (1, 7):
-        return {}, {}
+        return ({"telemetry": tel.TelemetryConfig()} if telemetry else {},
+                {})
     fl = dict(stream=streaming.StreamConfig(process="poisson"),
               faults=faults.FaultConfig(**FAULTS))
     if path == 8:
@@ -1467,12 +1495,14 @@ def path_config(path: int, codec: str = "quant", horizon: float = 0.0,
     if path in (3, 9):
         fl["compression"] = compression.CompressionConfig(codec=codec,
                                                           bit_width=8)
-    if path == 4:
+    if path in (4, 10):
         fl.update(events=ev.EventConfig(**dict(ASYNC, tick_horizon=horizon,
                                                num_events=events)),
                   dispatch_cap=cap, carry_dtype="bfloat16")
     if path == 5:
         fl["events"] = ev.EventConfig()
+    if telemetry or path == 11:
+        fl["telemetry"] = tel.TelemetryConfig()
     return fl, dict(PATH2_SCHED)
 
 
@@ -1722,19 +1752,13 @@ def phase_path(torch, dev, data, net, wcfg, path: int, **path_kw):
     return counts, recs, warm / rounds
 
 
-def phase_sync_limit(torch, dev, data, net, wcfg) -> dict:
-    """Path 5: path 2 with ``EventConfig()`` against path 2 on the card,
-    3 rounds each, with deterministic algorithms switched on for this
-    phase only (cuDNN's deterministic convolutions; ``warn_only`` so an
-    operation without a deterministic version warns instead of raising,
-    and the warnings are printed).  Selections, delivered counts, round
-    times, energies and DAS iterations must be equal and the parameters
-    bit for bit, else the largest difference is printed and the phase
-    fails above 1e-6."""
+@contextlib.contextmanager
+def deterministic_algorithms(torch, label: str):
+    """Deterministic algorithms on within ``with`` (cuDNN's deterministic
+    convolutions; ``warn_only`` so an operation without a deterministic
+    version warns instead of raising), the operations that warned
+    printed after it."""
     import warnings
-    from repro_torch.core import bandwidth
-    kw = dict(rounds=3, iterations_max=6, sub2=bandwidth.Sub2Params(),
-              device=dev)
     cudnn = torch.backends.cudnn
     saved = (torch.are_deterministic_algorithms_enabled(),
              torch.is_deterministic_algorithms_warn_only_enabled(),
@@ -1744,18 +1768,34 @@ def phase_sync_limit(torch, dev, data, net, wcfg) -> dict:
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            p2, r2 = run_slice(torch, data, net, wcfg, path=2, **kw)
-            reset_counts()
-            p5, r5 = run_slice(torch, data, net, wcfg, path=5, **kw)
-            torch.cuda.synchronize()
-            counts = read_counts()
+            yield
     finally:
         torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
         cudnn.deterministic, cudnn.benchmark = saved[2], saved[3]
     nondet = sorted({str(w.message).split(".")[0] for w in caught
                      if "deterministic" in str(w.message)})
-    print(f"[path 5] deterministic algorithms on; operations without a "
+    print(f"[{label}] deterministic algorithms on; operations without a "
           f"deterministic version: {nondet or 'none'}", flush=True)
+
+
+def phase_sync_limit(torch, dev, data, net, wcfg) -> dict:
+    """Path 5: path 2 with ``EventConfig()`` against path 2 on the card,
+    3 rounds each, with deterministic algorithms switched on for this
+    phase only (cuDNN's deterministic convolutions; ``warn_only`` so an
+    operation without a deterministic version warns instead of raising,
+    and the warnings are printed).  Selections, delivered counts, round
+    times, energies and DAS iterations must be equal and the parameters
+    bit for bit, else the largest difference is printed and the phase
+    fails above 1e-6."""
+    from repro_torch.core import bandwidth
+    kw = dict(rounds=3, iterations_max=6, sub2=bandwidth.Sub2Params(),
+              device=dev)
+    with deterministic_algorithms(torch, "path 5"):
+        p2, r2 = run_slice(torch, data, net, wcfg, path=2, **kw)
+        reset_counts()
+        p5, r5 = run_slice(torch, data, net, wcfg, path=5, **kw)
+        torch.cuda.synchronize()
+        counts = read_counts()
     for a, b in zip(r2, r5):
         same = ((a.selected == b.selected).all()
                 and (a.n_success, a.round_time, a.energy_total,
@@ -1783,6 +1823,101 @@ def phase_sync_limit(torch, dev, data, net, wcfg) -> dict:
         raise AssertionError(f"path 5 launch counts {counts}, expected "
                              f"{want}")
     return counts
+
+
+def same_records(a, b) -> bool:
+    return bool((a.selected == b.selected).all()) and all(
+        getattr(a, f) == getattr(b, f) for f in (
+            "accuracy", "n_selected", "round_time", "energy_total",
+            "n_success", "n_dropped", "iterations"))
+
+
+def phase_telemetry(torch, dev, data, net, wcfg) -> None:
+    """Path 11: path 2 with ``TelemetryConfig()`` (every group on), 3
+    rounds at full width.  Against path 2 run beside it with
+    deterministic algorithms on (for this check only): parameters and
+    records bit for bit; no host sync per round beyond path 2's (a
+    1-round run of each, by source line); every frame leaf finite,
+    shaped ``(R, K)`` or ``(R,)``; the warm wall with telemetry on over
+    off (in turns, with deterministic algorithms off);
+    a JSONL log written by ``sinks.write_round_frames`` that ``python -m
+    repro_torch.telemetry.report`` renders with exit code 0; the first
+    path 11 run launches each kernel as often as path 2's."""
+    from repro_torch.core import bandwidth
+    from repro_torch.telemetry import sinks
+    rounds, k = 3, data.num_devices
+    kw = dict(rounds=rounds, iterations_max=6, sub2=bandwidth.Sub2Params(),
+              device=dev)
+    with deterministic_algorithms(torch, "path 11"):
+        p2, r2 = run_slice(torch, data, net, wcfg, path=2, **kw)
+        reset_counts()
+        p11, r11, frames = run_slice(torch, data, net, wcfg, path=11, **kw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    bitwise = all(torch.equal(p2[n], p11[n]) for n in p2) and all(
+        same_records(a, b) for a, b in zip(r2, r11))
+    # The warm wall in turns, deterministic algorithms off as on every
+    # other path.
+    walls = {2: [], 11: []}
+    for path in (2, 11, 11, 2, 2, 11, 11, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_slice(torch, data, net, wcfg, path=path, **kw)
+        torch.cuda.synchronize()
+        walls[path].append((time.perf_counter() - t0) / rounds)
+    print(f"[path 11] telemetry on: parameters and records "
+          f"{'bit for bit' if bitwise else 'NOT'} equal to path 2's under "
+          f"deterministic algorithms; warm wall per round in turns (off, "
+          f"on, on, off, off, on, on, off): on "
+          f"{[round(w, 4) for w in walls[11]]} s, off "
+          f"{[round(w, 4) for w in walls[2]]} s; on / off of the medians "
+          f"{median(walls[11]) / median(walls[2]):.3f}", flush=True)
+    if not bitwise:
+        raise AssertionError("path 11: telemetry changed the primary "
+                             "outputs")
+    want = expected_counts(2, rounds, sum(r.iterations for r in r11))
+    if counts != want:
+        raise AssertionError(f"path 11 launch counts {counts}, expected "
+                             f"{want}")
+    for name, t in frames.items():
+        if tuple(t.shape) not in ((rounds, k), (rounds,)):
+            raise AssertionError(f"path 11 frame {name} is "
+                                 f"{tuple(t.shape)}")
+        if not bool(torch.all(torch.isfinite(t.to(torch.float32)))):
+            raise AssertionError(f"path 11 frame {name} is not finite")
+    print(f"[path 11] {len(frames)} frame leaves, all finite, (R, K) or "
+          f"(R,): {sorted(frames)}", flush=True)
+    # Host syncs: the frames stay on the device until the caller copies
+    # them, so a round with telemetry syncs where one without does.
+    das = das_sync_line()
+    off, r_off = count_syncs(torch, data, net, wcfg, dev, 2, rounds=1)
+    on, r_on = count_syncs(torch, data, net, wcfg, dev, 11, rounds=1)
+    print(f"[syncs] path 11, one round: {sum(on.values())} host syncs "
+          f"({r_on[0].iterations} DAS iterations): "
+          f"{', '.join(f'{n} x{c}' for n, c in on.most_common())}; path 2 "
+          f"{sum(off.values())} ({r_off[0].iterations})", flush=True)
+    if any(c > off.get(n, 0) for n, c in on.items() if n != das):
+        raise AssertionError(f"path 11: telemetry adds host syncs {on} "
+                             f"against {off}")
+    scfg, fcfg = slice_configs(path=11, rounds=rounds, iterations_max=6,
+                               sub2=kw["sub2"])
+    log_dir = os.path.join(ROOT, "build", "telemetry")
+    os.makedirs(log_dir, exist_ok=True)
+    log = os.path.join(log_dir, "path11.jsonl")
+    n = sinks.write_round_frames(log, frames,
+                                 manifest=sinks.run_manifest(scfg, fcfg))
+    rep = subprocess.run(
+        [sys.executable, "-m", "repro_torch.telemetry.report", log],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    lines = rep.stdout.splitlines()
+    print(f"[path 11] {n} round lines in {os.path.relpath(log, ROOT)}; "
+          f"report exit code {rep.returncode}:", flush=True)
+    for line in lines[:5] + [ln for ln in lines if ln.startswith(
+            ("Jain", "divergence", "outer iterations"))]:
+        print(f"[path 11]   {line}", flush=True)
+    if rep.returncode != 0 or "== Round table ==" not in rep.stdout:
+        raise AssertionError(f"path 11: the report failed: {rep.stderr}")
 
 
 def phase_profile(torch, dev, data, net, wcfg, path: int, floor: dict,
@@ -1885,6 +2020,14 @@ CARD_CPU_CAP = 4
 # the card: two runs of this phase on one tree read 1.2e-7 and 2.8e-3
 # there.
 BATCH_CARD_CPU_PARAM_TOL = 5e-3
+# Path 10 (the event batch, K = 16, S = 3, 6 events) shares the batch
+# paths' limit, for another reason: its bf16 carry stores each pending
+# update in bf16, so a coordinate whose card and CPU values straddle a
+# bf16 rounding boundary is flushed one bf16 ulp (2^-8 relative) apart,
+# and the next events train on the flushed model.  Scenario 2 reads
+# 1.88e-3, the same on every card run; the same run with an f32 carry
+# reads 2.03e-5 and is held too, at paths 1-2's 1e-4.
+EVENT_BATCH_F32_PARAM_TOL = 1e-4
 
 
 def phase_card_vs_cpu(torch, dev, path: int, horizon: float = 0.0):
@@ -1963,7 +2106,7 @@ def phase_card_vs_cpu(torch, dev, path: int, horizon: float = 0.0):
 
 
 # The batch paths and the single path each repeats at S scenarios.
-BATCH_OF = {7: 1, 8: 2, 9: 3}
+BATCH_OF = {7: 1, 8: 2, 9: 3, 10: 4}
 
 
 def batch_networks(s: int, k: int, wcfg):
@@ -1973,20 +2116,25 @@ def batch_networks(s: int, k: int, wcfg):
 
 
 def run_batch(torch, data, nets, wcfg, *, rounds, iterations_max, sub2,
-              device, path, draws=None, codec="quant", **path_kw):
+              device, path, draws=None, codec="quant", log=False,
+              **path_kw):
     """One batch path's run through ``run_federated_batch``: ``(params,
-    metrics)``, the metrics ``(S, R, ...)``."""
-    from repro_torch.core import federated
+    metrics[, frames])``, the metrics ``(S, R, ...)``; with ``log`` (an
+    event batch) through ``events.run_events`` for the buffer's log after
+    the metrics."""
+    from repro_torch.core import events, federated
     from repro_torch.models import paper_nets
     spec = paper_nets.PaperNetSpec(kind="cnn")
     model = paper_nets.init(spec, torch.Generator().manual_seed(SEED + 3))
     scfg, fcfg = slice_configs(rounds=rounds, iterations_max=iterations_max,
                                sub2=sub2, path=path, codec=codec, **path_kw)
     s = nets.pathloss.shape[0]
-    return federated.run_federated_batch(
-        model=model, data=data, nets=nets, wcfg=wcfg, scfg=scfg, fcfg=fcfg,
-        seeds=federated.scenario_seeds(SEED + 4, 0, s), draws=draws,
-        device=device)
+    seeds = federated.scenario_seeds(SEED + 4, 0, s)
+    kw = dict(model=model, data=data, wcfg=wcfg, scfg=scfg, fcfg=fcfg,
+              draws=draws, device=device)
+    if log:
+        return events.run_events(net=nets, seed=seeds, **kw)
+    return federated.run_federated_batch(nets=nets, seeds=seeds, **kw)
 
 
 def expected_batch_counts(path: int, rounds: int, iterations) -> dict:
@@ -1997,11 +2145,24 @@ def expected_batch_counts(path: int, rounds: int, iterations) -> dict:
     return expected_counts(BATCH_OF[path], rounds, slowest)
 
 
-def check_batch(torch, metrics, params, k: int, cap: int = 0) -> None:
-    """Every scenario's records sound, every parameter finite."""
+def check_batch(torch, metrics, params, k: int, cap: int = 0,
+                horizon: float = 0.0) -> None:
+    """Every scenario's records sound (an event batch's as
+    ``check_events`` holds a single event run's: ticks of ``horizon``
+    seconds, at most ``cap`` devices dispatched), every parameter
+    finite."""
     from repro_torch.core import federated
     for recs in federated.batch_metrics_to_records(metrics):
         for r in recs:
+            if horizon > 0.0:
+                ok = (0.0 <= r.accuracy <= 1.0 and 0 <= r.n_selected <= cap
+                      and 0 <= r.n_success <= r.n_selected
+                      and r.round_time == float(torch.tensor(horizon))
+                      and math.isfinite(r.energy_total)
+                      and r.energy_total >= 0.0 and r.selected.shape == (k,))
+                if not ok:
+                    raise AssertionError(f"bad batch event record {r}")
+                continue
             ok = (0.0 <= r.accuracy <= 1.0 and r.n_selected >= 1
                   and 0 <= r.n_success <= r.n_selected
                   and (not cap or r.n_selected <= cap)
@@ -2013,30 +2174,36 @@ def check_batch(torch, metrics, params, k: int, cap: int = 0) -> None:
     check_params(torch, params)
 
 
-def batch_syncs(torch, data, wcfg, dev, path: int, s: int):
-    """A 1-round batch run's host syncs by source line, and its slowest
-    lane's DAS outer iterations."""
+def batch_syncs(torch, data, wcfg, dev, path: int, s: int, **path_kw):
+    """A 1-round (path 10: 1-event) batch run's host syncs by source
+    line, and its slowest lane's DAS outer iterations."""
     from repro_torch.core import bandwidth
+    if path == 10:
+        path_kw = dict(path_kw, events=1)
     where, (_, metrics) = syncs_of(torch, lambda: run_batch(
         torch, data, batch_networks(s, data.num_devices, wcfg), wcfg,
         rounds=1, iterations_max=6, sub2=bandwidth.Sub2Params(),
-        device=dev, path=path))
+        device=dev, path=path, **path_kw))
     return where, int(metrics.iterations.max())
 
 
 def phase_batch_path(torch, dev, data, wcfg, path: int,
-                     single_wall: float) -> tuple:
+                     single_wall: float, **path_kw) -> tuple:
     """A batch path at full width (S = BATCH_S scenarios of K = 100, the
-    CNN, 3 rounds): the run with its launch counts checked (each kernel as
-    often as in the single path's round), the same run again warm beside
-    the single path's warm wall per round from this call, peak memory,
-    the host syncs of a 1-round batch at S = BATCH_S against S = 1.
-    Returns ``(launch counts, metrics)``."""
+    CNN, 3 rounds; path 10 path 4's 6 events at ``path_kw``'s horizon):
+    the run with its launch counts checked (each kernel as often as in
+    the single path's round or event), the same run again warm beside
+    the single path's warm wall per round (event) from this call, peak
+    memory, the host syncs of a 1-round (1-event) batch at S = BATCH_S
+    against S = 1.  Returns ``(launch counts, metrics)``."""
     from repro_torch.core import bandwidth, federated
-    rounds, k = 3, data.num_devices
+    events = path == 10
+    rounds = ASYNC["num_events"] if events else 3
+    unit = "event" if events else "round"
+    k = data.num_devices
     nets = batch_networks(BATCH_S, k, wcfg)
     kw = dict(rounds=rounds, iterations_max=6, sub2=bandwidth.Sub2Params(),
-              device=dev, path=path)
+              device=dev, path=path, **path_kw)
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2052,29 +2219,30 @@ def phase_batch_path(torch, dev, data, wcfg, path: int,
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    cap = PATH4_CAP if path == 8 else 0
-    check_batch(torch, metrics, params, k, cap)
+    cap = PATH4_CAP if path in (8, 10) else 0
+    check_batch(torch, metrics, params, k, cap, path_kw.get("horizon", 0.0))
     recs = federated.batch_metrics_to_records(metrics)
     for r in range(rounds):
         accs = [rs[r].accuracy for rs in recs]
-        print(f"[path {path}] round {r}: acc mean {sum(accs) / len(accs):.4f}"
-              f" (min {min(accs):.4f}, max {max(accs):.4f}) sel "
-              f"{[rs[r].n_selected for rs in recs]} ok "
+        print(f"[path {path}] {unit} {r}: acc mean "
+              f"{sum(accs) / len(accs):.4f} (min {min(accs):.4f}, max "
+              f"{max(accs):.4f}) sel {[rs[r].n_selected for rs in recs]} ok "
               f"{[rs[r].n_success for rs in recs]} dropped "
               f"{sum(rs[r].n_dropped for rs in recs)} das_iters "
               f"{[rs[r].iterations for rs in recs]}", flush=True)
     per_round = warm / rounds
+    what = {8: ", cap 16, bf16 carry", 10: ", events, cap 16, bf16 carry"}
     print(f"[path {path}] S={BATCH_S} x K={k} CNN (path "
-          f"{BATCH_OF[path]}'s config{', cap 16, bf16 carry' if cap else ''}"
-          f"), {rounds} rounds: first run {wall:.3f}s, warm run {warm:.3f}s "
-          f"= {per_round:.3f}s per batch round = {per_round / BATCH_S:.4f}s "
-          f"per scenario-round, against path {BATCH_OF[path]}'s "
-          f"{single_wall:.3f}s per round in this call "
-          f"({single_wall / (per_round / BATCH_S):.2f}x the scenario-rounds "
-          f"per second); peak memory {peak:.2f} GiB; launches {counts}",
-          flush=True)
+          f"{BATCH_OF[path]}'s config{what.get(path, '')}), {rounds} "
+          f"{unit}s: first run {wall:.3f}s, warm run {warm:.3f}s "
+          f"= {per_round:.3f}s per batch {unit} = "
+          f"{per_round / BATCH_S:.4f}s per scenario-{unit}, against path "
+          f"{BATCH_OF[path]}'s {single_wall:.3f}s per {unit} in this call "
+          f"({single_wall / (per_round / BATCH_S):.2f}x the scenario-"
+          f"{unit}s per second); peak memory {peak:.2f} GiB; launches "
+          f"{counts}", flush=True)
     per_batch_round = {name: n / rounds for name, n in counts.items()}
-    print(f"[path {path}] launches per batch round {per_batch_round}; by "
+    print(f"[path {path}] launches per batch {unit} {per_batch_round}; by "
           f"route over the run: {routes}", flush=True)
     want = expected_batch_counts(path, rounds, metrics.iterations)
     if counts != want:
@@ -2083,9 +2251,10 @@ def phase_batch_path(torch, dev, data, wcfg, path: int,
     # Host syncs: S scenarios add none beyond the slowest lane's extra
     # DAS convergence tests.
     das = das_sync_line()
-    many, it_many = batch_syncs(torch, data, wcfg, dev, path, BATCH_S)
-    one, it_one = batch_syncs(torch, data, wcfg, dev, path, 1)
-    print(f"[syncs] path {path}, one batch round: S={BATCH_S} "
+    many, it_many = batch_syncs(torch, data, wcfg, dev, path, BATCH_S,
+                                **path_kw)
+    one, it_one = batch_syncs(torch, data, wcfg, dev, path, 1, **path_kw)
+    print(f"[syncs] path {path}, one batch {unit}: S={BATCH_S} "
           f"{sum(many.values())} host syncs ({it_many} DAS iterations in "
           f"the slowest lane): {', '.join(f'{n} x{c}' for n, c in many.most_common())}"
           f"; S=1 {sum(one.values())} ({it_one}): "
@@ -2096,7 +2265,51 @@ def phase_batch_path(torch, dev, data, wcfg, path: int,
     if any(c > other_one.get(n, 0) for n, c in other_many.items()):
         raise AssertionError(f"path {path}: the batch adds host syncs "
                              f"{other_many} against S=1's {other_one}")
+    if events:
+        batch_event_frames(torch, data, nets, wcfg, metrics, **kw)
     return counts, metrics
+
+
+def batch_event_frames(torch, data, nets, wcfg, metrics, **kw) -> None:
+    """Path 10 once more, with telemetry on and through
+    ``events.run_events`` for the buffer's log: the primary outputs equal
+    the run without telemetry (selections, counts, DAS iterations), the
+    event leaves are ``(S, E, K)`` (``(S, E)`` for the scalars) and agree
+    with the log, some flush applies a stale update, the scenarios flush
+    on other events and the cap binds."""
+    params, metrics_t, log, frames = run_batch(torch, data, nets, wcfg,
+                                               telemetry=True, log=True,
+                                               **kw)
+    for name in ("selected", "n_success", "n_dropped", "iterations"):
+        if not torch.equal(getattr(metrics, name), getattr(metrics_t, name)):
+            raise AssertionError(f"path 10: telemetry changed {name}")
+    s, e, k = metrics.selected.shape
+    for name in ("avail", "free", "in_flight", "staleness_tau"):
+        if tuple(frames[name].shape) != (s, e, k):
+            raise AssertionError(f"path 10 frame {name} is "
+                                 f"{tuple(frames[name].shape)}")
+    for name in ("buffer_fill", "flushed", "clock", "model_version"):
+        if tuple(frames[name].shape) != (s, e):
+            raise AssertionError(f"path 10 frame {name} is "
+                                 f"{tuple(frames[name].shape)}")
+    flushed = frames["flushed"].cpu()
+    if flushed.tolist() != [[float(f) for f in fl] for fl in log.flushed]:
+        raise AssertionError("path 10: the frames' flushes are not the "
+                             "buffer log's")
+    stale = [tau for fl, taus in zip(log.flushed, log.tau_mean)
+             for f, tau in zip(fl, taus) if f and tau > 0.0]
+    dropped = int(metrics.n_dropped.sum())
+    print(f"[path 10] telemetry on: event leaves {(s, e, k)}, frames "
+          f"{len(frames)} leaves; flushes by scenario "
+          f"{[sum(fl) for fl in log.flushed]}, distinct flush patterns "
+          f"{len({tuple(fl) for fl in log.flushed})}, flushes with stale "
+          f"updates {len(stale)}; devices dropped by the cap {dropped}",
+          flush=True)
+    if not stale:
+        raise AssertionError("path 10: no flush applied a stale update")
+    if not dropped:
+        raise AssertionError("path 10: the dispatch cap never bound")
+    check_params(torch, params)
 
 
 class Sub2Log:
@@ -2164,15 +2377,19 @@ def explain_iterations(label: str, trace_gpu, trace_cpu, k: int,
                              f"convergence test")
 
 
-def phase_batch_card_vs_cpu(torch, dev, path: int) -> None:
+def phase_batch_card_vs_cpu(torch, dev, path: int,
+                            horizon: float = 0.0) -> None:
     """A batch path at K = 16, S = CARD_CPU_BATCH_S, 2 rounds, on the
     card and on the CPU from one tape (``draw_tapes``), TF32 off (path 9
-    with topk and path 8 with a cap of CARD_CPU_CAP, as phase 6 runs
-    paths 3 and 4): per scenario equal selections, DAS iterations
-    (unless ``explain_iterations`` finds the split decided by the
-    allocation's convergence test within sub2_pgd's tolerance), delivered
-    and dropped counts, the same Sub2 objective (not path 8, see below),
-    close parameters."""
+    with topk and paths 8 and 10 with a cap of CARD_CPU_CAP, as phase 6
+    runs paths 3 and 4; path 10 its 6 events at ``horizon`` with
+    telemetry on): per scenario equal selections, DAS iterations (unless
+    ``explain_iterations`` finds the split decided by the allocation's
+    convergence test within sub2_pgd's tolerance), delivered and dropped
+    counts, the same Sub2 objective (not paths 8 and 10, see below),
+    close parameters; path 10 also equal flushes, every event-frame
+    leaf equal in its masks and within EVENT_FRAME_TOL in its floats, and
+    the same run with an f32 carry within EVENT_BATCH_F32_PARAM_TOL."""
     from repro_torch.core import bandwidth, federated, wireless
     from repro_torch.data import partition, synthetic
     from repro_torch.models import paper_nets
@@ -2187,13 +2404,16 @@ def phase_batch_card_vs_cpu(torch, dev, path: int) -> None:
     wcfg = wireless.WirelessConfig()
     nets = batch_networks(s, k, wcfg)
     sub2 = bandwidth.Sub2Params.fast()
-    path_kw = dict(cap=CARD_CPU_CAP) if path == 8 else {}
+    path_kw = dict(cap=CARD_CPU_CAP) if path in (8, 10) else {}
+    if path == 10:
+        path_kw.update(horizon=horizon, telemetry=True)
     scfg, fcfg = slice_configs(rounds=rounds, iterations_max=4, sub2=sub2,
                                path=path, codec=codec, **path_kw)
     model = paper_nets.init(paper_nets.PaperNetSpec(kind="cnn"),
                             torch.Generator().manual_seed(SEED + 3))
     draws = federated.draw_tapes(
-        federated.scenario_seeds(SEED + 4, 0, s), nets, rounds,
+        federated.scenario_seeds(SEED + 4, 0, s), nets,
+        federated.sim_length(fcfg),
         data.capacity, federated._max_local_steps(fcfg, data.capacity), 50,
         fcfg, federated.client_histograms(data, fcfg.num_classes),
         federated.flat_param_size(paper_nets.params_of(model)))
@@ -2205,7 +2425,9 @@ def phase_batch_card_vs_cpu(torch, dev, path: int) -> None:
                 sub2=sub2, device=device, path=path, draws=draws,
                 codec=codec, **path_kw)
         logs[str(device)] = log.calls
-    (p_gpu, m_gpu), (p_cpu, m_cpu) = out[str(dev)], out["cpu"]
+    (p_gpu, m_gpu), (p_cpu, m_cpu) = out[str(dev)][:2], out["cpu"][:2]
+    if path == 10:
+        event_frames_agree(torch, out[str(dev)][2], out["cpu"][2])
     r_gpu = federated.batch_metrics_to_records(m_gpu)
     r_cpu = federated.batch_metrics_to_records(m_cpu)
     for i in range(s):
@@ -2227,7 +2449,8 @@ def phase_batch_card_vs_cpu(torch, dev, path: int) -> None:
                     f"{b.n_dropped})")
             j_a = 0.5 * a.energy_total + 0.5 * a.round_time
             j_b = 0.5 * b.energy_total + 0.5 * b.round_time
-            d_e = abs(a.energy_total - b.energy_total) / b.energy_total
+            d_e = abs(a.energy_total - b.energy_total) / b.energy_total \
+                if b.energy_total else abs(a.energy_total)
             d_t = abs(a.round_time - b.round_time) / b.round_time
             print(f"[card-vs-cpu] path {path} scenario {i} round {a.round}: "
                   f"sel equal ({a.n_selected}), iters {a.iterations}, "
@@ -2239,8 +2462,9 @@ def phase_batch_card_vs_cpu(torch, dev, path: int) -> None:
             # is not the Sub2 objective: the card's and the CPU's moves
             # along the objective's flat valley show in it (2.4e-3, T
             # 5.1e-3 in scenario 0, round 1).  As phase 6 does for its
-            # capped path 4, the record is printed, not held.
-            if path != 8 and not abs(j_a - j_b) <= 1e-4 * j_b:
+            # capped path 4, the record is printed, not held; so for path
+            # 10, whose T is the tick.
+            if path not in (8, 10) and not abs(j_a - j_b) <= 1e-4 * j_b:
                 raise AssertionError(f"path {path} scenario {i} round "
                                      f"{a.round}: Sub2 objective {j_a} vs "
                                      f"{j_b}")
@@ -2248,12 +2472,50 @@ def phase_batch_card_vs_cpu(torch, dev, path: int) -> None:
                 for n in p_cpu) for i in range(s)]
     err = max(errs)
     tol = BATCH_CARD_CPU_PARAM_TOL
+    if path == 10:
+        # The f32 carry's run, which shows that the bf16 carry sets the
+        # gap (EVENT_BATCH_F32_PARAM_TOL).
+        f32 = dataclasses.replace(fcfg, carry_dtype=None)
+        p32 = {str(d): federated.run_federated_batch(
+            model=model, data=data, nets=nets, wcfg=wcfg, scfg=scfg,
+            fcfg=f32, seeds=federated.scenario_seeds(SEED + 4, 0, s),
+            draws=draws, device=d)[0] for d in (dev, "cpu")}
+        err32 = max(float((p32[str(dev)][n].cpu() - p32["cpu"][n])
+                          .abs().max()) for n in p32["cpu"])
+        print(f"[card-vs-cpu] path 10 with the f32 carry: final params max "
+              f"abs diff {err32:.3g} (limit {EVENT_BATCH_F32_PARAM_TOL:g})",
+              flush=True)
+        if not err32 <= EVENT_BATCH_F32_PARAM_TOL:
+            raise AssertionError(f"path 10, f32 carry: card and CPU params "
+                                 f"differ by {err32}")
     print(f"[card-vs-cpu] path {path} S={s} final params max abs diff "
           f"{err:.3g} (limit {tol:g}; by scenario "
           f"{', '.join(f'{e:.3g}' for e in errs)})", flush=True)
     if not err <= tol:
         raise AssertionError(f"path {path}: card and CPU params differ by "
                              f"{err}")
+
+
+# Path 10's event frames, card against CPU: the masks and counts equal,
+# the floats (the clock) within 1e-4.
+EVENT_FRAME_MASKS = ("avail", "free", "in_flight", "buffer_fill", "flushed",
+                     "staleness_tau", "model_version")
+EVENT_FRAME_TOL = 1e-4
+
+
+def event_frames_agree(torch, f_gpu, f_cpu) -> None:
+    """Every event-frame leaf of a card run against the CPU run's."""
+    for name in EVENT_FRAME_MASKS:
+        if not torch.equal(f_gpu[name].cpu(), f_cpu[name]):
+            raise AssertionError(f"path 10: card and CPU frame {name} "
+                                 f"differ")
+    err = float((f_gpu["clock"].cpu() - f_cpu["clock"]).abs().max())
+    print(f"[card-vs-cpu] path 10 event frames: {', '.join(EVENT_FRAME_MASKS)}"
+          f" equal; clock max abs diff {err:.3g} (limit "
+          f"{EVENT_FRAME_TOL:g}); flushes by scenario "
+          f"{f_gpu['flushed'].sum(dim=1).int().tolist()}", flush=True)
+    if not err <= EVENT_FRAME_TOL:
+        raise AssertionError(f"path 10: card and CPU clocks differ by {err}")
 
 
 DENSE_ARCHS = ("h2o_danube_3_4b", "codeqwen1_5_7b", "qwen3_14b",
@@ -2536,7 +2798,7 @@ KERNELS = {
 # batch path, with that path's launches.
 KERNELS.update({f"{name}_batch": KERNELS[name] for name in (
     "diversity", "sub2_pgd", "fedavg_agg", "stream_update",
-    "fedavg_agg_masked", "compress_update")})
+    "fedavg_agg_masked", "compress_update", "fedavg_agg_stale")})
 
 
 def main() -> int:
@@ -2609,7 +2871,8 @@ def main() -> int:
              "flash_attention": 6, "flash_attention_decode": 6,
              "diversity_batch": 7, "sub2_pgd_batch": 7,
              "fedavg_agg_batch": 7, "stream_update_batch": 8,
-             "fedavg_agg_masked_batch": 8, "compress_update_batch": 9}
+             "fedavg_agg_masked_batch": 8, "compress_update_batch": 9,
+             "fedavg_agg_stale_batch": 10}
     by_path, recs, walls = {}, {}, {}
     for path in (1, 2, 3):
         by_path[path], recs[path], walls[path] = phase_path(
@@ -2619,29 +2882,34 @@ def main() -> int:
     horizon = half_median_round_time(recs[1])
     print(f"[path 4] tick_horizon = half the median of path 1's round "
           f"times = {horizon:.6f} s", flush=True)
-    by_path[4], _, _ = phase_path(torch, dev, data, net, wcfg, 4,
-                                  horizon=horizon)
+    by_path[4], _, walls[4] = phase_path(torch, dev, data, net, wcfg, 4,
+                                         horizon=horizon)
     phase_sync_limit(torch, dev, data, net, wcfg)
+    phase_telemetry(torch, dev, data, net, wcfg)
     for path in BATCH_OF:
-        by_path[path], _ = phase_batch_path(torch, dev, data, wcfg, path,
-                                            walls[BATCH_OF[path]])
+        by_path[path], _ = phase_batch_path(
+            torch, dev, data, wcfg, path, walls[BATCH_OF[path]],
+            **(dict(horizon=horizon) if path == 10 else {}))
     for path in (1, 2, 3):
         phase_profile(torch, dev, data, net, wcfg, path, floor)
     phase_profile(torch, dev, data, net, wcfg, 4, floor, horizon=horizon)
     for path in BATCH_OF:
+        path_kw = dict(horizon=horizon, events=1) if path == 10 else {}
         phase_profile(torch, dev, data, None, wcfg, path, floor,
-                      run=lambda path=path: run_batch(
+                      run=lambda path=path, path_kw=path_kw: run_batch(
                           torch, data, batch_networks(
                               BATCH_S, data.num_devices, wcfg), wcfg,
                           rounds=1, iterations_max=6,
                           sub2=bandwidth.Sub2Params(), device=dev,
-                          path=path),
-                      what=f"1-round run_federated_batch S={BATCH_S}")
+                          path=path, **path_kw),
+                      what=f"1-{'event' if path == 10 else 'round'} "
+                           f"run_federated_batch S={BATCH_S}")
     torch.cuda.empty_cache()
     r16 = {path: phase_card_vs_cpu(torch, dev, path) for path in (1, 2, 3)}
-    phase_card_vs_cpu(torch, dev, 4, horizon=half_median_round_time(r16[1]))
+    horizon16 = half_median_round_time(r16[1])
+    phase_card_vs_cpu(torch, dev, 4, horizon=horizon16)
     for path in BATCH_OF:
-        phase_batch_card_vs_cpu(torch, dev, path)
+        phase_batch_card_vs_cpu(torch, dev, path, horizon=horizon16)
     by_path[6] = phase_serve(torch, dev)
     phase_dense_card_vs_cpu(torch, dev)
 

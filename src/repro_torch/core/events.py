@@ -31,7 +31,11 @@ The tick is a Python loop over the round helpers of
 :mod:`repro_torch.core.federated`; the flush decision, the clock, the
 model version and the pending slots stay on the device (the flush is
 computed every tick and selected with ``torch.where``), so the loop adds
-no host sync.
+no host sync.  The same loop (:func:`drive_events`) runs a batch of S
+scenarios for ``federated.run_federated_batch``: every tensor then
+carries a leading ``(S,)`` axis, each scenario's clock, version, buffer
+and flush are its own, and each kernel launches once a tick for all of
+them.
 
 **Synchronous limit**: with ``EventConfig()`` — every device always
 available, whole-cohort ticks (``tick_horizon=0``), no staleness decay,
@@ -51,10 +55,12 @@ from typing import Callable, Dict, List, Optional, Protocol, \
     runtime_checkable
 
 import torch
-from torch.profiler import record_function
 
+from repro_torch import telemetry as telemetry_lib
 from repro_torch.core import compression, faults, wireless
 from repro_torch.kernels import fedavg_agg as fedavg_kernel
+from repro_torch.telemetry import health as telemetry_health
+from repro_torch.telemetry import record as telemetry_record
 
 Tensor = torch.Tensor
 Draw = Dict[str, Tensor]
@@ -112,8 +118,9 @@ class AvailabilityProcess(Protocol):
         ...
 
     def init(self, draw: Draw, k: int, cfg: EventConfig,
-             device: torch.device) -> Tensor:
-        """Once-per-run (K,) state (diurnal: the device phases)."""
+             device: torch.device, lead: tuple = ()) -> Tensor:
+        """Once-per-run ``lead + (K,)`` state (diurnal: the device
+        phases); ``lead`` is a batch's scenario axis."""
         ...
 
     def draw(self, gen: torch.Generator, k: int, cfg: EventConfig,
@@ -123,7 +130,7 @@ class AvailabilityProcess(Protocol):
 
     def sample(self, draw: Draw, state: Tensor, tick: int,
                cfg: EventConfig) -> Tensor:
-        """(K,) {0, 1} availability mask of one tick."""
+        """{0, 1} availability mask of one tick, shaped as ``state``."""
         ...
 
 
@@ -136,8 +143,9 @@ class AlwaysOn:
     def init_draw(self, gen, k, cfg, device):
         return {}
 
-    def init(self, draw, k, cfg, device):
-        return torch.zeros((k,), dtype=torch.float32, device=device)
+    def init(self, draw, k, cfg, device, lead=()):
+        return torch.zeros(tuple(lead) + (k,), dtype=torch.float32,
+                           device=device)
 
     def draw(self, gen, k, cfg, device):
         return {}
@@ -161,8 +169,9 @@ class Churn:
     def init_draw(self, gen, k, cfg, device):
         return {}
 
-    def init(self, draw, k, cfg, device):
-        return torch.zeros((k,), dtype=torch.float32, device=device)
+    def init(self, draw, k, cfg, device, lead=()):
+        return torch.zeros(tuple(lead) + (k,), dtype=torch.float32,
+                           device=device)
 
     draw = staticmethod(_uniform_draw)
 
@@ -184,15 +193,18 @@ class Diurnal:
         return {"shared_u": torch.rand((), generator=gen, device=device),
                 "z": torch.randn((k,), generator=gen, device=device)}
 
-    def init(self, draw, k, cfg, device):
+    def init(self, draw, k, cfg, device, lead=()):
+        # A batch's draw holds (S,) shared phases beside (S, K) jitter:
+        # each scenario's phase goes with its own row.
         shared = draw["shared_u"] * (2.0 * math.pi)
-        return shared + cfg.phase_spread * draw["z"]
+        return shared[..., None] + cfg.phase_spread * draw["z"]
 
     draw = staticmethod(_uniform_draw)
 
     def probability(self, state: Tensor, tick: int,
                     cfg: EventConfig) -> Tensor:
-        """(K,) availability probability at ``tick`` (f32 throughout)."""
+        """Availability probability at ``tick``, shaped as ``state``
+        (f32 throughout)."""
         t = torch.full((), float(tick), dtype=torch.float32,
                        device=state.device)
         level = 0.5 * (1.0 + torch.sin(
@@ -257,7 +269,8 @@ def buffered_flush(params: Params, rows: Tensor, weights: Tensor,
     """One buffer flush in update form over the (K, P) flattened rows:
     ``g' = g + sum_k (w_k * m_k * s_k) row_k``, ``weights`` normalised by
     the caller, ``arrived`` the buffer-membership mask and
-    ``stale_mult`` the staleness discount.
+    ``stale_mult`` the staleness discount.  A batch passes ``(S, K, P)``
+    rows, ``(S, K)`` weights and ``(S, ...)`` params: one flush a lane.
 
     The kernel path launches ``fedavg_agg_stale``.  The other path is
     the fault-aware round's per-leaf update (``federated._masked_update``)
@@ -270,11 +283,14 @@ def buffered_flush(params: Params, rows: Tensor, weights: Tensor,
         return fed._apply_flat(params, fedavg_kernel.fedavg_agg_stale(
             rows, weights.contiguous(), arrived.contiguous(),
             stale_mult.contiguous()))
+    lead = weights.shape[:-1]
     deltas, offset = {}, 0
     for n, p in params.items():
-        deltas[n] = rows[:, offset:offset + p.numel()].reshape(
-            (rows.shape[0],) + p.shape).contiguous()
-        offset += p.numel()
+        leaf = p.shape[len(lead):]
+        size = math.prod(leaf)
+        deltas[n] = rows[..., offset:offset + size].reshape(
+            rows.shape[:-1] + leaf).contiguous()
+        offset += size
     return fed._masked_update(params, deltas, weights * arrived * stale_mult)
 
 
@@ -287,7 +303,8 @@ class EventLog:
     """What the server's buffer did each event, stacked on (E,): whether
     it flushed, how many updates had arrived, the mean model-version
     staleness of the updates a flush applied (0 without a flush), the
-    simulated clock after the tick and the model version."""
+    simulated clock after the tick and the model version.  A batch's log
+    holds one such list per scenario in each field."""
 
     flushed: List[bool]
     buffer_fill: List[int]
@@ -296,42 +313,81 @@ class EventLog:
     version: List[int]
 
 
-def run_events(*, model, data, net, wcfg, scfg, fcfg, seed: int = 0,
+def run_events(*, model, data, net, wcfg, scfg, fcfg, seed=0,
                draws=None, eval_every: int = 1, device=None):
     """Run ``sim_length(fcfg)`` events -> ``(params, records, EventLog)``.
 
     The arguments are :func:`federated.run_federated`'s, which calls this
     when ``fcfg.events`` is set and drops the log.  One record per event:
     ``round_time`` is the clock the tick consumed, ``n_selected`` the
-    devices dispatched, ``n_success`` the uploads that will land.
+    devices dispatched, ``n_success`` the uploads that will land.  With
+    ``fcfg.telemetry`` the stacked frames follow the log.
+
+    ``seed`` a sequence of S seeds over the stacked ``net`` runs a batch,
+    as :func:`federated.run_federated_batch` does: ``(params (S, ...),
+    RoundMetrics (S, E, ...), EventLog of S lists[, frames])``.
     """
     from repro_torch.core import federated as fed
-    ecfg = fcfg.events
-    if ecfg is None:
+    if fcfg.events is None:
         raise ValueError("FLConfig.events is None — use the synchronous "
                          "rounds (federated.run_federated)")
-    proc = get_availability(ecfg.availability)
+    get_availability(fcfg.events.availability)   # an unknown name raises
     run = fed._Run(model, data, net, wcfg, scfg, fcfg, seed, draws,
                    eval_every, device)
+    params, metrics, log, frames = drive_events(run)
+    out = (params, metrics if run.lead else fed.metrics_to_records(metrics),
+           _event_log(log, run.lead))
+    return out if frames is None else out + (frames,)
+
+
+def _event_log(log: List[tuple], lead: tuple) -> EventLog:
+    """The buffer's per-event tensors on the host, in one copy."""
+    host = torch.stack([torch.stack([t.to(torch.float32) for t in e])
+                        for e in log]).cpu()            # (E, 5, *lead)
+    fields = host.reshape(host.shape[:2] + (-1,)).permute(2, 1, 0).tolist()
+
+    def lane(f):
+        flushed, fill, tau, clock, version = f
+        return ([bool(x) for x in flushed], [int(x) for x in fill], tau,
+                clock, [int(x) for x in version])
+    lanes = [lane(f) for f in fields]
+    if not lead:
+        return EventLog(*lanes[0])
+    return EventLog(*(list(col) for col in zip(*lanes)))
+
+
+def drive_events(run):
+    """The event loop of a run built by ``federated._Run``, one scenario
+    or a batch (every tensor with ``run.lead`` in front) -> ``(params,
+    RoundMetrics, log rows, frames or None)``, everything on the run's
+    device.  Scenario ``s``'s clock, model version, buffer and flush are
+    its own; the flush launches ``fedavg_agg_stale`` once for all
+    scenarios."""
+    from repro_torch.core import federated as fed
+    fcfg = run.fcfg
+    ecfg = fcfg.events
+    proc = get_availability(ecfg.availability)
     stream, comp, flt, cdt = fcfg.stream, fcfg.compression, run.flt, run.cdt
-    data, dev, k = run.data, run.dev, run.k
+    data, dev, k, lead = run.data, run.dev, run.k, run.lead
     gamma = ecfg.staleness_decay
     horizon = float(ecfg.tick_horizon)
-    avail_state = proc.init(run.draws.avail_init, k, ecfg, dev)
+    avail_state = proc.init(run.draws.avail_init, k, ecfg, dev, lead)
     params, st, residual, rel = run.params, run.st, run.residual, run.rel
+    sig_fn, sigst = run.sig_fn, run.signal_init()
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    ages = torch.zeros((k,), **i32)
-    clock = torch.zeros((), **f32)
-    version = torch.zeros((), **i32)
-    pend_rows = torch.zeros((k, fed.flat_param_size(params)),
+    ages = torch.zeros(lead + (k,), **i32)
+    clock = torch.zeros(lead, **f32)
+    version = torch.zeros(lead, **i32)
+    pend_rows = torch.zeros(lead + (k, run.n_coords),
                             dtype=cdt or torch.float32, device=dev)
-    pend_mask = torch.zeros((k,), **f32)
-    pend_size = torch.zeros((k,), **f32)
-    pend_birth = torch.zeros((k,), **i32)
-    pend_arrival = torch.zeros((k,), **f32)
+    pend_mask = torch.zeros(lead + (k,), **f32)
+    pend_size = torch.zeros(lead + (k,), **f32)
+    pend_birth = torch.zeros(lead + (k,), **i32)
+    pend_arrival = torch.zeros(lead + (k,), **f32)
     rows: List[tuple] = []
     log: List[tuple] = []
+    frames: List[Dict[str, Tensor]] = []
     for t in range(run.length):
         if cdt is not None:
             pend_rows = pend_rows.to(torch.float32)
@@ -348,7 +404,8 @@ def run_events(*, model, data, net, wcfg, scfg, fcfg, seed: int = 0,
         index_g = torch.where(free > 0.0, index, torch.zeros_like(index))
         result, payload = run.schedule(t, index_g, ages, sizes_r, gains,
                                        stale, rel)
-        didx, selected, n_dropped = run.dispatch(result.selected * free)
+        admitted = result.selected * free
+        didx, selected, n_dropped = run.dispatch(admitted)
         ok, energy, round_time, draw = run.realize(t, result, selected,
                                                    gains, payload)
         # Each device's completion time, by the expressions of the
@@ -361,7 +418,7 @@ def run_events(*, model, data, net, wcfg, scfg, fcfg, seed: int = 0,
                                  torch.zeros_like(t_up))
         else:
             t_up = wireless.upload_time(
-                result.alpha, gains, run.net.tx_power, wcfg, payload,
+                result.alpha, gains, run.net.tx_power, run.wcfg, payload,
                 airtime_mult=faults.time_mult(draw.attempts, flt))
             t_up = torch.where((selected > 0.0) & torch.isfinite(t_up),
                                t_up, torch.zeros_like(t_up))
@@ -374,43 +431,53 @@ def run_events(*, model, data, net, wcfg, scfg, fcfg, seed: int = 0,
             run.trainer, run.max_steps, fcfg, params, data.images,
             data.labels, data.mask, sizes_r, selected,
             run.draws.batch_idx[t], didx)
-        updates = fed._flat_updates(params, client_params)
+        updates = fed._flat_updates(params, client_params, lead)
         if comp is None:
             upd_rows = updates
         else:
             if cdt is not None:
                 residual = residual.to(torch.float32)
-            with record_function("aggregate"):
+            with telemetry_lib.phase_scope("aggregate"):
                 upd_rows, residual = compression.apply_codec(
                     run.codec, updates, residual, selected, run.noise(t),
                     comp, gains, index_g,
                     success=None if draw is None else draw.success)
             if cdt is not None:
                 residual = residual.to(cdt)
+        # The signals group observes the raw updates against the model
+        # the devices trained from, as the synchronous rounds do.
+        obs = None
+        if sig_fn is not None:
+            obs = sig_fn(params, client_params, updates)
+            sigst = telemetry_health.signal_update(sigst, ok, *obs, energy)
         # Enqueue the uploads that will land (a failed upload never
         # arrives; its energy is charged and, compressed, its update is
         # already folded back into the residual).
         enq = ok > 0.0
-        pend_rows = torch.where(enq[:, None], upd_rows, pend_rows)
+        pend_rows = torch.where(enq[..., None], upd_rows, pend_rows)
         pend_mask = torch.where(enq, torch.ones_like(pend_mask), pend_mask)
         pend_size = torch.where(enq, sizes_r.to(torch.float32), pend_size)
-        pend_birth = torch.where(enq, version, pend_birth)
-        pend_arrival = torch.where(enq, clock + t_done, pend_arrival)
-        dt = round_time if horizon <= 0.0 \
-            else torch.full((), horizon, **f32)
+        pend_birth = torch.where(enq, fed._lane_flag(version, enq),
+                                 pend_birth)
+        pend_arrival = torch.where(enq, fed._lane_flag(clock, enq) + t_done,
+                                   pend_arrival)
+        dt = round_time if horizon <= 0.0 else torch.full(lead, horizon,
+                                                          **f32)
         clock = clock + dt
-        arrived = pend_mask * (pend_arrival <= clock).to(torch.float32)
-        buf_n = torch.sum(arrived)
+        arrived = pend_mask * (pend_arrival <= fed._lane_flag(
+            clock, pend_arrival)).to(torch.float32)
+        buf_n = torch.sum(arrived, dim=-1)
         do_flush = buf_n >= float(ecfg.buffer_size)
         # Flush weights: FedAvg sizes over the arrived set, times the
         # staleness discount; at gamma = 0 the discount leaves the
         # program and this is the synchronous normalisation bitwise.
-        tau = (version - pend_birth).to(torch.float32)
+        tau = (fed._lane_flag(version, pend_birth)
+               - pend_birth).to(torch.float32)
         s_mult = staleness_multiplier(tau, gamma)
         base = pend_size * arrived
         num = base * s_mult if gamma != 0.0 else base
-        denom = torch.clamp_min(torch.sum(num), 1.0)
-        with record_function("aggregate"):
+        denom = torch.clamp_min(torch.sum(num, dim=-1, keepdim=True), 1.0)
+        with telemetry_lib.phase_scope("aggregate"):
             if comp is None:
                 # The kernel multiplies the discount in per row, so only
                 # the normaliser is folded here.
@@ -421,38 +488,45 @@ def run_events(*, model, data, net, wcfg, scfg, fcfg, seed: int = 0,
                 # The compressed synchronous round's product, so the
                 # compressed synchronous limit is bitwise too.
                 flushed = fed._apply_flat(
-                    params, torch.tensordot(num / denom, pend_rows, dims=1))
-            params = {n: torch.where(do_flush, flushed[n], params[n])
-                      for n in params}
-        cleared = arrived * do_flush.to(torch.float32)
+                    params, fed._lane_dot(num / denom, pend_rows))
+            params = {n: torch.where(fed._lane_flag(do_flush, p),
+                                     flushed[n], p)
+                      for n, p in params.items()}
+        cleared = arrived * fed._lane_flag(do_flush, arrived).to(
+            torch.float32)
         version = version + do_flush.to(torch.int32)
         # Applied updates leave the buffer; arrivals not yet flushed stay
         # (and keep their devices busy) until the buffer fills.
         pend_mask = pend_mask * (1.0 - cleared)
+        if run.tel is not None:
+            frame = run.frame(t, result, admitted, selected, ok, energy,
+                              payload, gains, index_g, ages, stale, rel,
+                              draw, sigst, obs)
+            if run.tel.events:
+                frame.update(telemetry_record.event_frame(
+                    avail=avail, free=free, in_flight=pend_mask,
+                    buffer_fill=buf_n, flushed=do_flush, tau=tau,
+                    clock=clock, version=version))
+            frames.append(frame)
         ages, rel = run.advance(ages, rel, selected, ok)
         if stream is not None:
             st = fed._stream_advance(st, hists_r, stale, ok, cdt)
         if cdt is not None:
             pend_rows = pend_rows.to(cdt)
         rows.append((run.evaluate(t, params),
-                     torch.sum(selected).to(torch.int32), dt, energy,
-                     torch.sum(energy), selected,
-                     torch.full((), result.iterations, **i32),
-                     torch.sum(ok).to(torch.int32), n_dropped))
+                     torch.sum(selected, dim=-1).to(torch.int32), dt,
+                     energy, torch.sum(energy, dim=-1), selected,
+                     run.iterations(result),
+                     torch.sum(ok, dim=-1).to(torch.int32), n_dropped))
         log.append((do_flush, buf_n,
-                    torch.sum(tau * cleared)
-                    / torch.clamp_min(torch.sum(cleared), 1.0),
+                    torch.sum(tau * cleared, dim=-1)
+                    / torch.clamp_min(torch.sum(cleared, dim=-1), 1.0),
                     clock, version))
-    records = fed.metrics_to_records(fed.stack_metrics(rows))
-    flushed, fill, tau_mean, clocks, versions = (
-        torch.stack([e[i] for e in log]).cpu().tolist() for i in range(5))
-    return params, records, EventLog(
-        flushed=[bool(f) for f in flushed],
-        buffer_fill=[int(n) for n in fill], tau_mean=tau_mean,
-        clock=clocks, version=[int(v) for v in versions])
+    return (params, fed.stack_metrics(rows, dim=len(lead)), log,
+            run.stack_frames(frames))
 
 
 __all__ = ["EventConfig", "AvailabilityProcess", "AlwaysOn", "Churn",
            "Diurnal", "register_availability", "availability_names",
            "get_availability", "staleness_multiplier", "buffered_flush",
-           "EventLog", "run_events"]
+           "EventLog", "run_events", "drive_events"]

@@ -7,7 +7,8 @@ streaming-data, compressed-uplink and unreliable-uplink subsystems
 dispatch (``dispatch_cap``) and the reduced-precision carry
 (``carry_dtype``), alone or together.  With ``FLConfig.events`` the run
 is the event-driven asynchronous driver of :mod:`repro_torch.core.events`
-instead, built from the same round helpers.  Each synchronous round:
+instead (one scenario or a batch), built from the same round helpers.
+Each synchronous round:
 
 1. the diversity index (Eq. 4).  With static data the ``diversity``
    kernel computes the per-device label statistics once per run and
@@ -52,8 +53,11 @@ converged are frozen, :func:`scheduler.das_schedule`), ``stream_update``,
 run.  The round's code is the single driver's (:func:`_drive`).
 
 Each phase runs under a ``torch.profiler.record_function`` scope
-(``stream_refresh``, ``schedule``, ``local_train``, ``aggregate``,
-``evaluate``), so a profiler trace splits a round by phase.
+(``stream_refresh``, ``schedule``, ``local_train``, ``aggregate`` through
+:func:`repro_torch.telemetry.phase_scope`; ``evaluate``), so a profiler
+trace splits a round by phase.  With ``FLConfig.telemetry`` every driver
+also builds a per-round frame (:mod:`repro_torch.telemetry.record`),
+kept on the device and returned stacked beside the metrics.
 
 Randomness is an input: :class:`Draws` holds the fading gains, the
 minibatch indices, the uniform draw abs/random rank on and the
@@ -75,6 +79,7 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
+from repro_torch import telemetry as telemetry_lib
 from repro_torch.core import bandwidth, compression, diversity, faults, \
     scheduler, streaming, wireless
 from repro_torch.core import events as events_lib
@@ -84,15 +89,11 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import diversity as diversity_kernel
 from repro_torch.kernels import fedavg_agg as fedavg_kernel
 from repro_torch.models import paper_nets
+from repro_torch.telemetry import health as telemetry_health
+from repro_torch.telemetry import record as telemetry_record
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
-
-# FLConfig fields whose subsystems are not ported yet, with the
-# ROADMAP.md queue-1 item that ports each.
-_NOT_PORTED = {
-    "telemetry": 14,
-}
 
 # Storage dtypes of the reduced-precision carry (``FLConfig.carry_dtype``).
 _CARRY_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -130,15 +131,12 @@ class FLConfig:
     # dispatch, uploads landing after their compute + channel time, and
     # staleness-weighted buffered FedAvg.  None = synchronous rounds.
     events: Optional[events_lib.EventConfig] = None
-    # Not ported yet (ROADMAP.md queue 1, item 14); must stay None.
-    telemetry: Optional[object] = None
+    # Per-round telemetry frames (repro_torch.telemetry): when set and
+    # not inert, every driver returns the stacked frames as a third
+    # element.  They only observe; the primary outputs are unchanged.
+    telemetry: Optional[telemetry_lib.TelemetryConfig] = None
 
     def __post_init__(self):
-        for name, item in _NOT_PORTED.items():
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"FLConfig.{name} is not ported yet (ROADMAP.md "
-                    f"queue 1, item {item})")
         if self.dispatch_cap is not None and self.dispatch_cap < 1:
             raise ValueError(f"dispatch_cap must be >= 1, got "
                              f"{self.dispatch_cap}")
@@ -148,6 +146,11 @@ class FLConfig:
             raise TypeError(f"FLConfig.events must be an "
                             f"events.EventConfig, got "
                             f"{type(self.events).__name__}")
+        if self.telemetry is not None and not isinstance(
+                self.telemetry, telemetry_lib.TelemetryConfig):
+            raise TypeError(f"FLConfig.telemetry must be a "
+                            f"telemetry.TelemetryConfig, got "
+                            f"{type(self.telemetry).__name__}")
 
 
 def sim_length(fcfg: FLConfig) -> int:
@@ -485,7 +488,7 @@ def _masked_local_train(trainer: Callable, max_steps: int, cfg: FLConfig,
     step runs the S x K lanes at once.
     """
     lead = selected.shape[:-1]
-    with record_function("local_train"):
+    with telemetry_lib.phase_scope("local_train"):
         steps_k = cfg.local_epochs * torch.ceil(
             sizes.to(torch.float32) / cfg.batch_size)
         step_idx = torch.arange(max_steps, dtype=torch.float32,
@@ -516,36 +519,47 @@ def _train_round(trainer: Callable, max_steps: int, cfg: FLConfig,
                  params: Params, images: Tensor, labels: Tensor,
                  mask: Tensor, sizes: Tensor, selected: Tensor,
                  batch_idx: Tensor,
-                 dispatch_idx: Optional[Tensor] = None) -> Params:
+                 dispatch_idx: Optional[Tensor] = None,
+                 sig_fn: Optional[Callable] = None) -> Params:
     """Masked local training + FedAvg.  An empty selected set carries
     the previous model forward (the all-zero weights would replace it
-    with zeros); the guard is a select per lane, no host sync."""
+    with zeros); the guard is a select per lane, no host sync.
+
+    ``sig_fn`` (telemetry's signals group, :meth:`_Run.sig_fn`) observes
+    the trained client params before the aggregation; with it the return
+    grows a trailing ``(loss_delta, update_norm)`` pair."""
     client_params, w = _masked_local_train(
         trainer, max_steps, cfg, params, images, labels, mask, sizes,
         selected, batch_idx, dispatch_idx)
-    with record_function("aggregate"):
+    obs = sig_fn(params, client_params) if sig_fn is not None else None
+    with telemetry_lib.phase_scope("aggregate"):
         agg = fedavg_aggregate(client_params, w, cfg.use_kernel_agg)
         any_sel = torch.sum(selected, dim=-1) > 0.0
-        return {n: torch.where(_lane_flag(any_sel, p), agg[n], p)
-                for n, p in params.items()}
+        new_params = {n: torch.where(_lane_flag(any_sel, p), agg[n], p)
+                      for n, p in params.items()}
+    return new_params if sig_fn is None else (new_params, obs)
 
 
 def _train_round_faulty(trainer: Callable, max_steps: int, cfg: FLConfig,
                         params: Params, images: Tensor, labels: Tensor,
                         mask: Tensor, sizes: Tensor, selected: Tensor,
                         ok: Tensor, batch_idx: Tensor,
-                        dispatch_idx: Optional[Tensor] = None) -> Params:
+                        dispatch_idx: Optional[Tensor] = None,
+                        sig_fn: Optional[Callable] = None) -> Params:
     """Fault-aware round: train the selected set (the failure comes at
     upload time), aggregate the ``ok`` set with weights renormalised
-    over it (:func:`fedavg_aggregate_masked`)."""
+    over it (:func:`fedavg_aggregate_masked`).  ``sig_fn``: as in
+    :func:`_train_round`."""
     client_params, _ = _masked_local_train(
         trainer, max_steps, cfg, params, images, labels, mask, sizes,
         selected, batch_idx, dispatch_idx)
-    with record_function("aggregate"):
+    obs = sig_fn(params, client_params) if sig_fn is not None else None
+    with telemetry_lib.phase_scope("aggregate"):
         w = sizes.to(torch.float32) * ok
         w = w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1.0)
-        return fedavg_aggregate_masked(params, client_params, w, ok,
-                                       cfg.use_kernel_agg)
+        new_params = fedavg_aggregate_masked(params, client_params, w, ok,
+                                             cfg.use_kernel_agg)
+    return new_params if sig_fn is None else (new_params, obs)
 
 
 def flat_param_size(params: Params) -> int:
@@ -561,7 +575,8 @@ def _train_round_compressed(trainer: Callable, max_steps: int,
                             gains: Tensor, index: Tensor,
                             noise: Optional[Tensor],
                             success: Optional[Tensor] = None,
-                            dispatch_idx: Optional[Tensor] = None
+                            dispatch_idx: Optional[Tensor] = None,
+                            sig_fn: Optional[Callable] = None
                             ) -> tuple[Params, Tensor]:
     """Masked local training + compressed-uplink FedAvg.
 
@@ -573,7 +588,9 @@ def _train_round_compressed(trainer: Callable, max_steps: int,
     update back into its residual.  Under dispatch the off-block rows
     equal the global model, so their update is exactly zero.  With
     ``carry_dtype`` the residual arrives at storage precision, is upcast
-    here and downcast after the codec.  Returns ``(params, residual)``.
+    here and downcast after the codec.  Returns ``(params, residual)``,
+    and the observation of ``sig_fn`` (as in :func:`_train_round`, on
+    the raw updates before the codec) after them.
     """
     _uniform_dtype(params, "compressed uplink")
     cdt = _carry_dtype(fcfg)
@@ -582,8 +599,10 @@ def _train_round_compressed(trainer: Callable, max_steps: int,
     client_params, w = _masked_local_train(
         trainer, max_steps, fcfg, params, images, labels, mask, sizes,
         selected, batch_idx, dispatch_idx)
-    with record_function("aggregate"):
-        updates = _flat_updates(params, client_params, selected.shape[:-1])
+    updates = _flat_updates(params, client_params, selected.shape[:-1])
+    obs = sig_fn(params, client_params, updates) if sig_fn is not None \
+        else None
+    with telemetry_lib.phase_scope("aggregate"):
         if success is not None:
             w = sizes.to(torch.float32) * selected * success
             w = w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1.0)
@@ -592,7 +611,10 @@ def _train_round_compressed(trainer: Callable, max_steps: int,
             gains, index, success=success)
         if cdt is not None:
             residual = residual.to(cdt)
-        return _apply_flat(params, _lane_dot(w, c)), residual
+        new_params = _apply_flat(params, _lane_dot(w, c))
+    if sig_fn is None:
+        return new_params, residual
+    return new_params, residual, obs
 
 
 def _max_local_steps(cfg: FLConfig, capacity: int) -> int:
@@ -645,7 +667,7 @@ def _stream_round(process: streaming.ArrivalProcess, fcfg: FLConfig,
     ``carry_dtype`` the carried hists and staleness arrive at storage
     precision and are upcast before any arithmetic.
     """
-    with record_function("stream_refresh"):
+    with telemetry_lib.phase_scope("stream_refresh"):
         if _carry_dtype(fcfg) is not None:
             st = dataclasses.replace(
                 st, hists=st.hists.to(torch.float32),
@@ -913,6 +935,10 @@ class _Run:
     the params are tiled ``(S, ...)`` and the tape is
     :func:`draw_tapes`' (or the caller's, ``(S, R, ...)``), kept
     round-major.  One scenario has ``lead = ()``.
+
+    With ``FLConfig.telemetry`` it also builds each round's frame
+    (:meth:`frame`) and, for the signals group, observes each round's
+    training (``sig_fn``, None without the group).
     """
 
     def __init__(self, model: nn.Module, data: partition_lib.ClientDataset,
@@ -933,7 +959,7 @@ class _Run:
                              f"{tuple(net.pathloss.shape)}")
         self.model = copy.deepcopy(model).to(dev)
         self.params = paper_nets.params_of(self.model)
-        n_coords = flat_param_size(self.params)
+        self.n_coords = n_coords = flat_param_size(self.params)
         if batch:
             self.params = tile_params(self.params, len(seed))
         loss_fn = functools.partial(paper_nets.loss_fn, self.model)
@@ -999,6 +1025,59 @@ class _Run:
         if batch:
             self.accuracy = torch.func.vmap(self.accuracy,
                                             in_dims=(0, None, None))
+        self.tel = tel = telemetry_lib.active(fcfg.telemetry)
+        self.probe = None
+        if tel is not None and tel.signals:
+            self.probe = telemetry_health.make_signal_probe(
+                loss_fn, min(fcfg.batch_size, cap,
+                             telemetry_health.PROBE_CAP))
+
+    @property
+    def sig_fn(self) -> Optional[Callable]:
+        """The signals group's observer of a round's training, or None
+        without the group.  A property, not an attribute holding the
+        bound method: that would make a reference cycle, and the run's
+        device tensors would outlive it until the cycle collector ran."""
+        return None if self.probe is None else self._observe
+
+    def _observe(self, params: Params, client_params: Params,
+                 updates: Optional[Tensor] = None) -> tuple[Tensor, Tensor]:
+        """The signals group's observation of a round's training: each
+        device's loss delta on its probe window and its update's norm
+        (``updates`` the round's flat update matrix, built here when the
+        round has none)."""
+        if updates is None:
+            updates = telemetry_health.flatten_updates(client_params,
+                                                       params, self.lead)
+        data = self.data
+        return (self.probe(params, client_params, data.images, data.labels,
+                           data.mask, self.lead),
+                telemetry_health.update_norms(updates))
+
+    def signal_init(self) -> Optional[telemetry_health.SignalState]:
+        """The signals carry's start, or None without the group."""
+        if self.sig_fn is None:
+            return None
+        return telemetry_health.signal_init(self.k, self.lead, self.dev)
+
+    def frame(self, r: int, result: scheduler.ScheduleResult,
+              admitted: Tensor, selected: Tensor, ok: Tensor,
+              energy: Tensor, payload: Optional[Tensor], gains: Tensor,
+              index: Tensor, ages: Tensor, stale: Optional[Tensor],
+              rel: Optional[Tensor], draw,
+              sigst: Optional[telemetry_health.SignalState],
+              obs: Optional[tuple]) -> Dict[str, Tensor]:
+        """Round ``r``'s telemetry frame, from the values the scheduler
+        saw (``ages``, ``rel``, ``stale``) and the round's outcome."""
+        sched_u = self.draws.sched_u
+        return telemetry_record.round_frame(
+            self.tel, result=result, admitted=admitted, sel_eff=selected,
+            ok=ok, energy=energy, payload_bits=payload, gains=gains,
+            net=self.net, wcfg=self.wcfg, sch=self.sch,
+            sched_u=None if sched_u is None else sched_u[r], index=index,
+            ages=ages, staleness=stale, reliability=rel, draw=draw,
+            signals=None if obs is None
+            else telemetry_health.signals_frame(sigst, ok, *obs))
 
     def index(self, r: int, st: Optional[streaming.StreamState],
               ages: Tensor):
@@ -1006,7 +1085,7 @@ class _Run:
         refreshed hists, stream state)`` (the last three None or
         unchanged with static data)."""
         if st is None:
-            with record_function("schedule"):
+            with telemetry_lib.phase_scope("schedule"):
                 index = diversity.diversity_index_from_stats(
                     div=self.div, data_sizes=self.sizes, ages=ages,
                     weights=self.fcfg.index_weights)
@@ -1021,7 +1100,7 @@ class _Run:
                  ) -> tuple[scheduler.ScheduleResult, Optional[Tensor]]:
         """Payload bits and the schedule -> ``(result, payload bits)``."""
         comp = self.fcfg.compression
-        with record_function("schedule"):
+        with telemetry_lib.phase_scope("schedule"):
             payload = self.codec.payload_bits(comp, self.wcfg, gains, index) \
                 if comp is not None else None
             # Scheduling prices retry-inflated bits, so Sub2's deadline
@@ -1093,6 +1172,14 @@ class _Run:
         return torch.full(self.lead, result.iterations, dtype=torch.int32,
                           device=self.dev)
 
+    def stack_frames(self, frames: List[Dict[str, Tensor]]
+                     ) -> Optional[Dict[str, Tensor]]:
+        """The run's frames on a round axis after ``lead``, or None
+        without telemetry."""
+        if self.tel is None:
+            return None
+        return telemetry_record.stack_frames(frames, dim=len(self.lead))
+
 
 def run_federated(*, model: nn.Module,
                   data: partition_lib.ClientDataset,
@@ -1103,7 +1190,9 @@ def run_federated(*, model: nn.Module,
                   draws: Optional[Draws] = None, eval_every: int = 1,
                   device: DeviceLike = None
                   ) -> tuple[Params, List[RoundRecord]]:
-    """Run ``fcfg.num_rounds`` of FEEL; returns final params + records.
+    """Run ``fcfg.num_rounds`` of FEEL; returns final params + records,
+    and with ``fcfg.telemetry`` the stacked frames (``(R, ...)``
+    leaves, :mod:`repro_torch.telemetry.record`) as a third element.
 
     ``model`` supplies the architecture and the initial weights (it is
     not modified); the returned params are a dict of tensors by
@@ -1118,10 +1207,11 @@ def run_federated(*, model: nn.Module,
               fcfg=fcfg, seed=seed, draws=draws, eval_every=eval_every,
               device=device)
     if fcfg.events is not None:
-        params, records, _ = events_lib.run_events(**kw)
-        return params, records
-    params, metrics = _drive(_Run(**kw))
-    return params, metrics_to_records(metrics)
+        params, records, _, *frames = events_lib.run_events(**kw)
+        return (params, records, *frames)
+    params, metrics, frames = _drive(_Run(**kw))
+    out = (params, metrics_to_records(metrics))
+    return out if frames is None else out + (frames,)
 
 
 def run_federated_batch(*, model: nn.Module,
@@ -1141,36 +1231,45 @@ def run_federated_batch(*, model: nn.Module,
     :func:`draw_tapes` from ``seeds[s]`` (:func:`scenario_seeds`), so
     scenario ``s`` equals ``run_federated(seed=seeds[s])`` on its
     network; ``draws`` (fields ``(S, R, ...)``, any device) replaces it.
-    Every synchronous subsystem runs, alone or composed.  Each kernel
-    launches once a round for all scenarios.
+    Every subsystem runs, alone or composed, the event driver too
+    (``fcfg.events``: the event loop of :mod:`repro_torch.core.events`
+    with the scenario axis, one row per event).  Each kernel launches
+    once a round (event) for all scenarios.
 
     Returns the final params stacked ``(S, ...)`` per leaf and
     :class:`RoundMetrics` with leading ``(S, R, ...)`` axes
-    (:func:`batch_metrics_to_records` gives per-scenario records).
+    (:func:`batch_metrics_to_records` gives per-scenario records), and
+    with ``fcfg.telemetry`` the frames with ``(S, R, ...)`` leaves.
     ``device=None`` means the CUDA card and raises without one.
     """
-    if fcfg.events is not None:
-        raise NotImplementedError(
-            "the batch driver's event lane is not ported yet (ROADMAP.md "
-            "queue 1, item 8c); run event scenarios one at a time with "
-            "run_federated")
     if len(seeds) < 1:
         raise ValueError("run_federated_batch needs at least one seed")
-    return _drive(_Run(model=model, data=data, net=nets, wcfg=wcfg,
-                       scfg=scfg, fcfg=fcfg, seed=list(seeds), draws=draws,
-                       eval_every=eval_every, device=device))
+    run = _Run(model=model, data=data, net=nets, wcfg=wcfg, scfg=scfg,
+               fcfg=fcfg, seed=list(seeds), draws=draws,
+               eval_every=eval_every, device=device)
+    if fcfg.events is not None:
+        params, metrics, _, frames = events_lib.drive_events(run)
+    else:
+        params, metrics, frames = _drive(run)
+    return (params, metrics) if frames is None else \
+        (params, metrics, frames)
 
 
-def _drive(run: _Run) -> tuple[Params, RoundMetrics]:
+def _drive(run: _Run) -> tuple[Params, RoundMetrics,
+                               Optional[Dict[str, Tensor]]]:
     """The synchronous rounds of a run, one scenario or a batch (every
-    tensor with ``run.lead`` in front) -> ``(params, RoundMetrics)``."""
+    tensor with ``run.lead`` in front) -> ``(params, RoundMetrics,
+    frames)``, the frames stacked like the metrics, or None without
+    telemetry."""
     fcfg = run.fcfg
     stream, comp = fcfg.stream, fcfg.compression
     data, trainer, max_steps = run.data, run.trainer, run.max_steps
     params, st, residual, rel = run.params, run.st, run.residual, run.rel
+    sig_fn, sigst = run.sig_fn, run.signal_init()
     ages = torch.zeros(run.lead + (run.k,), dtype=torch.int32,
                        device=run.dev)
     rows: List[tuple] = []
+    frames: List[Dict[str, Tensor]] = []
     for r in range(fcfg.num_rounds):
         index, sizes_r, stale, hists_r, st = run.index(r, st, ages)
         gains = run.draws.gains[r]
@@ -1183,21 +1282,34 @@ def _drive(run: _Run) -> tuple[Params, RoundMetrics]:
         ok, energy, round_time, draw = run.realize(r, result, selected,
                                                    gains, payload)
         batch_idx = run.draws.batch_idx[r]
+        obs = None
         if comp is not None:
-            params, residual = _train_round_compressed(
+            out = _train_round_compressed(
                 trainer, max_steps, fcfg, run.codec, params, data.images,
                 data.labels, data.mask, sizes_r, selected, batch_idx,
                 residual, gains, index, run.noise(r),
                 success=None if draw is None else draw.success,
-                dispatch_idx=didx)
+                dispatch_idx=didx, sig_fn=sig_fn)
+            params, residual = out[:2]
         elif run.flt is not None:
-            params = _train_round_faulty(
+            out = _train_round_faulty(
                 trainer, max_steps, fcfg, params, data.images, data.labels,
-                data.mask, sizes_r, selected, ok, batch_idx, didx)
+                data.mask, sizes_r, selected, ok, batch_idx, didx, sig_fn)
         else:
-            params = _train_round(trainer, max_steps, fcfg, params,
-                                  data.images, data.labels, data.mask,
-                                  sizes_r, selected, batch_idx, didx)
+            out = _train_round(trainer, max_steps, fcfg, params,
+                               data.images, data.labels, data.mask,
+                               sizes_r, selected, batch_idx, didx, sig_fn)
+        if comp is None:
+            params = out if sig_fn is None else out[0]
+        if sig_fn is not None:
+            obs = out[-1]
+            # The round's observations fold in before the frame, so the
+            # frame holds the carry a signal-aware scheduler would see.
+            sigst = telemetry_health.signal_update(sigst, ok, *obs, energy)
+        if run.tel is not None:
+            frames.append(run.frame(r, result, result.selected, selected,
+                                    ok, energy, payload, gains, index, ages,
+                                    stale, rel, draw, sigst, obs))
         ages, rel = run.advance(ages, rel, selected, ok)
         if stream is not None:
             st = _stream_advance(st, hists_r, stale, ok, run.cdt)
@@ -1206,7 +1318,8 @@ def _drive(run: _Run) -> tuple[Params, RoundMetrics]:
                      round_time, energy, torch.sum(energy, dim=-1),
                      selected, run.iterations(result),
                      torch.sum(ok, dim=-1).to(torch.int32), n_dropped))
-    return params, stack_metrics(rows, dim=len(run.lead))
+    return params, stack_metrics(rows, dim=len(run.lead)), \
+        run.stack_frames(frames)
 
 
 def stack_metrics(rows: List[tuple], dim: int = 0) -> RoundMetrics:

@@ -5,7 +5,8 @@ Scheduling, Sub1 <-> Sub2 until the (x, alpha) pair stabilises),
 :func:`abs_schedule` (age-based), :func:`random_schedule`,
 :func:`full_schedule` and :func:`topn_schedule`, behind one entry,
 :func:`schedule_impl`.  Every policy solves Sub2 through the
-``core.allocator`` registry.
+``core.allocator`` registry.  :func:`score_trace` recomputes the
+priority surface a policy ranked on, for the telemetry frames.
 
 Every policy takes ``(K,)`` rows or ``(S, K)`` stacks of S scenarios
 (the network's leaves stacked alike) and works per lane along the
@@ -91,6 +92,47 @@ def reliability_discount(priority: Tensor, reliability: Optional[Tensor],
         return priority
     w = sch.reliability_weight
     return priority * ((1.0 - w) + w * reliability)
+
+
+def score_trace(sched_u: Optional[Tensor], index: Tensor, ages: Tensor,
+                sch: SchedulerConfig,
+                staleness: Optional[Tensor] = None,
+                reliability: Optional[Tensor] = None) -> dict:
+    """Per-device selection-score decomposition (telemetry frames).
+
+    The priority each method ranks on, recomputed with the hooks the
+    policies use: ``score_base`` (the diversity index for DAS,
+    ``log1p(age)`` for abs, the round's uniform draw ``sched_u`` for
+    random, ones for full), ``score_boosted`` (the staleness boost),
+    ``score_final`` (the reliability discount; abs adds its ``1e-4 *
+    sched_u`` tiebreak) and ``score_rank`` (0 = highest; equal
+    priorities keep device order, as ``jnp.argsort``'s stable sort
+    keeps them).  Reads the round's draw, draws nothing.  ``(S, K)``
+    rows rank per lane.
+    """
+    if sch.method == "das":
+        base = index
+    elif sch.method == "abs":
+        base = torch.log1p(ages.to(torch.float32))
+    elif sch.method == "random":
+        if sched_u is None:
+            raise ValueError("the random method's score is the sched_u draw")
+        base = sched_u
+    elif sch.method == "full":
+        base = torch.ones_like(index)
+    else:
+        raise ValueError(f"unknown scheduling method: {sch.method!r}")
+    if sch.method in ("das", "abs"):
+        boosted = staleness_boost(base, staleness, sch)
+        final = reliability_discount(boosted, reliability, sch)
+        if sch.method == "abs" and sched_u is not None:
+            final = final + 1e-4 * sched_u
+    else:
+        boosted = final = base
+    order = torch.argsort(-final, dim=-1, stable=True)
+    rank = torch.argsort(order, dim=-1, stable=True).to(torch.int32)
+    return {"score_base": base, "score_boosted": boosted,
+            "score_final": final, "score_rank": rank}
 
 
 def _finalize(selected: Tensor, alpha: Tensor, t_train: Tensor,

@@ -74,8 +74,11 @@ def _launch(wrapper, entry: str, updates: torch.Tensor,
 
 
 def _reduce(updates: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``sum_k w[..., k] * updates[..., k, p]`` in f32, per scenario."""
-    out = torch.einsum("...kp,...k->...p", updates.to(torch.float32), w)
+    """``sum_k w[..., k] * updates[..., k, p]`` in f32, per scenario: a
+    product and a sum over the K axis, which adds the rows in order
+    whatever the leading axes, so each scenario of a batch is its single
+    reduction bit for bit (a batched matrix product is not)."""
+    out = torch.sum(w[..., None] * updates.to(torch.float32), dim=-2)
     return out.to(updates.dtype)
 
 

@@ -24,6 +24,7 @@ import numpy as np  # noqa: E402
 
 from repro.core import bandwidth as jbw  # noqa: E402
 from repro.core import compression as jcomp  # noqa: E402
+from repro.core import events as jev  # noqa: E402
 from repro.core import faults as jf  # noqa: E402
 from repro.core import federated as jfed  # noqa: E402
 from repro.core import scheduler as jsch  # noqa: E402
@@ -33,7 +34,7 @@ from repro.data import partition as jpart  # noqa: E402
 from repro.data import synthetic as jsyn  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.models import paper_nets as jnets  # noqa: E402
-from repro_torch import convert  # noqa: E402
+from repro_torch import convert, telemetry  # noqa: E402
 from repro_torch.core import bandwidth as tbw  # noqa: E402
 from repro_torch.core import compression as tcomp  # noqa: E402
 from repro_torch.core import events as tev  # noqa: E402
@@ -318,13 +319,6 @@ def test_an_empty_lane_carries_its_model_while_the_others_move(variant):
         assert not torch.equal(out[n][0], p[0])
 
 
-def test_batch_events_raise_naming_the_roadmap_item():
-    kw = _small(process=None)
-    kw["fcfg"] = dataclasses.replace(kw["fcfg"], events=tev.EventConfig())
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        _batch(kw, 0, 0, 2)
-
-
 def test_batch_defaults_to_the_card(monkeypatch):
     """``device=None`` means CUDA; without a card the batch raises
     instead of dropping to the CPU."""
@@ -450,3 +444,218 @@ def test_batched_fedavg_on_card_is_each_single_launch(cuda_device, form, s,
         one = fn(*(a[i] for a in args))
         assert torch.equal(outs[0][i], one), i
     torch.testing.assert_close(outs[0], plain(*args), rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The event lane: run_federated_batch with FLConfig.events
+# ---------------------------------------------------------------------------
+
+# The asynchronous mode of the reference's batch-equals-singles event
+# case (tests/test_events.py): diurnal availability, a buffer of 2,
+# decay 0.5, short ticks; here with live faults, on K = 8 and an MLP of
+# 8 hidden units.
+EVENTS = dict(availability="diurnal", duty=0.6, buffer_size=2,
+              staleness_decay=0.5, tick_horizon=0.02, num_events=6)
+EVENT_FAULTS = dict(drop_prob=0.3, max_retries=1, straggler_prob=0.2,
+                    straggler_scale=3.0, reliability_ema=0.3)
+EVENT_SCHED = dict(method="das", n_min=2, iterations_max=4,
+                   allocator="fused_pgd", reliability_weight=0.4,
+                   staleness_weight=0.25)
+
+
+def _event_world(k):
+    imgs, labels = jsyn.generate(0, samples_per_class=200)
+    return jpart.partition(imgs, labels, seed=1, spec=jpart.PartitionSpec(
+        num_devices=k, num_shards=36, shard_size=50))
+
+
+@pytest.fixture(scope="module")
+def event_batch():
+    """The reference's ``make_feel_sim_batch`` with events over S = 3
+    scenarios (``sample_networks``, ``scenario_keys``), and the port's
+    ``run_federated_batch`` with telemetry on and ``run_events`` on the
+    stacked replayed tapes, and each scenario's ``run_events`` alone on
+    its own tape."""
+    torch.set_num_threads(1)
+    k, events = 8, EVENTS["num_events"]
+    data = _event_world(k)
+    wcfg = jw.WirelessConfig()
+    nets = jw.sample_networks(jax.random.key(0), S, k, wcfg)
+    spec = jnets.PaperNetSpec(kind="mlp", mlp_hidden=8)
+    params = jnets.init(jax.random.key(3), spec)
+    fl = dict(num_rounds=3, batch_size=50, learning_rate=0.1,
+              use_kernel_agg=True)
+    jfcfg = jfed.FLConfig(**fl, events=jev.EventConfig(**EVENTS),
+                          faults=jf.FaultConfig(**EVENT_FAULTS))
+    keys = jfed.scenario_keys(jax.random.key(4), 0, S)
+    sim = jfed.make_feel_sim_batch(
+        loss_fn=functools.partial(jnets.loss_fn, spec=spec),
+        eval_fn=functools.partial(jnets.accuracy, spec=spec), wcfg=wcfg,
+        scfg=jsch.SchedulerConfig(sub2=jbw.Sub2Params.fast(),
+                                  **EVENT_SCHED),
+        fcfg=jfcfg, capacity=data.capacity)
+    hists = jfed.client_histograms(data, 10)
+    jparams, jmet = sim(params, data.images, data.labels, data.mask,
+                        data.sizes, hists, jsyn.to_float(data.test_images),
+                        data.test_labels, nets, keys)
+    tapes = [replay_tape(keys[s], _scenario(nets, s), k, events,
+                         data.capacity,
+                         jfed._max_local_steps(jfcfg, data.capacity), 50,
+                         fcfg=jfcfg, hists=hists) for s in range(S)]
+    tdata, _, model = _port_world(data, _scenario(nets, 0), params, "mlp",
+                                  8)
+    stacked = convert.network_from_numpy(
+        **{f: np.asarray(getattr(nets, f)) for f in NET_FIELDS})
+    fcfg = tfed.FLConfig(**fl, events=tev.EventConfig(**EVENTS),
+                         faults=tf.FaultConfig(**EVENT_FAULTS))
+    kw = dict(model=model, data=tdata, wcfg=tw.WirelessConfig(),
+              scfg=tsch.SchedulerConfig(sub2=tbw.Sub2Params.fast(),
+                                        **EVENT_SCHED), device="cpu")
+    batch = tfed.run_federated_batch(
+        nets=stacked, seeds=list(range(S)), draws=tfed._stack_tapes(tapes),
+        fcfg=dataclasses.replace(fcfg, telemetry=telemetry.TelemetryConfig()),
+        **kw)
+    with_log = tev.run_events(net=stacked, seed=list(range(S)),
+                              draws=tfed._stack_tapes(tapes), fcfg=fcfg,
+                              **kw)
+    singles = [tev.run_events(
+        net=stacked.scenario(s), seed=s, draws=tapes[s],
+        fcfg=dataclasses.replace(fcfg, telemetry=telemetry.TelemetryConfig()),
+        **kw) for s in range(S)]
+    return (jax.device_get(jparams), jax.device_get(jmet), batch, with_log,
+            singles)
+
+
+def test_event_batch_scenarios_match_the_reference_batch(event_batch):
+    """Per scenario the event driver's tolerances
+    (tests/test_torch_events.py): equal selections, drops, DAS iterations,
+    landed counts and tick lengths; energy and ``0.5 E + 0.5 T`` at
+    rtol 5e-3; params at 1e-4.  Some flush applies a stale update."""
+    jparams, jmet, (tparams, tmet, _), (_, _, log), _ = event_batch
+    recs = tfed.batch_metrics_to_records(tmet)
+    assert tuple(tmet.selected.shape) == (S, EVENTS["num_events"], 8)
+    for s in range(S):
+        assert all(r.round_time == np.float32(0.02) for r in recs[s])
+        assert_runs_agree(_scenario(jmet, s), recs[s], _scenario(jparams, s),
+                          {n: t[s] for n, t in tparams.items()}, atol=1e-4,
+                          obj_rtol=5e-3)
+    assert any(f and tau > 0.0 for s in range(S)
+               for f, tau in zip(log.flushed[s], log.tau_mean[s]))
+    assert len({tuple(f) for f in log.flushed}) > 1, \
+        "every scenario flushed on the same events"
+    assert any(r.n_success < r.n_selected for rs in recs for r in rs)
+
+
+def test_event_batch_scenario_is_its_single_run_bitwise(event_batch):
+    """Scenario s of the batch against ``run_events`` on its own tape:
+    params, records, the buffer's log and every frame leaf bit for bit."""
+    _, _, (tparams, tmet, tframes), (lparams, lmet, log), singles = \
+        event_batch
+    recs = tfed.batch_metrics_to_records(tmet)
+    for n in tparams:
+        assert torch.equal(tparams[n], lparams[n])
+    for f in dataclasses.fields(tmet):
+        assert torch.equal(getattr(tmet, f.name), getattr(lmet, f.name))
+    for s, (ps, rs, ls, fs) in enumerate(singles):
+        for n in ps:
+            assert torch.equal(tparams[n][s], ps[n]), (s, n)
+        for a, b in zip(recs[s], rs):
+            assert dataclasses.astuple(a)[:6] == dataclasses.astuple(b)[:6]
+            np.testing.assert_array_equal(a.selected, b.selected)
+            assert (a.iterations, a.n_success, a.n_dropped) == \
+                (b.iterations, b.n_success, b.n_dropped)
+        for field in dataclasses.fields(ls):
+            assert getattr(log, field.name)[s] == getattr(ls, field.name)
+        assert set(fs) == set(tframes)
+        for name, t in fs.items():
+            assert torch.equal(tframes[name][s], t), (s, name)
+
+
+def test_event_batch_with_as_many_scenarios_as_devices():
+    """S == K = 4: each scenario's diurnal phase goes with its own
+    jitter row (a plain ``(S,) + (S, K)`` broadcast would pair scenario
+    phases with devices), so the batch is each single run bit for bit;
+    the scenarios' availability differs."""
+    k = 4
+    from repro_torch.data import partition as tpart
+    from repro_torch.data import synthetic as tsyn
+    timgs, tlabels = tsyn.generate(0, samples_per_class=100)
+    data = tpart.partition(timgs, tlabels, seed=1, spec=tpart.PartitionSpec(
+        num_devices=k, num_shards=16, shard_size=50))
+    model = tnets.init(tnets.PaperNetSpec(kind="mlp", mlp_hidden=8),
+                       torch.Generator().manual_seed(1))
+    wcfg = tw.WirelessConfig()
+    nets = tw.sample_networks(torch.Generator().manual_seed(6), k, k, wcfg)
+    seeds = tfed.scenario_seeds(9, 0, k)
+    fcfg = tfed.FLConfig(num_rounds=2, batch_size=50, learning_rate=0.1,
+                         events=tev.EventConfig(**dict(
+                             EVENTS, num_events=4, phase_spread=2.0)),
+                         telemetry=telemetry.TelemetryConfig())
+    kw = dict(model=model, data=data, wcfg=wcfg, fcfg=fcfg,
+              scfg=tsch.SchedulerConfig(method="das", n_min=1,
+                                        iterations_max=3,
+                                        allocator="waterfilling"),
+              device="cpu")
+    pb, mb, log, fb = tev.run_events(net=nets, seed=seeds, **kw)
+    avail = []
+    for s in range(k):
+        ps, rs, ls, fs = tev.run_events(net=nets.scenario(s), seed=seeds[s],
+                                        **kw)
+        for n in ps:
+            assert torch.equal(pb[n][s], ps[n]), (s, n)
+        assert [r.n_selected for r in rs] == mb.n_selected[s].tolist()
+        assert log.flushed[s] == ls.flushed
+        for name, t in fs.items():
+            assert torch.equal(fb[name][s], t), (s, name)
+        avail.append(fs["avail"])
+    assert len({tuple(a.reshape(-1).tolist()) for a in avail}) > 1
+
+
+def test_event_batch_on_card_matches_the_cpu(cuda_device):
+    """On the card (needs a CUDA device), TF32 off: S = 3 scenarios of
+    the asynchronous event batch with a binding cap, the bf16 carry,
+    streaming, faults and telemetry, against the same run on the CPU
+    from one tape: per scenario equal selections, delivered and dropped
+    counts and flushes; params within 1e-3 (the bf16 carry's card-vs-CPU
+    limit); the event frame's masks equal and floats within 1e-4;
+    ``fedavg_agg_stale`` launched once an event for all scenarios."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k, s, events = 8, S, EVENTS["num_events"]
+    from repro_torch.data import partition as tpart
+    from repro_torch.data import synthetic as tsyn
+    imgs, labels = tsyn.generate(0, samples_per_class=200)
+    data = tpart.partition(imgs, labels, seed=1, spec=tpart.PartitionSpec(
+        num_devices=k, num_shards=36, shard_size=50))
+    model = tnets.init(tnets.PaperNetSpec(kind="mlp", mlp_hidden=8),
+                       torch.Generator().manual_seed(1))
+    wcfg = tw.WirelessConfig()
+    nets = tw.sample_networks(torch.Generator().manual_seed(2), s, k, wcfg)
+    fcfg = tfed.FLConfig(num_rounds=2, batch_size=50, learning_rate=0.1,
+                         use_kernel_agg=True, stream=tst.StreamConfig(),
+                         faults=tf.FaultConfig(**EVENT_FAULTS),
+                         dispatch_cap=3, carry_dtype="bfloat16",
+                         events=tev.EventConfig(**EVENTS),
+                         telemetry=telemetry.TelemetryConfig())
+    seeds = tfed.scenario_seeds(3, 0, s)
+    draws = tfed.draw_tapes(seeds, nets, events, data.capacity,
+                            tfed._max_local_steps(fcfg, data.capacity), 50,
+                            fcfg, tfed.client_histograms(data, 10))
+    kw = dict(model=model, data=data, net=nets, wcfg=wcfg, fcfg=fcfg,
+              scfg=tsch.SchedulerConfig(sub2=tbw.Sub2Params.fast(),
+                                        **EVENT_SCHED),
+              seed=seeds, draws=draws)
+    before = tagg.fedavg_agg_stale.launches
+    pg, mg, lg, fg = tev.run_events(device=cuda_device, **kw)
+    assert tagg.fedavg_agg_stale.launches == before + events
+    pc, mc, lc, fc = tev.run_events(device="cpu", **kw)
+    assert lg.flushed == lc.flushed
+    for name in ("selected", "n_success", "n_dropped"):
+        assert torch.equal(getattr(mg, name).cpu(), getattr(mc, name))
+    for n in pc:
+        torch.testing.assert_close(pg[n].cpu(), pc[n], rtol=0, atol=1e-3)
+    for name in ("avail", "free", "in_flight", "buffer_fill", "flushed",
+                 "model_version", "staleness_tau"):
+        assert torch.equal(fg[name].cpu(), fc[name]), name
+    torch.testing.assert_close(fg["clock"].cpu(), fc["clock"], rtol=0,
+                               atol=1e-4)

@@ -27,7 +27,7 @@ from repro.core import wireless as jw  # noqa: E402
 from repro.data import partition as jpart  # noqa: E402
 from repro.data import synthetic as jsyn  # noqa: E402
 from repro.models import paper_nets as jnets  # noqa: E402
-from repro_torch import convert  # noqa: E402
+from repro_torch import convert, telemetry  # noqa: E402
 from repro_torch.core import bandwidth as tbw  # noqa: E402
 from repro_torch.core import events as tev  # noqa: E402
 from repro_torch.core import federated as tfed  # noqa: E402
@@ -194,7 +194,8 @@ def run_pair(kind, k, net_seed, lr, jsub=None, tsub=None, sched_extra=None,
 
     Returns ``(reference params, reference metrics, port params, port
     records)``, and the port's ``events.EventLog`` after them with
-    ``with_log`` (an event run).
+    ``with_log`` (an event run); with telemetry in ``jsub``/``tsub`` the
+    port's frames and then the reference's follow.
     """
     imgs, labels = jsyn.generate(0, samples_per_class=samples_per_class)
     data = jpart.partition(imgs, labels, seed=1, spec=jpart.PartitionSpec(
@@ -216,9 +217,9 @@ def run_pair(kind, k, net_seed, lr, jsub=None, tsub=None, sched_extra=None,
         scfg=jsch.SchedulerConfig(sub2=jbw.Sub2Params.fast(), **sched),
         fcfg=jfcfg, capacity=data.capacity)
     hists = jfed.client_histograms(data, 10)
-    jparams, jmet = sim(params, data.images, data.labels, data.mask,
-                        data.sizes, hists, jsyn.to_float(data.test_images),
-                        data.test_labels, net, key)
+    jparams, jmet, *jframes = sim(
+        params, data.images, data.labels, data.mask, data.sizes, hists,
+        jsyn.to_float(data.test_images), data.test_labels, net, key)
     draws = replay_tape(key, net, k, rounds, data.capacity,
                         jfed._max_local_steps(jfcfg, data.capacity), 50,
                         fcfg=jfcfg, hists=hists,
@@ -229,7 +230,8 @@ def run_pair(kind, k, net_seed, lr, jsub=None, tsub=None, sched_extra=None,
         scfg=tsch.SchedulerConfig(sub2=tbw.Sub2Params.fast(), **sched),
         fcfg=tfed.FLConfig(**fl, **(tsub or {})), draws=draws,
         device="cpu")
-    return (jax.device_get(jparams), jax.device_get(jmet)) + tuple(out)
+    return (jax.device_get(jparams), jax.device_get(jmet)) + tuple(out) \
+        + tuple(jax.device_get(f) for f in jframes)
 
 
 def assert_runs_agree(jmet, recs, jparams=None, tparams=None, atol=None,
@@ -394,18 +396,13 @@ def test_empty_selection_carries_the_model_forward():
         assert torch.equal(out[n], params[n])
 
 
-@pytest.mark.parametrize("name", ["telemetry"])
-def test_unported_subsystems_raise(name):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 14"):
-        tfed.FLConfig(**{name: 1})
-
-
 # (field, a good value, a bad value, the error the bad one raises).
 PORTED_FIELDS = {
     "dispatch_cap": (3, 0, ValueError),
     "carry_dtype": ("bfloat16", "int8", ValueError),
     "events": (tev.EventConfig(buffer_size=2), object(), TypeError),
+    "telemetry": (telemetry.TelemetryConfig(sub2=False), object(),
+                  TypeError),
 }
 
 
