@@ -91,7 +91,36 @@ each phase failing the script on error:
     the warm wall on over off in turns printed, and a JSONL log
     (``build/telemetry/path11.jsonl``, written by
     ``sinks.write_round_frames``) that ``python -m
-    repro_torch.telemetry.report`` renders with exit code 0.
+    repro_torch.telemetry.report`` renders with exit code 0;
+12. path 12, a resumable Monte-Carlo sweep (``repro_torch.sweep``):
+    path 7's world and config with ``Axis("sched", "method", ("das",
+    "random"))`` under common random numbers, 16 scenarios a point in
+    chunks of 8 (4 chunks, base seed 0), each chunk one
+    ``run_federated_batch`` call.  The chunk walk (each chunk's networks
+    and seeds from ``engine.stream_bases``, its batch call and the
+    engine's fold) runs twice (first, warm): every chunk's launches as
+    ``expected_batch_counts`` says for its point at S = 8 (random: one
+    ``sub2_pgd`` a round), its wall per chunk round and per scenario
+    round beside path 7's from this call, and its peak memory, the last
+    chunk's within 1% of the first's.  Each point's aggregate is held
+    against one ``run_federated_batch`` call on the same 16 networks and
+    seeds folded on the host in float64: the same selections and DAS
+    iterations, the counts equal, round time and energy within rel 1e-3
+    (``sub2_pgd``'s card tolerance on the objective), accuracy within
+    5e-3 (``BATCH_CARD_CPU_PARAM_TOL``); the largest difference of each
+    is printed.  The scenario-round with the largest round-time gap runs
+    again alone (S = 1), in its chunk and in the batch, each printed
+    with its allocation after every DAS outer iteration and, where they
+    part, that solve's inputs solved again on 1, 8 and 16 rows.  It
+    prints the host syncs of one ``SweepEngine.run_chunk`` against the
+    batch call on the same 8 scenarios (the fold adds none) and of the
+    checkpoint and the JSONL line (one copy each), the checkpoint's size
+    and its save and load times, and under deterministic algorithms runs
+    ``SweepRunner.run`` uninterrupted (its launches, counted from zero
+    just before it, the chunk walk's) and stops a runner after one chunk
+    (``max_chunks=1``, checkpoint under ``build/sweep/``) and resumes it
+    with a new engine: summaries bit for bit the uninterrupted run's,
+    the JSONL one line a chunk, cursors 1-4.
 
 The kernel phase first prints, from ``cuobjdump -sass``, the size and
 the atomic instructions of the ``stream_update``, ``diversity`` and
@@ -2195,7 +2224,8 @@ def phase_batch_path(torch, dev, data, wcfg, path: int,
     the single path's round or event), the same run again warm beside
     the single path's warm wall per round (event) from this call, peak
     memory, the host syncs of a 1-round (1-event) batch at S = BATCH_S
-    against S = 1.  Returns ``(launch counts, metrics)``."""
+    against S = 1.  Returns ``(launch counts, metrics, warm wall per
+    batch round or event)``."""
     from repro_torch.core import bandwidth, federated
     events = path == 10
     rounds = ASYNC["num_events"] if events else 3
@@ -2267,7 +2297,7 @@ def phase_batch_path(torch, dev, data, wcfg, path: int,
                              f"{other_many} against S=1's {other_one}")
     if events:
         batch_event_frames(torch, data, nets, wcfg, metrics, **kw)
-    return counts, metrics
+    return counts, metrics, per_round
 
 
 def batch_event_frames(torch, data, nets, wcfg, metrics, **kw) -> None:
@@ -2315,16 +2345,20 @@ def batch_event_frames(torch, data, nets, wcfg, metrics, **kw) -> None:
 class Sub2Log:
     """Within ``with``: every ``fused_pgd`` solve's ``(selection, alpha)``
     rows, on the host, in call order (one call per DAS outer iteration,
-    every lane of a batch in each)."""
+    every lane of a batch in each), and in ``self.inputs`` each call's
+    ``(t_train, gains, tx_power, alpha0)``, on the host too."""
 
     def __enter__(self):
         from repro_torch.core import allocator
-        self.calls, self._cls = [], allocator.FusedPGD
+        self.calls, self.inputs, self._cls = [], [], allocator.FusedPGD
         self._solve = solve = self._cls.solve
 
         def logged(alloc, selected, *args, **kw):
             out = solve(alloc, selected, *args, **kw)
             self.calls.append((selected.cpu(), out[0].cpu()))
+            a0 = kw.get("alpha0")
+            self.inputs.append(tuple(t.cpu() for t in args[:3])
+                               + (None if a0 is None else a0.cpu(),))
             return out
         self._cls.solve = logged
         return self
@@ -2772,6 +2806,464 @@ def half_median_round_time(recs) -> float:
     return 0.5 * median
 
 
+# Path 12, the sweep: path 7's world and config with the scheduling
+# method swept over DAS and random under common random numbers, 16
+# scenarios a point in chunks of 8.
+SWEEP_S, SWEEP_CHUNK = 16, 8
+# Its limits against one batch call of a point's 16 scenarios: the
+# selections, DAS iterations and counts equal (scheduling never reads
+# the model); round time and energy within sub2_pgd's card tolerance on
+# the objective (rel 1e-3, as sub2_check holds it): on the card
+# torch.sum rounds a row by how many rows it reduces, so the
+# water-filling start's overshoot normalisation can part by an ulp
+# between 8 and 16 rows and the descent carries it on, while the kernel
+# gives each lane bit for bit at any S (sweep_lane_alone prints where);
+# accuracy within the batch paths' limit (a chunk of 8 and a batch of 16
+# run the vmapped CNN at two batch shapes, which can settle a near-tie
+# apart, BATCH_CARD_CPU_PARAM_TOL).
+SWEEP_OBJ_RTOL = 1e-3
+SWEEP_ACC_TOL = BATCH_CARD_CPU_PARAM_TOL
+SWEEP_COUNTS = ("n_selected", "n_success", "n_dropped")
+# Peak memory of the last chunk against the first's.
+SWEEP_MEM_RTOL = 0.01
+
+
+def sweep_batch(eng, model, point, start: int, size: int):
+    """Scenarios ``[start, start + size)`` of a grid point as one
+    ``run_federated_batch`` call, their networks and seeds from the
+    engine's public seed contract (``engine.stream_bases``): what
+    ``SweepEngine.run_chunk`` runs before its fold.  Returns the (S, R)
+    metrics."""
+    from repro_torch.core import federated, wireless
+    from repro_torch.sweep import engine as engine_lib
+    net_base, sim_base = engine_lib.stream_bases(eng.spec.base_seed)
+    nets = wireless.sample_networks_indexed(
+        net_base, range(start, start + size), eng.data.num_devices,
+        point.wireless)
+    return federated.run_federated_batch(
+        model=model, data=eng.data, nets=nets, wcfg=point.wireless,
+        scfg=point.sched, fcfg=point.fl,
+        seeds=federated.scenario_seeds(sim_base, start, size),
+        eval_every=eng.spec.eval_every, device=eng.dev)[1]
+
+
+def sweep_setup(torch, wcfg):
+    """Path 12's ``SweepSpec`` and initial model."""
+    from repro_torch.core import bandwidth
+    from repro_torch.models import paper_nets
+    from repro_torch.sweep import grid
+    scfg, fcfg = slice_configs(rounds=3, iterations_max=6,
+                               sub2=bandwidth.Sub2Params(), path=7)
+    spec = grid.SweepSpec(
+        fl=fcfg, sched=scfg, wireless=wcfg,
+        axes=(grid.Axis("sched", "method", ("das", "random")),),
+        scenarios_per_point=SWEEP_S, chunk_scenarios=SWEEP_CHUNK,
+        base_seed=SEED)
+    model = paper_nets.init(paper_nets.PaperNetSpec(kind="cnn"),
+                            torch.Generator().manual_seed(SEED + 3))
+    return spec, model
+
+
+def expected_sweep_counts(point, rounds: int, iterations) -> dict:
+    """A chunk's launches: DAS's are path 7's at the chunk's S
+    (``expected_batch_counts``); random ranks a uniform draw and solves
+    Sub2 once a round (one ``sub2_pgd`` launch, no DAS iterations)."""
+    if point.sched.method == "das":
+        return expected_batch_counts(7, rounds, iterations)
+    return expected_counts(1, rounds, rounds)
+
+
+def sweep_walk(torch, eng, model, label: str) -> tuple:
+    """The runner's chunk walk over path 12's schedule, without
+    checkpoints, each chunk a ``sweep_batch`` call and the engine's fold:
+    each chunk's launches (counted from zero just before it) checked, its
+    wall, its peak memory (reset just before it) and the memory held
+    after it.  Returns ``(per-point aggregates, rows)``."""
+    from repro_torch.sweep import engine as engine_lib
+    aggs, rows = {}, []
+    for p, start, size in eng.spec.schedule():
+        point = eng.points[p]
+        agg = aggs.get(p)
+        if agg is None:
+            agg = engine_lib.aggregate_init(eng.spec.fl.num_rounds, eng.dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = sweep_batch(eng, model, point, start, size)
+        aggs[p] = engine_lib.aggregate_fold(agg, metrics,
+                                            eng.target_accuracy)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, routes = read_counts(), route_counts()
+        want = expected_sweep_counts(point, eng.spec.fl.num_rounds,
+                                     metrics.iterations)
+        if counts != want:
+            raise AssertionError(f"path 12 {point.name} chunk at {start}: "
+                                 f"launches {counts}, expected {want}")
+        rows.append(dict(point=point, start=start, wall=wall,
+                         counts=counts, routes=routes, metrics=metrics,
+                         peak=torch.cuda.max_memory_allocated(),
+                         held=torch.cuda.memory_allocated()))
+        print(f"[path 12] {label} run, {point.name} scenarios "
+              f"{start}-{start + size - 1}: {wall:.3f}s = "
+              f"{wall / eng.spec.fl.num_rounds:.3f}s per chunk round; "
+              f"das_iters {metrics.iterations.tolist()}; launches "
+              f"{counts}; peak {rows[-1]['peak'] / 2 ** 30:.3f} GiB",
+              flush=True)
+    return aggs, rows
+
+
+def sweep_oracle(metrics) -> dict:
+    """A float64 host fold of one batch's (S, R) metrics: per-round mean,
+    min and max (NaN-aware) and the final accuracy's mean."""
+    out = {}
+    for name in ("accuracy", "round_time", "energy_total") + SWEEP_COUNTS:
+        v = getattr(metrics, name).cpu().double().numpy()
+        out[f"round.{name}"] = dict(mean=v.mean(0), min=v.min(0),
+                                    max=v.max(0))
+    acc = metrics.accuracy.cpu().double().numpy()
+    out["scalar.final_accuracy"] = dict(mean=acc[:, -1].mean(),
+                                        min=acc[:, -1].min(),
+                                        max=acc[:, -1].max())
+    return out
+
+
+def sweep_against_batch(torch, eng, model, summaries, chunk_metrics):
+    """Each point's aggregate against one ``run_federated_batch`` call on
+    the same 16 networks and seeds, folded on the host in float64; each
+    chunk's selections and DAS iterations against the batch's rows.  The
+    lane and round of the sweep's largest round-time gap then run alone
+    (``sweep_lane_alone``)."""
+    import numpy as np
+    spec, worst_gap = eng.spec, (-1.0, None)
+    for p, point in enumerate(eng.points):
+        start = spec.scenario_start(p)
+        metrics = sweep_batch(eng, model, point, start, SWEEP_S)
+        mine = [m for q, m in chunk_metrics if q == p]
+        sel = torch.cat([m.selected for m in mine])
+        its = torch.cat([m.iterations for m in mine])
+        moved = int((sel != metrics.selected).any(-1).sum())
+        its_moved = int((its != metrics.iterations).sum())
+        t_chunk = torch.cat([m.round_time for m in mine]).double()
+        t_batch = metrics.round_time.double()
+        gap = ((t_chunk - t_batch).abs() / t_batch.abs()).cpu()
+        lane, rnd = divmod(int(gap.argmax()), gap.shape[1])
+        if float(gap.max()) > worst_gap[0]:
+            worst_gap = (float(gap.max()), (point, lane, rnd))
+        want, got = sweep_oracle(metrics), summaries[p]
+        worst = {}
+        for name, fields in want.items():
+            for field, value in fields.items():
+                g = np.asarray(got[name][field], np.float64)
+                diff = np.abs(g - value)
+                if name.endswith(("round_time", "energy_total")):
+                    diff = diff / np.maximum(np.abs(value), 1e-30)
+                worst[name] = max(worst.get(name, 0.0), float(diff.max()))
+        print(f"[path 12] {point.name} against one batch call of "
+              f"{SWEEP_S} scenarios: scenario-rounds with another "
+              f"selection {moved}, with other DAS iterations {its_moved}; "
+              f"largest difference by metric (relative for round time and "
+              f"energy) "
+              f"{', '.join(f'{n} {v:.3g}' for n, v in worst.items())}; the "
+              f"largest round-time gap of one scenario-round "
+              f"{float(gap.max()):.3g} (scenario {start + lane}, round "
+              f"{rnd})", flush=True)
+        limits = {"round.accuracy": SWEEP_ACC_TOL,
+                  "scalar.final_accuracy": SWEEP_ACC_TOL,
+                  "round.round_time": SWEEP_OBJ_RTOL,
+                  "round.energy_total": SWEEP_OBJ_RTOL,
+                  **{f"round.{n}": 0.0 for n in SWEEP_COUNTS}}
+        over = {n: v for n, v in worst.items() if not v <= limits[n]}
+        if moved or its_moved or over:
+            raise AssertionError(f"path 12 {point.name}: the sweep "
+                                 f"differs from one batch call: {moved} "
+                                 f"selections, {its_moved} DAS iteration "
+                                 f"counts, over the limits {over}")
+    sweep_lane_alone(torch, eng, model, *worst_gap[1])
+
+
+def sweep_lane_alone(torch, eng, model, point, lane: int, rnd: int) -> None:
+    """Where a lane's round time parts between a chunk of 8 and a batch of
+    16: the lane runs alone (S = 1), in its chunk and in the batch, each
+    under ``Sub2Log``; prints its round time in each, the allocation gap
+    after each DAS outer iteration, and, at the first iteration that
+    parts, whether that solve's inputs were equal and what the same
+    inputs give when solved again on 1, 8 and 16 rows: the water-filling
+    start, a row sum of that start, the ``sub2_pgd`` kernel from one
+    start for all three, and the whole ``fused_pgd`` solve."""
+    from repro_torch.core import allocator, bandwidth
+    from repro_torch.kernels import sub2_pgd as sub2_kernel
+    start = eng.spec.scenario_start(point.index)
+    chunk = lane - lane % SWEEP_CHUNK
+    runs = {1: (start + lane, 0), SWEEP_CHUNK: (start + chunk, lane - chunk),
+            SWEEP_S: (start, lane)}
+    out = {}
+    for n, (first, row) in runs.items():
+        with Sub2Log() as log:
+            metrics = sweep_batch(eng, model, point, first, n)
+        calls = int(metrics.iterations.max(dim=0).values[:rnd].sum())
+        out[n] = dict(row=row, log=log, first_call=calls,
+                      t=float(metrics.round_time[row, rnd]),
+                      its=int(metrics.iterations[row, rnd]),
+                      trace=lane_trace(log.calls, metrics.iterations, row,
+                                       rnd))
+
+    def gaps(a, b):
+        return [float((x[1] - y[1]).abs().max())
+                for x, y in zip(out[a]["trace"], out[b]["trace"])]
+    g_8_16, g_1_16 = gaps(SWEEP_CHUNK, SWEEP_S), gaps(1, SWEEP_S)
+    print(f"[path 12] {point.name} scenario {start + lane} round {rnd} "
+          f"alone and in its batches: round time S=1 "
+          f"{out[1]['t']!r}, chunk S={SWEEP_CHUNK} "
+          f"{out[SWEEP_CHUNK]['t']!r}, batch S={SWEEP_S} "
+          f"{out[SWEEP_S]['t']!r}; DAS outer iterations "
+          f"{[out[n]['its'] for n in runs]}; largest allocation gap after "
+          f"each outer iteration, S={SWEEP_CHUNK} against S={SWEEP_S} "
+          f"{[f'{g:.3g}' for g in g_8_16]}, S=1 against S={SWEEP_S} "
+          f"{[f'{g:.3g}' for g in g_1_16]}", flush=True)
+    parts = [m for m, g in enumerate(g_8_16) if g > 0.0]
+    if not parts:
+        return
+    m = parts[0]
+
+    def inputs(n):
+        rec = out[n]
+        x = rec["log"].calls[rec["first_call"] + m][0]
+        ins = rec["log"].inputs[rec["first_call"] + m]
+        return [None if t is None else t[rec["row"]] for t in (x,) + ins]
+    same_in = [all(a is b if a is None else torch.equal(a, b)
+                   for a, b in zip(inputs(n), inputs(SWEEP_S)))
+               for n in (1, SWEEP_CHUNK)]
+    rec16 = out[SWEEP_S]
+    x = rec16["log"].calls[rec16["first_call"] + m][0]
+    ins = rec16["log"].inputs[rec16["first_call"] + m]
+    sub2 = point.sched.sub2
+    alloc = allocator.FusedPGD(sub2)
+    rows = {1: [lane], SWEEP_CHUNK: list(range(chunk, chunk + SWEEP_CHUNK)),
+            SWEEP_S: list(range(SWEEP_S))}
+    cfg = point.wireless
+    starts, sums, kernel, solved, wf16 = {}, {}, {}, {}, None
+    for n, idx in sorted(rows.items(), key=lambda kv: -kv[0]):
+        at = idx.index(lane)
+        sel, t_train, gains, power, a0 = (
+            None if t is None else t[idx].to(eng.dev).contiguous()
+            for t in (x,) + ins)
+        wf, _ = bandwidth.min_time_allocation(sel, t_train, gains, power,
+                                              cfg, sub2, alpha0=a0)
+        if wf16 is None:
+            wf16 = wf
+        same = wf16[idx].contiguous()
+        mask = (sel > 0.0).to(torch.float32)
+        n_act = torch.clamp_min(torch.sum(mask, dim=-1, keepdim=True), 1.0)
+        a_k, _ = sub2_kernel.sub2_pgd_solve(
+            mask, t_train, gains, power,
+            torch.stack([same, mask / n_act], dim=-2), rho=sub2.rho,
+            lr=sub2.pgd_lr, tau=sub2.smooth_tau, iters=sub2.pgd_iters,
+            bandwidth_hz=cfg.bandwidth_hz, noise_psd=cfg.noise_psd,
+            model_bits=cfg.model_bits, min_alpha=cfg.min_alpha)
+        alpha, _ = alloc.solve(sel, t_train, gains, power, cfg, alpha0=a0)
+        starts[n], kernel[n], solved[n] = (wf[at].cpu(), a_k[at].cpu(),
+                                           alpha[at].cpu())
+        sums[n] = torch.sum(same, dim=-1)[at].cpu()
+
+    def spread(d):
+        gap = float(max((d[n] - d[SWEEP_S]).abs().max() for n in d))
+        return "bit for bit" if gap == 0.0 else f"parts by {gap:.3g}"
+    print(f"[path 12] {point.name} scenario {start + lane} round {rnd}, "
+          f"outer iteration {m + 1}, the first that parts: its solve's "
+          f"inputs equal bit for bit S=1 and S={SWEEP_CHUNK} against "
+          f"S={SWEEP_S} {same_in}; the S={SWEEP_S} inputs solved again on "
+          f"1, {SWEEP_CHUNK} and {SWEEP_S} rows: water-filling start "
+          f"{spread(starts)}; torch.sum of one start row "
+          f"{[float(sums[n]) for n in sorted(sums)]!r} "
+          f"({spread(sums)}); sub2_pgd from that one start "
+          f"{spread(kernel)}; fused_pgd allocation {spread(solved)}",
+          flush=True)
+
+
+def sweep_syncs(torch, eng, model) -> None:
+    """The host syncs of one chunk against ``run_federated_batch`` on the
+    same 8 scenarios (the fold may add none), and of the runner's
+    checkpoint and JSONL line (one copy each)."""
+    import collections
+    from repro_torch.core import federated, wireless
+    from repro_torch.sweep import engine as engine_lib
+    from repro_torch.sweep import runner as runner_lib
+    spec, point = eng.spec, eng.points[0]
+    net_base, sim_base = engine_lib.stream_bases(spec.base_seed)
+    chunk, agg = syncs_of(torch, lambda: eng.run_chunk(
+        point, 0, SWEEP_CHUNK, engine_lib.aggregate_init(
+            spec.fl.num_rounds, eng.dev)))
+    batch, _ = syncs_of(torch, lambda: federated.run_federated_batch(
+        model=model, data=eng.data, nets=wireless.sample_networks_indexed(
+            net_base, range(SWEEP_CHUNK), eng.data.num_devices,
+            point.wireless), wcfg=point.wireless, scfg=point.sched,
+        fcfg=point.fl, seeds=federated.scenario_seeds(sim_base, 0,
+                                                      SWEEP_CHUNK),
+        device=eng.dev))
+    sweep_dir = os.path.join(ROOT, "build", "sweep")
+    runner = runner_lib.SweepRunner(
+        eng, os.path.join(sweep_dir, "syncs.msgpack"),
+        jsonl_path=os.path.join(sweep_dir, "syncs.jsonl"))
+    save, _ = syncs_of(torch, lambda: runner._save({0: agg}, 1))
+    emit, _ = syncs_of(torch, lambda: runner._jsonl_emit(
+        1, point, 0, SWEEP_CHUNK, agg, False))
+
+    def show(c: collections.Counter) -> str:
+        return (f"{sum(c.values())}"
+                + (f" ({', '.join(f'{n} x{k}' for n, k in c.most_common())})"
+                   if c else ""))
+
+    print(f"[syncs] path 12, one chunk of {SWEEP_CHUNK} (run_chunk: the "
+          f"batch and the fold): {show(chunk)}; run_federated_batch on the "
+          f"same scenarios: {show(batch)}; the fold adds "
+          f"{show(chunk - batch)}; the checkpoint {show(save)}; the JSONL "
+          f"line {show(emit)}", flush=True)
+    if (chunk - batch) or sum(save.values()) > 1 or sum(emit.values()) > 1:
+        raise AssertionError(f"path 12: host syncs beyond the batch's: "
+                             f"fold {chunk - batch}, checkpoint {save}, "
+                             f"JSONL {emit}")
+
+
+def sweep_checkpoint(torch, eng, aggs) -> None:
+    """The checkpoint of path 12's carry: its size, save and load times."""
+    from repro_torch.sweep import runner as runner_lib
+    path = os.path.join(ROOT, "build", "sweep", "timed.msgpack")
+    runner = runner_lib.SweepRunner(eng, path)
+    saves, loads = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        runner._save(aggs, len(eng.spec.schedule()))
+        saves.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        loaded, cursor = runner._load()
+        torch.cuda.synchronize()
+        loads.append((time.perf_counter() - t0) * 1e3)
+    same = all(torch.equal(getattr(loaded[p][g][n], f),
+                           getattr(aggs[p][g][n], f))
+               for p in aggs for g in aggs[p] for n in aggs[p][g]
+               for f in ("count", "mean", "m2", "min", "max"))
+    print(f"[path 12] checkpoint of {len(aggs)} points' carry: "
+          f"{os.path.getsize(path)} bytes; save {median(saves):.3f} ms, "
+          f"load onto the card {median(loads):.3f} ms (medians of 5); "
+          f"restored carry {'bit for bit' if same else 'DIFFERS'}",
+          flush=True)
+    if not same or cursor != len(eng.spec.schedule()):
+        raise AssertionError("path 12: the checkpoint does not restore "
+                             "the carry")
+
+
+def sweep_kill_resume(torch, eng, model, want: dict) -> None:
+    """Under deterministic algorithms: a runner stopped after one chunk
+    (``max_chunks=1``, its checkpoint under ``build/sweep/``) and resumed
+    by a new engine gives an uninterrupted run's summaries bit for bit,
+    and its JSONL one line a chunk, cursors 1-4.  The uninterrupted run,
+    through ``SweepRunner.run`` (counts from zero just before it), must
+    launch each kernel as often as the chunk walk's chunks together,
+    ``want``."""
+    import numpy as np
+    from repro_torch.sweep import engine as engine_lib
+    from repro_torch.sweep import runner as runner_lib
+    from repro_torch.telemetry import sinks
+    sweep_dir = os.path.join(ROOT, "build", "sweep")
+    paths = {n: os.path.join(sweep_dir, n) for n in (
+        "full.msgpack", "full.jsonl", "kill.msgpack", "kill.jsonl")}
+
+    def runner(ck, log):
+        return runner_lib.SweepRunner(engine_lib.SweepEngine(
+            eng.spec, model=model, data=eng.data, device=eng.dev),
+            paths[ck], jsonl_path=paths[log])
+
+    for path in paths.values():
+        if os.path.exists(path):
+            os.remove(path)
+    with deterministic_algorithms(torch, "path 12"):
+        reset_counts()
+        t0 = time.perf_counter()
+        full = runner("full.msgpack", "full.jsonl").run()
+        t_full = time.perf_counter() - t0
+        counts = read_counts()
+        t0 = time.perf_counter()
+        if runner("kill.msgpack", "kill.jsonl").run(max_chunks=1) \
+                is not None:
+            raise AssertionError("path 12: max_chunks=1 ran to the end")
+        resumed = runner("kill.msgpack", "kill.jsonl").run()
+        t_kill = time.perf_counter() - t0
+    cursors = [r["cursor"] for r in sinks.read_jsonl(paths["kill.jsonl"])]
+    differ = [f"{p.name}/{m}/{f}" for (p, a), (_, b) in zip(full, resumed)
+              for m in a for f in a[m]
+              if not np.array_equal(a[m][f], b[m][f], equal_nan=True)]
+    print(f"[path 12] kill after chunk 1 and resume: summaries "
+          f"{'bit for bit' if not differ else 'DIFFER in ' + str(differ)} "
+          f"an uninterrupted run's; JSONL cursors {cursors}; uninterrupted "
+          f"{t_full:.2f}s, killed + resumed {t_kill:.2f}s; the "
+          f"uninterrupted run's launches {counts} (the chunk walk's "
+          f"{want})", flush=True)
+    if differ or cursors != [1, 2, 3, 4] or counts != want:
+        raise AssertionError(f"path 12: kill/resume differs {differ}, "
+                             f"cursors {cursors}, launches {counts} "
+                             f"against {want}")
+
+
+def phase_sweep(torch, dev, data, wcfg, path7_round: float,
+                smi: str) -> None:
+    """Path 12: a resumable sweep at the paper's scale through
+    ``repro_torch.sweep``: the chunk walk twice (launches checked, warm
+    wall per chunk round and per scenario round beside path 7's, peak
+    memory flat across chunks), each point against one batch call and
+    its worst scenario-round alone, the host syncs, the checkpoint, and
+    the runner's launches and kill / resume bit for bit."""
+    import collections
+    from repro_torch.sweep import engine as engine_lib
+    os.makedirs(os.path.join(ROOT, "build", "sweep"), exist_ok=True)
+    t_phase = time.perf_counter()
+    spec, model = sweep_setup(torch, wcfg)
+    eng = engine_lib.SweepEngine(spec, model=model, data=data, device=dev)
+    rounds = spec.fl.num_rounds
+    sweep_walk(torch, eng, model, "first")
+    aggs, rows = sweep_walk(torch, eng, model, "warm")
+    per_chunk_round = [r["wall"] / rounds for r in rows]
+    warm = median(per_chunk_round)
+    peaks = [r["peak"] for r in rows]
+    held = [r["held"] for r in rows]
+    print(f"[path 12] {smi}: S={SWEEP_S} a point in chunks of "
+          f"{SWEEP_CHUNK} x K={data.num_devices} CNN, DAS and random, "
+          f"{rounds} rounds: warm s per chunk round by chunk "
+          f"{[round(w, 4) for w in per_chunk_round]} (median {warm:.3f}) "
+          f"= {warm / SWEEP_CHUNK:.4f}s per "
+          f"scenario-round, against path 7's {path7_round:.3f}s per batch "
+          f"round of {BATCH_S} = {path7_round / BATCH_S:.4f}s per "
+          f"scenario-round in this call; peak memory by chunk "
+          f"{[round(p / 2 ** 30, 3) for p in peaks]} GiB, held after each "
+          f"{[round(h / 2 ** 30, 3) for h in held]} GiB", flush=True)
+    if abs(peaks[-1] - peaks[0]) > SWEEP_MEM_RTOL * peaks[0] or \
+            abs(held[-1] - held[0]) > SWEEP_MEM_RTOL * held[0]:
+        raise AssertionError(f"path 12: memory grows across chunks: peaks "
+                             f"{peaks}, held {held}")
+    summaries = {p: engine_lib.aggregate_summary(a) for p, a in aggs.items()}
+    for p, point in enumerate(eng.points):
+        s = summaries[p]
+        print(f"[path 12] {point.name}: acc by round "
+              f"{s['round.accuracy']['mean'].tolist()} [min "
+              f"{s['round.accuracy']['min'].tolist()}, max "
+              f"{s['round.accuracy']['max'].tolist()}], sel "
+              f"{s['round.n_selected']['mean'].tolist()}, T "
+              f"{s['round.round_time']['mean'].tolist()} s, final acc std "
+              f"{float(s['scalar.final_accuracy']['std']):.4f}", flush=True)
+    sweep_against_batch(torch, eng, model, summaries,
+                        [(r["point"].index, r["metrics"]) for r in rows])
+    sweep_syncs(torch, eng, model)
+    sweep_checkpoint(torch, eng, aggs)
+    want = collections.Counter()
+    for r in rows:
+        want.update(r["counts"])
+    sweep_kill_resume(torch, eng, model,
+                      {name: want[name] for name in rows[0]["counts"]})
+    print(f"[path 12] phase wall {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
 KERNELS = {
     "fedavg_agg": ("src/repro_torch/csrc/fedavg_agg.cu",
                    "src/repro/kernels/fedavg_agg.py:30"),
@@ -2887,9 +3379,10 @@ def main() -> int:
     phase_sync_limit(torch, dev, data, net, wcfg)
     phase_telemetry(torch, dev, data, net, wcfg)
     for path in BATCH_OF:
-        by_path[path], _ = phase_batch_path(
+        by_path[path], _, walls[path] = phase_batch_path(
             torch, dev, data, wcfg, path, walls[BATCH_OF[path]],
             **(dict(horizon=horizon) if path == 10 else {}))
+    phase_sweep(torch, dev, data, wcfg, walls[7], smi)
     for path in (1, 2, 3):
         phase_profile(torch, dev, data, net, wcfg, path, floor)
     phase_profile(torch, dev, data, net, wcfg, 4, floor, horizon=horizon)

@@ -9,6 +9,7 @@
         [--staleness-weight 0.25] [--codec none|quant|topk|adaptive]
         [--bit-width 8] [--dispatch-cap 16]
         [--carry-dtype float32|bfloat16|float16] [--scenarios 1]
+        [--chunk-scenarios 0] [--sweep-ckpt PATH] [--sweep-jsonl PATH]
 
 The port's counterpart of ``examples/federated_mnist.py``: K devices with
 shard-partitioned synthetic MNIST-like data, DAS/ABS/random/full
@@ -23,19 +24,28 @@ compressed uplinks (the ``compress_update`` kernel); ``--dispatch-cap``
 trains only a dense block of that many admitted devices (the per-round
 line gains a ``drop=`` column) and ``--carry-dtype`` stores the carried
 streaming stats and error-feedback residual at reduced precision, with
-the JAX example's flags and defaults.  ``--scenarios S > 1`` runs S
-independent scenarios (each its own network and random tape, seeded by
-global scenario index) through
-``repro_torch.core.federated.run_federated_batch``, where every kernel
-launches once a round for all of them, and prints each scenario's final
-accuracy and their mean (all in one batch: no chunking or streaming
-aggregation yet).
+the JAX example's flags and defaults.  ``--scenarios S > 1`` runs a
+Monte-Carlo sweep of S independent scenarios (each its own network and
+random tape, seeded by global scenario index from ``--seed``) through
+``repro_torch.sweep.run_sweep``: chunks of ``--chunk-scenarios``
+scenarios (0: all in one) each run as one
+``federated.run_federated_batch`` call, where every kernel launches once
+a round for the whole chunk, folded into per-round mean / min / max.
+``--sweep-ckpt`` checkpoints the sweep after every chunk, and a killed
+run started again with the same flags resumes from it (any file at that
+path is resumed; its fingerprint covers the configs, not ``--devices``,
+the data or the model, so delete it for a fresh study); ``--sweep-jsonl``
+streams one line of aggregates per chunk.  It prints the JAX example's
+per-round ``acc=mean [min,max] sel= T=`` lines and its final line.
 """
 
 import argparse
+import os
+import sys
 
 import torch
 
+from repro_torch import sweep
 from repro_torch.core import compression, federated, scheduler, \
     streaming, wireless
 from repro_torch.data import partition, synthetic
@@ -57,7 +67,8 @@ def main() -> None:
                     help="paper scale: 1200 shards x 50 (else 300x50)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--allocator", default="fused_pgd",
-                    choices=["fused_pgd", "pgd", "waterfilling"])
+                    choices=["fused_pgd", "pgd", "waterfilling",
+                             "importance"])
     ap.add_argument("--kernel-agg", action=argparse.BooleanOptionalAction,
                     default=True, help="FedAvg through the CUDA kernel")
     ap.add_argument("--device", default=None,
@@ -85,7 +96,14 @@ def main() -> None:
                     help="storage dtype of the carried streaming stats "
                          "and error-feedback residual")
     ap.add_argument("--scenarios", type=int, default=1,
-                    help="independent scenarios run as one batch")
+                    help="Monte-Carlo scenarios through the sweep engine")
+    ap.add_argument("--chunk-scenarios", type=int, default=0,
+                    help="scenarios per batch call (0: all in one)")
+    ap.add_argument("--sweep-ckpt", default="",
+                    help="checkpoint path for resumable sweeps")
+    ap.add_argument("--sweep-jsonl", default="",
+                    help="stream per-chunk aggregates to this JSONL "
+                         "file (resume-safe)")
     args = ap.parse_args()
     dev = resolve_device(args.device)
 
@@ -127,7 +145,7 @@ def main() -> None:
         compression=comp_cfg, dispatch_cap=args.dispatch_cap or None,
         carry_dtype=args.carry_dtype or None)
     if args.scenarios > 1:
-        run_batch(args, model, data, wcfg, scfg, fcfg, dev)
+        run_sweep(args, model, data, wcfg, scfg, fcfg, dev)
         return
     _, hist = federated.run_federated(
         model=model, data=data, net=net, wcfg=wcfg, scfg=scfg, fcfg=fcfg,
@@ -145,27 +163,30 @@ def main() -> None:
           f"final acc={hist[-1].accuracy:.4f}")
 
 
-def run_batch(args, model, data, wcfg, scfg, fcfg, dev) -> None:
-    """S scenarios: networks and tapes by global scenario index."""
-    idx = range(args.scenarios)
-    nets = wireless.sample_networks_indexed(args.seed + 2, idx, args.devices,
-                                            wcfg)
-    seeds = federated.scenario_seeds(args.seed + 4, 0, args.scenarios)
-    _, metrics = federated.run_federated_batch(
-        model=model, data=data, nets=nets, wcfg=wcfg, scfg=scfg, fcfg=fcfg,
-        seeds=seeds, device=dev)
-    hists = federated.batch_metrics_to_records(metrics)
-    for s, hist in enumerate(hists):
-        last = hist[-1]
-        print(f"scenario {s:3d}: final acc={last.accuracy:.4f} "
-              f"sel={last.n_selected:3d} "
-              f"T={sum(r.round_time for r in hist):8.1f}s "
-              f"E={sum(r.energy_total for r in hist):8.1f}J "
-              f"das_iters={[r.iterations for r in hist]}")
-    accs = [hist[-1].accuracy for hist in hists]
-    print(f"[feel-torch] S={args.scenarios} final acc mean="
-          f"{sum(accs) / len(accs):.4f} min={min(accs):.4f} "
-          f"max={max(accs):.4f}")
+def run_sweep(args, model, data, wcfg, scfg, fcfg, dev) -> None:
+    """S scenarios through the sweep engine, in chunks, resumable."""
+    spec = sweep.SweepSpec(
+        fl=fcfg, sched=scfg, wireless=wcfg,
+        scenarios_per_point=args.scenarios,
+        chunk_scenarios=args.chunk_scenarios, base_seed=args.seed)
+    if args.sweep_ckpt and os.path.exists(args.sweep_ckpt):
+        print(f"[feel-torch] resuming the sweep from {args.sweep_ckpt}",
+              file=sys.stderr)
+    results = sweep.run_sweep(
+        spec, model=model, data=data, ckpt_path=args.sweep_ckpt or None,
+        jsonl_path=args.sweep_jsonl or None, device=dev)
+    _, summary = results[0]
+    acc = summary["round.accuracy"]
+    sel = summary["round.n_selected"]
+    t = summary["round.round_time"]
+    for r in range(args.rounds):
+        print(f"round {r:3d}: acc={acc['mean'][r]:.4f} "
+              f"[{acc['min'][r]:.4f},{acc['max'][r]:.4f}] "
+              f"sel={sel['mean'][r]:5.1f} T={t['mean'][r]:7.3f}s")
+    final = summary["scalar.final_accuracy"]
+    print(f"[feel-torch] S={args.scenarios} final acc "
+          f"mean={float(final['mean']):.4f} min={float(final['min']):.4f} "
+          f"max={float(final['max']):.4f} (std={float(final['std']):.4f})")
 
 
 if __name__ == "__main__":

@@ -1,12 +1,18 @@
 """Allocator registry — the one interface every policy solves Sub2 through.
 
-Port of ``repro.core.allocator`` with three entries:
+Port of ``repro.core.allocator`` with four entries:
 
 * ``waterfilling`` — the rho -> 0 limit (``bandwidth.min_time_allocation``);
 * ``pgd`` — tangent-space projected gradient (``bandwidth.pgd_allocation``);
 * ``fused_pgd`` — the water-filling start, then the whole double descent
   in one launch of the ``sub2_pgd`` CUDA kernel (its plain PyTorch
-  version on CPU tensors).
+  version on CPU tensors);
+* ``importance`` — the Ren et al.-style objective: each device's energy
+  priced by gradient importance x channel cost
+  (:func:`importance_weights`), solved by the same tangent PGD.
+
+New objectives plug in through :func:`register`; policies pick one by
+name through ``SchedulerConfig.allocator``.
 
 Every allocator takes ``(K,)`` rows or ``(S, K)`` stacks of S scenarios;
 ``fused_pgd`` hands the whole stack to one kernel launch.
@@ -113,11 +119,63 @@ class FusedPGD:
             model_bits=bits, min_alpha=cfg.min_alpha)
 
 
-_REGISTRY: Dict[str, Callable[[bw.Sub2Params], Allocator]] = {
-    "waterfilling": WaterFilling,
-    "pgd": PGD,
-    "fused_pgd": FusedPGD,
-}
+def importance_weights(selected: Tensor, t_train: Tensor, gains: Tensor,
+                       tx_power: Tensor, cfg: wireless.WirelessConfig,
+                       beta: float = 1.0,
+                       data_sizes: Optional[Tensor] = None) -> Tensor:
+    """Per-device energy prices w_k: gradient importance x channel price.
+
+    Importance is the device's share of the round's data, ``data_sizes``
+    (|D_k|, FedAvg's own weight); without it the workload time
+    ``t_train`` stands in.  The channel price is the inverse of the
+    spectral efficiency at full band: a weak channel pays more energy
+    per bit.  Both are normalised to mean 1 over the selected set (per
+    lane), raised to ``beta`` and clipped to [0.05, 20], so ``beta = 0``
+    is the unweighted objective exactly; unselected devices get 1.
+    """
+    mask = (selected > 0.0).to(torch.float32)
+    n_act = torch.clamp_min(torch.sum(mask, dim=-1, keepdim=True), 1.0)
+
+    def mean_norm(v):
+        m = torch.sum(v * mask, dim=-1, keepdim=True) / n_act
+        return v / torch.clamp_min(m, 1e-12)
+
+    volume = t_train if data_sizes is None else data_sizes.to(torch.float32)
+    imp = mean_norm(volume)
+    snr_full = gains * tx_power / (cfg.bandwidth_hz * cfg.noise_psd)
+    price = 1.0 / torch.clamp_min(mean_norm(torch.log1p(snr_full)), 1e-6)
+    w = torch.clamp((imp * price) ** beta, 0.05, 20.0)
+    return torch.where(mask > 0.0, w, torch.ones_like(w))
+
+
+@dataclasses.dataclass(frozen=True)
+class ImportanceWeighted:
+    """Importance-weighted Sub2 (Ren et al. / Taik et al. style):
+    ``min rho * sum_k w_k E_k + (1-rho) T`` with ``w_k`` from
+    :func:`importance_weights`, by ``bandwidth.pgd_allocation``."""
+
+    params: bw.Sub2Params = bw.Sub2Params()
+    beta: float = 1.0
+
+    def solve(self, selected, t_train, gains, tx_power, cfg, alpha0=None,
+              data_sizes=None, payload_bits=None):
+        w = importance_weights(selected, t_train, gains, tx_power, cfg,
+                               self.beta, data_sizes=data_sizes)
+        return bw.pgd_allocation(selected, t_train, gains, tx_power, cfg,
+                                 self.params, alpha0=alpha0,
+                                 energy_weights=w,
+                                 payload_bits=payload_bits)
+
+
+_REGISTRY: Dict[str, Callable[[bw.Sub2Params], Allocator]] = {}
+
+
+def register(name: str, factory: Callable[[bw.Sub2Params], Allocator],
+             overwrite: bool = False) -> None:
+    """Register an allocator factory (``Sub2Params -> Allocator``)."""
+    if name in _REGISTRY and not overwrite:
+        raise ValueError(f"allocator {name!r} already registered")
+    _REGISTRY[name] = factory
 
 
 def names() -> tuple[str, ...]:
@@ -126,13 +184,15 @@ def names() -> tuple[str, ...]:
 
 def get(name: str, params: bw.Sub2Params = bw.Sub2Params()) -> Allocator:
     """Build the named allocator around ``params``."""
-    if name == "importance":
-        raise NotImplementedError(
-            "the 'importance' allocator is not ported yet "
-            "(ROADMAP.md queue 1, item 5)")
     try:
         factory = _REGISTRY[name]
     except KeyError:
         raise ValueError(
             f"unknown allocator {name!r}; registered: {names()}") from None
     return factory(params)
+
+
+register("waterfilling", WaterFilling)
+register("pgd", PGD)
+register("fused_pgd", FusedPGD)
+register("importance", ImportanceWeighted)

@@ -1,16 +1,19 @@
 """Sub2 — bandwidth allocation (paper Eq. 15).
 
-Port of the production solvers of ``repro.core.bandwidth``:
+Port of ``repro.core.bandwidth``:
 
 * :func:`min_time_allocation` — the rho -> 0 water-filling limit as the
   fused joint bisection: a fixed-trip deadline bisection that carries a
   per-device Newton iterate of the rate inversion from probe to probe.
 * :func:`pgd_allocation` — general rho by tangent-space projected
   gradient on the selected-coordinate simplex, the round time smoothed
-  by a logsumexp (gradient from ``torch.autograd``).
+  by a logsumexp (gradient from ``torch.autograd``);
+* the oracles :func:`invert_rate_bisect` and
+  :func:`min_time_allocation_reference` (nested bisections) the
+  production solvers are tested against.
 
 The loops are fixed-trip like the reference's, so the port follows its
-iterates.  Both run as plain PyTorch; the fused descent of the
+iterates.  They run as plain PyTorch; the fused descent of the
 ``fused_pgd`` allocator is the ``sub2_pgd`` CUDA kernel.  Every solver
 takes ``(K,)`` rows or ``(S, K)`` stacks of S scenarios and reduces per
 lane over the trailing axis: each bisection's test, each sum and max.
@@ -71,6 +74,27 @@ def _rate_and_slope(a: Tensor, c: Tensor, bandwidth_hz: float
     scale = _rate_scale(bandwidth_hz)
     l = torch.log1p(c / a)
     return scale * a * l, scale * (l - c / (a + c))
+
+
+def invert_rate_bisect(r_req: Tensor, gains: Tensor, tx_power: Tensor,
+                       cfg: wireless.WirelessConfig,
+                       iters: int = 50) -> Tensor:
+    """Reference rate inversion (vectorized bisection): the oracle of the
+    Newton solver and of :func:`min_time_allocation_reference`;
+    production paths use :func:`invert_rate`."""
+    c = gains * tx_power / (cfg.bandwidth_hz * cfg.noise_psd)
+
+    def rate(a):
+        a = torch.clamp_min(a, cfg.min_alpha)
+        return a * cfg.bandwidth_hz * torch.log2(1.0 + c / a)
+
+    lo = torch.zeros_like(r_req)
+    hi = torch.full_like(r_req, ALPHA_CEIL)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        ok = rate(mid) >= r_req
+        lo, hi = torch.where(ok, lo, mid), torch.where(ok, mid, hi)
+    return hi
 
 
 def _newton_refine(a: Tensor, r_req: Tensor, c: Tensor,
@@ -135,13 +159,17 @@ def _required_rate(deadline: Tensor, t_train: Tensor,
 def alpha_for_deadline(deadline: Tensor, selected: Tensor, t_train: Tensor,
                        gains: Tensor, tx_power: Tensor,
                        cfg: wireless.WirelessConfig, rate_iters: int = 12,
+                       solver: str = "newton",
                        payload_bits: Optional[Tensor] = None) -> Tensor:
     """Minimal alpha_k letting each selected device finish by
-    ``deadline``; ``ALPHA_CEIL`` where training alone exceeds it."""
+    ``deadline``; ``ALPHA_CEIL`` where training alone exceeds it.
+    ``solver`` picks the Newton inversion (default) or the bisection
+    oracle."""
     r_req = _required_rate(deadline, t_train, cfg, payload_bits)
     inf = torch.isinf(r_req)
     r_fin = torch.where(inf, torch.full_like(r_req, 1e30), r_req)
-    a = invert_rate(r_fin, gains, tx_power, cfg, iters=rate_iters)
+    invert = invert_rate if solver == "newton" else invert_rate_bisect
+    a = invert(r_fin, gains, tx_power, cfg, iters=rate_iters)
     a = torch.where(inf, torch.full_like(a, ALPHA_CEIL), a)
     return torch.where(selected > 0.0, a, torch.zeros_like(a))
 
@@ -163,6 +191,40 @@ def _deadline_bracket(selected: Tensor, t_train: Tensor, gains: Tensor,
                     keepdim=True)
     lo = torch.amax(torch.where(sel, t_train, zero), dim=-1, keepdim=True)
     return lo, hi, equal_alpha
+
+
+def min_time_allocation_reference(
+        selected: Tensor, t_train: Tensor, gains: Tensor, tx_power: Tensor,
+        cfg: wireless.WirelessConfig, params: Sub2Params = Sub2Params(),
+        payload_bits: Optional[Tensor] = None) -> tuple[Tensor, Tensor]:
+    """Nested reference deadline solve: returns (alpha, T*).
+
+    A deadline bisection with a full rate bisection per device at every
+    probe (``time_bisect_iters * rate_bisect_iters`` loop bodies): the
+    oracle :func:`min_time_allocation` is held against.
+    """
+    any_sel = torch.sum(selected, dim=-1, keepdim=True) > 0.0
+    lo, hi, _ = _deadline_bracket(selected, t_train, gains, tx_power, cfg,
+                                  payload_bits)
+
+    def shares(deadline):
+        return alpha_for_deadline(deadline, selected, t_train, gains,
+                                  tx_power, cfg,
+                                  rate_iters=params.rate_bisect_iters,
+                                  solver="bisect", payload_bits=payload_bits)
+
+    for _ in range(params.time_bisect_iters):
+        mid = 0.5 * (lo + hi)
+        ok = torch.sum(shares(mid), dim=-1, keepdim=True) <= 1.0
+        lo, hi = torch.where(ok, lo, mid), torch.where(ok, mid, hi)
+    t_star = hi
+    alpha = shares(t_star)
+    # Normalize tiny bisection overshoot back inside the budget.
+    total = torch.sum(alpha, dim=-1, keepdim=True)
+    alpha = torch.where(total > 1.0, alpha / total, alpha)
+    alpha = torch.where(any_sel, alpha, torch.zeros_like(alpha))
+    t_star = torch.where(any_sel, t_star, torch.zeros_like(t_star))
+    return alpha, t_star[..., 0]
 
 
 def min_time_allocation(selected: Tensor, t_train: Tensor, gains: Tensor,
@@ -236,13 +298,21 @@ def sub2_objective(alpha: Tensor, selected: Tensor, t_train: Tensor,
                    gains: Tensor, tx_power: Tensor,
                    cfg: wireless.WirelessConfig, rho: float,
                    smooth_tau: float = 0.0,
+                   energy_weights: Optional[Tensor] = None,
                    payload_bits: Optional[Tensor] = None) -> Tensor:
-    """rho * sum E_k + (1-rho) * T (Eq. 15a); optionally smoothed max."""
+    """rho * sum w_k E_k + (1-rho) * T (Eq. 15a); optionally smoothed max.
+
+    ``energy_weights`` (default all ones) prices each device's energy
+    term, the importance-weighted allocator's hook; the realized energy
+    is unchanged, only the trade-off moves.
+    """
     sel = selected > 0.0
     zero = torch.zeros_like(t_train)
     t_up = wireless.upload_time(alpha, gains, tx_power, cfg, payload_bits)
     t_up = torch.where(sel, t_up, zero)
     energy = torch.where(sel, tx_power * t_up, zero)
+    if energy_weights is not None:
+        energy = energy * energy_weights
     total = torch.where(sel, t_train + t_up, zero)
     if smooth_tau > 0.0:
         t_round = smooth_tau * torch.logsumexp(total / smooth_tau, dim=-1)
@@ -255,6 +325,7 @@ def pgd_allocation(selected: Tensor, t_train: Tensor, gains: Tensor,
                    tx_power: Tensor, cfg: wireless.WirelessConfig,
                    params: Sub2Params = Sub2Params(),
                    alpha0: Optional[Tensor] = None,
+                   energy_weights: Optional[Tensor] = None,
                    payload_bits: Optional[Tensor] = None
                    ) -> tuple[Tensor, Tensor]:
     """Sub2 for general rho by tangent-space projected gradient.
@@ -262,7 +333,9 @@ def pgd_allocation(selected: Tensor, t_train: Tensor, gains: Tensor,
     Two starts — the water-filling solve (warm-started by ``alpha0``)
     and the uniform share — each descended with the mean-removed
     gradient under a cosine lr decay, tracking the best exact-max
-    objective.  Returns (alpha, objective).
+    objective.  ``energy_weights`` reprices each device's energy in the
+    objective (the importance-weighted allocator); the water-filling
+    start ignores it.  Returns (alpha, objective).
     """
     mask = (selected > 0.0).to(torch.float32)
     n_act = torch.clamp_min(torch.sum(mask, dim=-1, keepdim=True), 1.0)
@@ -270,6 +343,7 @@ def pgd_allocation(selected: Tensor, t_train: Tensor, gains: Tensor,
     def exact_obj(a):
         return sub2_objective(a, selected, t_train, gains, tx_power, cfg,
                               params.rho, smooth_tau=0.0,
+                              energy_weights=energy_weights,
                               payload_bits=payload_bits)
 
     def grad(a):
@@ -277,6 +351,7 @@ def pgd_allocation(selected: Tensor, t_train: Tensor, gains: Tensor,
         with torch.enable_grad():
             obj = sub2_objective(x, selected, t_train, gains, tx_power, cfg,
                                  params.rho, params.smooth_tau,
+                                 energy_weights=energy_weights,
                                  payload_bits=payload_bits)
             (g,) = torch.autograd.grad(obj.sum(), x)
         return g

@@ -1,13 +1,14 @@
 """Dataset-diversity measures and the paper's diversity index (§III, §IV-B).
 
-Port of the classification part of ``repro.core.diversity``.  The index
+Port of ``repro.core.diversity``.  The index
 (Eq. 4) is ``I_k = sum_i gamma_i * metric_i(k) / max_k metric_i`` over
 {dataset diversity, dataset size, age}; the diversity term is the
 Gini-Simpson index (Eq. 2) or Shannon entropy (Eq. 3) of the device's
 label histogram.  The ``diversity`` CUDA kernel
 (``repro_torch.kernels.diversity``) computes the per-device measures in
 one fused pass; :func:`diversity_index_from_stats` turns them into the
-index each round.
+index each round.  Approximate and sample entropy (§III's sequence
+measures, which no path calls) are here too.
 """
 
 from __future__ import annotations
@@ -51,6 +52,49 @@ def shannon_entropy(probs: Tensor) -> Tensor:
                        torch.log2(torch.clamp_min(probs, 1e-30)),
                        torch.zeros_like(probs))
     return -torch.sum(probs * logp, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Sequence diversity: approximate / sample entropy (§III)
+# ---------------------------------------------------------------------------
+
+def _template_matches(series: Tensor, m: int, r: Tensor) -> Tensor:
+    """(nt, nt) 0/1 matrix of length-``m`` template pairs within
+    Chebyshev distance ``r`` (O(n^2): callers pass a few hundred
+    samples, as the paper advises)."""
+    nt = series.shape[0] - m + 1
+    idx = torch.arange(nt)[:, None] + torch.arange(m)[None, :]
+    t = series[idx.to(series.device)]                       # (nt, m)
+    dist = torch.amax(torch.abs(t[:, None, :] - t[None, :, :]), dim=-1)
+    return (dist <= r).to(torch.float32)
+
+
+def approximate_entropy(series: Tensor, m: int = 2,
+                        r_factor: float = 0.2) -> Tensor:
+    """ApEn(m, r) = Phi^m(r) - Phi^{m+1}(r) (Pincus); r = r_factor * std
+    (population std), self-matches included."""
+    r = r_factor * torch.std(series, correction=0)
+
+    def phi(mm: int) -> Tensor:
+        frac = torch.mean(_template_matches(series, mm, r), dim=-1)
+        return torch.mean(torch.log(torch.clamp_min(frac, 1e-12)))
+
+    return phi(m) - phi(m + 1)
+
+
+def sample_entropy(series: Tensor, m: int = 2,
+                   r_factor: float = 0.2) -> Tensor:
+    """SampEn(m, r) = -log(A/B), self-matches excluded (length-robust)."""
+    r = r_factor * torch.std(series, correction=0)
+
+    def pair_count(mm: int) -> Tensor:
+        match = _template_matches(series, mm, r)
+        eye = torch.eye(match.shape[0], device=match.device)
+        return torch.sum(match * (1.0 - eye))
+
+    b = pair_count(m)
+    a = pair_count(m + 1)
+    return -torch.log(torch.clamp_min(a, 1e-12) / torch.clamp_min(b, 1e-12))
 
 
 @dataclasses.dataclass(frozen=True)

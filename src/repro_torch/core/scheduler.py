@@ -4,9 +4,10 @@ Port of ``repro.core.scheduler``: :func:`das_schedule` (Data-Aware
 Scheduling, Sub1 <-> Sub2 until the (x, alpha) pair stabilises),
 :func:`abs_schedule` (age-based), :func:`random_schedule`,
 :func:`full_schedule` and :func:`topn_schedule`, behind one entry,
-:func:`schedule_impl`.  Every policy solves Sub2 through the
-``core.allocator`` registry.  :func:`score_trace` recomputes the
-priority surface a policy ranked on, for the telemetry frames.
+:func:`schedule` (its body :func:`schedule_impl`).  Every policy solves
+Sub2 through the ``core.allocator`` registry.  :func:`score_trace`
+recomputes the priority surface a policy ranked on, for the telemetry
+frames.
 
 Every policy takes ``(K,)`` rows or ``(S, K)`` stacks of S scenarios
 (the network's leaves stacked alike) and works per lane along the
@@ -386,3 +387,28 @@ def schedule_impl(sched_u: Optional[Tensor], index: Tensor, ages: Tensor,
         return full_schedule(data_sizes, gains, net, cfg, sch, alloc,
                              payload_bits)
     raise ValueError(f"unknown scheduling method: {sch.method!r}")
+
+
+def schedule(draw: Union[Tensor, torch.Generator, None], index: Tensor,
+             ages: Tensor, data_sizes: Tensor, gains: Tensor,
+             net: wireless.NetworkState, cfg: wireless.WirelessConfig,
+             sch: SchedulerConfig, staleness: Optional[Tensor] = None,
+             payload_bits: Optional[Tensor] = None,
+             reliability: Optional[Tensor] = None) -> ScheduleResult:
+    """The round's decision, dispatched on ``sch.method`` (the public
+    entry; :func:`schedule_impl` is its body).
+
+    ``draw`` is the round's uniform draw that abs (tiebreak) and random
+    (priority) rank on, shaped like ``index``: a tensor, or a
+    ``torch.Generator`` to draw it from on ``index``'s device (only abs
+    and random draw).  das and full read no draw; None leaves abs
+    without its tiebreak.
+    """
+    sched_u = draw
+    if isinstance(draw, torch.Generator):
+        sched_u = None
+        if sch.method in ("abs", "random"):
+            sched_u = torch.rand(index.shape, generator=draw,
+                                 device=index.device)
+    return schedule_impl(sched_u, index, ages, data_sizes, gains, net, cfg,
+                         sch, staleness, payload_bits, reliability)

@@ -199,12 +199,165 @@ def test_allocators_match_reference(name):
 
 
 def test_allocator_registry():
-    assert talloc.names() == ("fused_pgd", "pgd", "waterfilling")
+    assert talloc.names() == jalloc.names() == ("fused_pgd", "importance",
+                                                "pgd", "waterfilling")
     assert isinstance(talloc.get("pgd"), talloc.Allocator)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        talloc.get("importance")
+    assert isinstance(talloc.get("importance"), talloc.ImportanceWeighted)
     with pytest.raises(ValueError):
         talloc.get("nope")
+    with pytest.raises(ValueError, match="already registered"):
+        talloc.register("pgd", talloc.PGD)
+    try:
+        talloc.register("pgd-again", talloc.PGD)
+        talloc.register("pgd-again", talloc.WaterFilling, overwrite=True)
+        assert isinstance(talloc.get("pgd-again"), talloc.WaterFilling)
+    finally:
+        del talloc._REGISTRY["pgd-again"]
+
+
+# ---------------------------------------------------------------------------
+# The importance-weighted allocator and the oracles
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sizes", [True, False])
+def test_importance_weights_and_weighted_objective_match_reference(sizes):
+    (jnet, gains, tt, sel), (tnet, tg, ttt, tsel) = _sub2_case(7, 12)
+    _, _, js, _, _, ts = _world(7, 12)
+    jw_ = jalloc.importance_weights(sel, tt, gains, jnet.tx_power, JW, 1.5,
+                                    data_sizes=js if sizes else None)
+    tw_ = talloc.importance_weights(tsel, ttt, tg, tnet.tx_power, TW, 1.5,
+                                    data_sizes=ts if sizes else None)
+    np.testing.assert_allclose(tw_.numpy(), np.asarray(jw_), rtol=1e-6)
+    assert torch.equal(tw_[tsel == 0], torch.ones(int((tsel == 0).sum())))
+    a = np.asarray(jbw.project_simplex(np.full(12, 0.3, np.float32),
+                                       np.asarray(sel)))
+    for tau in (0.0, 1e-3):
+        assert float(tbw.sub2_objective(
+            _t(a), tsel, ttt, tg, tnet.tx_power, TW, 0.5, smooth_tau=tau,
+            energy_weights=tw_)) == pytest.approx(float(jbw.sub2_objective(
+                a, sel, tt, gains, jnet.tx_power, JW, 0.5, smooth_tau=tau,
+                energy_weights=jw_)), rel=1e-6)
+
+
+def test_importance_allocator_matches_reference():
+    """Every device selected (the reference's ``pgd`` descends only
+    then, see above): the ``pgd`` parity tolerances, alpha atol 1e-2 and
+    the objective rel 1e-3."""
+    (jnet, gains, tt, sel), (tnet, tg, ttt, tsel) = _sub2_case(8, 14,
+                                                               frac=1.1)
+    _, _, js, _, _, ts = _world(8, 14)
+    ja, jo = jalloc.get("importance", jbw.Sub2Params.fast()).solve(
+        sel, tt, gains, jnet.tx_power, JW, data_sizes=js)
+    ta, to = talloc.get("importance", tbw.Sub2Params.fast()).solve(
+        tsel, ttt, tg, tnet.tx_power, TW, data_sizes=ts)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=1e-2)
+    assert float(to) == pytest.approx(float(jo), rel=1e-3)
+    assert float(ta.sum()) <= 1.0 + 1e-6
+
+
+def test_importance_at_beta_zero_is_pgd():
+    """beta = 0 prices every device at 1: the unweighted descent, bit for
+    bit."""
+    (_, _, _, _), (tnet, tg, ttt, tsel) = _sub2_case(9, 10, frac=1.1)
+    p = tbw.Sub2Params(pgd_iters=30)
+    ia, io = talloc.ImportanceWeighted(p, beta=0.0).solve(
+        tsel, ttt, tg, tnet.tx_power, TW)
+    pa, po = talloc.get("pgd", p).solve(tsel, ttt, tg, tnet.tx_power, TW)
+    assert torch.equal(ia, pa) and torch.equal(io, po)
+
+
+def test_importance_allocator_on_stacked_rows_is_per_lane():
+    rows = [_sub2_case(seed, 9, frac=1.1)[1] for seed in (10, 11)]
+    p = tbw.Sub2Params(pgd_iters=30)
+    stack = [torch.stack(x) for x in zip(*[(r[1], r[2], r[3])
+                                           for r in rows])]
+    tx = torch.stack([r[0].tx_power for r in rows])
+    sa, so = talloc.get("importance", p).solve(stack[2], stack[1], stack[0],
+                                               tx, TW)
+    for i, (tnet, tg, ttt, tsel) in enumerate(rows):
+        a, o = talloc.get("importance", p).solve(tsel, ttt, tg,
+                                                 tnet.tx_power, TW)
+        np.testing.assert_allclose(sa[i].numpy(), a.numpy(), atol=1e-6)
+        assert float(so[i]) == pytest.approx(float(o), rel=1e-6)
+
+
+def test_bisection_oracles_match_reference():
+    (jnet, gains, tt, sel), (tnet, tg, ttt, tsel) = _sub2_case(12, 10)
+    r_req = np.geomspace(1e4, 1e7, 10).astype(np.float32)
+    np.testing.assert_allclose(
+        tbw.invert_rate_bisect(_t(r_req), tg, tnet.tx_power, TW).numpy(),
+        np.asarray(jbw.invert_rate_bisect(r_req, gains, jnet.tx_power, JW)),
+        rtol=1e-6)
+    p = jbw.Sub2Params.fast()
+    ja, jt = jbw.min_time_allocation_reference(sel, tt, gains,
+                                               jnet.tx_power, JW, p)
+    ta, tt_ = tbw.min_time_allocation_reference(tsel, ttt, tg,
+                                                tnet.tx_power, TW,
+                                                tbw.Sub2Params.fast())
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-6,
+                               atol=1e-9)
+    assert float(tt_) == pytest.approx(float(jt), rel=1e-6)
+    # The production solve agrees with its oracle (the reference's own
+    # 1e-3 claim).
+    fa, ft = tbw.min_time_allocation(tsel, ttt, tg, tnet.tx_power, TW)
+    assert float(ft) == pytest.approx(float(tt_), rel=1e-3)
+    zero = torch.zeros(10)
+    a0, t0 = tbw.min_time_allocation_reference(zero, ttt, tg,
+                                               tnet.tx_power, TW)
+    assert torch.equal(a0, zero) and float(t0) == 0.0
+
+
+@pytest.mark.parametrize("name", ["approximate_entropy", "sample_entropy"])
+def test_approximate_and_sample_entropy_match_reference(name):
+    """Noise, a periodic series and a 4-level one (many exact ties at
+    the tolerance r), m = 2 and 3: within 1e-5."""
+    from repro_torch.core import diversity as tdiv
+    rng = np.random.default_rng(0)
+    ref = jax.jit(getattr(jdiv, name), static_argnums=(1,))
+    for series in (rng.standard_normal(120).astype(np.float32),
+                   np.sin(np.arange(120) / 3.0).astype(np.float32),
+                   rng.integers(0, 4, 120).astype(np.float32)):
+        for m in (2, 3):
+            got = float(getattr(tdiv, name)(_t(series), m))
+            want = float(ref(jnp.asarray(series), m))
+            assert got == pytest.approx(want, abs=1e-5), (name, m)
+
+
+@pytest.mark.parametrize("method", ["das", "abs", "random", "full"])
+def test_public_schedule_takes_a_draw_or_a_generator(method):
+    """``scheduler.schedule`` on the reference's draw equals the
+    reference's ``schedule`` (selections and iterations), and on a
+    generator draws that uniform row itself for abs and random only."""
+    k = 12
+    jnet, gains, sizes, tnet, tg, ts = _world(13, k)
+    ages = np.random.default_rng(4).integers(0, 5, k).astype(np.int32)
+    index = np.random.default_rng(5).random(k).astype(np.float32)
+    key = jax.random.key(9)
+    u = np.asarray(jax.random.uniform(key, (k,)))
+    kw = dict(method=method, n_min=2, iterations_max=4,
+              allocator="waterfilling",
+              n_fixed=4 if method == "random" else None)
+    jr = jsch.schedule(key, index, ages, sizes, gains, jnet, JW,
+                       jsch.SchedulerConfig(**kw))
+    tcfg = tsch.SchedulerConfig(**kw)
+    args = (_t(index), _t(ages), ts, tg, tnet, TW, tcfg)
+    tr = tsch.schedule(_t(u), *args)
+    np.testing.assert_array_equal(tr.selected.numpy(),
+                                  np.asarray(jr.selected))
+    assert int(tr.iterations) == int(jr.iterations)
+    np.testing.assert_allclose(tr.alpha.numpy(), np.asarray(jr.alpha),
+                               rtol=1e-4, atol=1e-7)
+    gen = torch.Generator().manual_seed(3)
+    got = tsch.schedule(gen, *args)
+    draws = method in ("abs", "random")
+    want = tsch.schedule_impl(
+        torch.rand(k, generator=torch.Generator().manual_seed(3))
+        if draws else None, *args)
+    assert torch.equal(got.selected, want.selected)
+    assert torch.equal(got.alpha, want.alpha)
+    # Only abs and random consume the generator.
+    fresh = torch.rand(1, generator=torch.Generator().manual_seed(3))
+    assert torch.equal(torch.rand(1, generator=gen), fresh) != draws
 
 
 # ---------------------------------------------------------------------------
