@@ -120,7 +120,28 @@ each phase failing the script on error:
     just before it, the chunk walk's) and stops a runner after one chunk
     (``max_chunks=1``, checkpoint under ``build/sweep/``) and resumes it
     with a new engine: summaries bit for bit the uninterrupted run's,
-    the JSONL one line a chunk, cursors 1-4.
+    the JSONL one line a chunk, cursors 1-4;
+13. path 14, xlstm-125m served at its published width and depth (12
+    layers alternating sLSTM / mLSTM, d_model 768, 162,317,616
+    parameters, seeded random bf16 weights): B = 4, a 2048-token prompt
+    (8 mLSTM chunks of 256, the state carried), 32 greedy decode steps
+    through ``transformer.prefill`` / ``decode_step``; prefill cold and
+    warm, decode ms a step, peak memory, a profiled decode step's idle
+    share, no port kernel launched (xLSTM has no attention), and decode
+    parity against ``forward`` within 2e-2;
+14. path 13, the federated trainer on the same model: ``launch.train``'s
+    clients (DAS with ``n_min`` 2) and ``driver_batch`` with
+    ``launch.steps.make_federated_train_step``, K = 8 clients, a global
+    batch of 64 x 512 tokens, AdamW (lr 3e-4, warmup 10), 3 steps (cold,
+    warm, profiled): exactly one ``fedavg_agg`` launch a step (on the
+    (8, 162,317,616) matrix of flattened gradients), finite ce, the
+    warm wall and its parts, peak memory, the profiled step's idle share
+    and its launches by scope, the checkpoint's bytes and save ms; then
+    one plain ``make_train_step`` step at the same size with 1 and 2
+    microbatches, parameters within 2e-3; and xlstm-125m at
+    ``reduced(num_layers=4)`` card against CPU in f32 with TF32 off:
+    forward, prefill + 3 decode steps and one federated step (K = 3)
+    within 1e-4.
 
 The kernel phase first prints, from ``cuobjdump -sass``, the size and
 the atomic instructions of the ``stream_update``, ``diversity`` and
@@ -137,7 +158,8 @@ loop and by CUDA-graph replay beside a latency floor; on the warp route
 it also times every speculative depth (each bit for bit the shipped
 one's) and the block route on the same rows.  It checks ``fedavg_agg``,
 ``fedavg_agg_masked`` and ``fedavg_agg_stale`` at the CNN's and the
-MLP's widths after a NaN fill of shared memory (two launches bit for
+MLP's widths (``fedavg_agg`` also at path 13's (8, 162,317,616), the
+line's ``fedavg_agg_train`` row) after a NaN fill of shared memory (two launches bit for
 bit, the all-ones mask and staleness identities bit for bit, each launch
 through the route of P and the matrix's address) and times each in
 turns against its one-line PyTorch expression (``w @ u``, ``(w * m) @
@@ -287,19 +309,21 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def in_turns(torch, kernel, library, label: str) -> tuple[dict, str]:
+def in_turns(torch, kernel, library, label: str, turns: int = FEDAVG_TURNS,
+             calls: int = 200) -> tuple[dict, str]:
     """``kernel`` and ``library`` (one PyTorch call computing the same
-    function) in FEDAVG_TURNS turns, each side first in half of them, by
-    host loop and by CUDA-graph replay.  Returns the medians (``loop``,
-    ``graph``, ``library_loop``, ``library_graph``) and a line with each
-    side's quartile spread and the turns the kernel wins."""
+    function) in ``turns`` turns, each side first in half of them, by
+    host loop and by CUDA-graph replay of ``calls`` calls.  Returns the
+    medians (``loop``, ``graph``, ``library_loop``, ``library_graph``)
+    and a line with each side's quartile spread and the turns the kernel
+    wins."""
     times = {(fn, how): [] for fn in ("kernel", "library")
              for how in ("loop", "graph")}
-    for turn in range(FEDAVG_TURNS):
+    for turn in range(turns):
         order = (("kernel", kernel), ("library", library))
         for name, fn in order if turn % 2 == 0 else order[::-1]:
-            times[(name, "loop")].append(time_ms(fn, 200))
-            times[(name, "graph")].append(graph_ms(torch, fn, 200))
+            times[(name, "loop")].append(time_ms(fn, calls))
+            times[(name, "graph")].append(graph_ms(torch, fn, calls))
     read, out = [], {}
     for how in ("loop", "graph"):
         ker, lib = times[("kernel", how)], times[("library", how)]
@@ -308,7 +332,7 @@ def in_turns(torch, kernel, library, label: str) -> tuple[dict, str]:
         read.append(f"{how}: kernel median {median(ker):.5f} (quartiles "
                     f"{quartiles(ker)}), {label} median {median(lib):.5f} "
                     f"(quartiles {quartiles(lib)}), kernel faster in {wins} "
-                    f"of {FEDAVG_TURNS} turns")
+                    f"of {turns} turns")
     return out, "; ".join(read)
 
 
@@ -363,6 +387,36 @@ def phase_fedavg(torch, dev, k: int, p: int) -> dict:
           f"plain_ms={plain_ms:.5f} library_ms(w@u)="
           f"{turns['library_loop']:.5f} bound_ms={b_ms:.5f} ({b_by}); in "
           f"turns, {read}", flush=True)
+    return dict(max_abs_err=err, ms=turns["loop"], plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=turns["library_loop"])
+
+
+def phase_fedavg_train(torch, dev, k: int, p: int) -> dict:
+    """``fedavg_agg`` at path 13's shape: K clients' flattened gradients
+    of xlstm-125m, (K, P) = (8, 162,317,616), 5.19 GB in f32.  One input
+    (it is 100x the L2), turns of a few calls each."""
+    from repro_torch.kernels import fedavg_agg as fk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    u = torch.randn((k, p), generator=gen, device=dev)
+    w = torch.softmax(torch.randn((k,), generator=gen, device=dev), 0)
+    _, err, which = fedavg_checked(torch, fk.fedavg_agg, (u, w),
+                                   fk.fedavg_agg_plain,
+                                   f"fedavg_agg K={k} P={p}")
+    turns, read = in_turns(torch, lambda: fk.fedavg_agg(u, w),
+                           lambda: w @ u, "w @ u", turns=4, calls=10)
+    plain_ms = time_ms(lambda: fk.fedavg_agg_plain(u, w), 10)
+    b_ms, b_by = bound(k * p * 4 + k * 4 + p * 4, 2 * k * p)
+    print(f"[kernel] fedavg_agg K={k} P={p} (path 13, {k * p * 4 / 1e9:.2f} "
+          f"GB) route {which}: max_abs_err={err:.3g} (NaN shared memory, two "
+          f"launches bit for bit) ms={turns['loop']:.4f} graph_ms="
+          f"{turns['graph']:.4f} plain_ms={plain_ms:.4f} library_ms(w@u)="
+          f"{turns['library_loop']:.4f} (graph "
+          f"{turns['library_graph']:.4f}) bound_ms={b_ms:.4f} ({b_by}; "
+          f"{b_ms / turns['graph']:.3f} of it by graph); in turns, {read}",
+          flush=True)
+    del u
+    torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=turns["loop"], plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=turns["library_loop"])
@@ -2713,7 +2767,7 @@ def phase_serve(torch, dev) -> dict:
 
 
 def serve_parity(torch, transformer, params, cfg, prompt, tok, logits,
-                 label: str) -> tuple[float, bool]:
+                 label: str, path: int = 6) -> tuple[float, bool]:
     """``forward(prompt + tok)`` at the last position against the first
     decode step's ``logits``: max-abs error over the max-abs logit, and
     whether both pick the same greedy tokens (printed with forward's
@@ -2726,7 +2780,7 @@ def serve_parity(torch, transformer, params, cfg, prompt, tok, logits,
     top = a.topk(2, dim=-1).values
     margin = (top[:, 0] - top[:, 1]) / a.abs().max()
     same = torch.equal(a.argmax(-1), d.argmax(-1))
-    print(f"[path 6] {label} decode parity vs forward at position "
+    print(f"[path {path}] {label} decode parity vs forward at position "
           f"{prompt.shape[1]}: rel err {rel:.3g} (limit "
           f"{SERVE_PARITY_TOL if label == 'bf16' else SERVE_F32_PARITY_TOL:g}"
           f"); greedy tokens forward "
@@ -3264,6 +3318,454 @@ def phase_sweep(torch, dev, data, wcfg, path7_round: float,
           flush=True)
 
 
+# Paths 13-14: xlstm-125m (arXiv 2405.04517 as the registry builds it: 12
+# layers alternating sLSTM / mLSTM, d_model 768, 4 heads, vocab 50,304)
+# at its published width and depth, random weights from a seed, bf16
+# compute.  Path 14 serves it: B = 4, a 2048-token prompt (8 mLSTM chunks
+# of 256, the state carried) and 32 greedy decode steps.  Path 13 trains
+# it federated as launch/train.py does: K = 8 clients, a global batch of
+# 64 (8 sequences a client) of 512 tokens (two mLSTM chunks), AdamW at the
+# CLI's lr 3e-4 and warmup 10, DAS scheduling every step, 3 steps (cold,
+# warm, profiled), set up by the CLI's own ``setup``; then one plain SGD
+# step in f32 at half the batch with 1 and 2 microbatches.  The 8 clients'
+# forward and backward in one pass do not fit in the card's 80 GB at 512
+# tokens, so the step runs them 4 to a pass (``steps.pass_size``, the
+# CLI's default).  Each pass is ~253k launches (the sLSTM's per-position
+# operations, forward and backward), which set the step's wall; hence 3
+# steps, not more.
+XLSTM_B, XLSTM_PROMPT, XLSTM_GEN = 4, 2048, 32
+TRAIN_K, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 64, 512, 3
+XLSTM_PARAMS = 162_317_616
+# Microbatched against one batch, SGD as the reference test takes it:
+# its limits on the parameters (atol = rtol) and on ce
+# (tests/test_system.py::test_microbatched_train_step_matches_mb1).
+TRAIN_MB_TOL, TRAIN_MB_CE_RTOL = 2e-3, 1e-3
+# ... and on the accumulated gradients themselves, ||g1 - g2|| / ||g1||,
+# in f32 with TF32 off.  A dropped microbatch moves them by at least half
+# their norm, a missing 1/m by all of it: at full width (512 positions of
+# 12 layers, from path 13's state) the limit is 0.05, a tenth of the
+# smaller, because two splits of the batch read 2.93e-3 there (not the
+# ~1e-4 of sums in another order: the sensitivity is the model's, see
+# PERF.md).  At reduced(num_layers=4) (the card-vs-CPU phase) the limit
+# is 1e-4, below what a bf16 accumulator's rounding (about 2^-9 of each
+# element) moves them by.  Not in bf16: this model's bf16 gradients part
+# from its f32 ones by 0.17-0.25 at small widths, the reference's as the
+# port's (``python tests/test_torch_train.py``), and two splits of a
+# bf16 batch at full width read 0.2.
+TRAIN_MB_GRAD_TOL, TRAIN_MB_GRAD_TOL_REDUCED = 0.05, 1e-4
+# f32 activations of one 64 x 512 microbatch do not fit in 80 GB beside
+# the trainer's state: the full-width check takes 32 x 512.
+TRAIN_MB_BATCH = 32
+# Card against CPU at xlstm_125m.reduced(num_layers=4), f32 with TF32
+# off: sums in another order.
+XLSTM_CARD_CPU_TOL = 1e-4
+# The driver's scopes (launch/train.py, launch/steps.py).
+TRAIN_SCOPES = ("train/batch", "train/schedule", "federated/client_grads",
+                "federated/fedavg_agg", "federated/optimizer")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def profile_scopes(torch, fn, scopes) -> dict:
+    """Run ``fn`` once under torch.profiler, reading the raw trace (the
+    parsed events of a step with some 10^5 launches take minutes): wall,
+    device busy time and operations, host launches (kernels, copies,
+    fills) in total and within each of ``scopes`` (``record_function``
+    ranges; ``other`` is outside all of them), and each scope's host
+    ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.profiler.kineto_results.events()
+    device = [e for e in events if e.device_type() == DeviceType.CUDA
+              and not e.is_user_annotation()
+              and not e.name().startswith("Activity Buffer")]
+    busy_us = sum(e.duration_ns() for e in device) / 1e3
+    if busy_us <= 0:
+        raise AssertionError("profiler recorded no device time")
+    ranges = {name: [] for name in scopes}
+    starts = []
+    for e in events:
+        if e.device_type() != DeviceType.CPU:
+            continue
+        if e.name() in ranges:
+            ranges[e.name()].append((e.start_ns(), e.end_ns()))
+        elif e.name().startswith(LAUNCH_CALLS):
+            starts.append(e.start_ns())
+    per = {name: sum(1 for t in starts if any(a <= t < b for a, b in rs))
+           for name, rs in ranges.items()}
+    per["other"] = len(starts) - sum(per.values())
+    host_ms = {name: sum(b - a for a, b in rs) / 1e6
+               for name, rs in ranges.items()}
+    return dict(wall_us=wall_us, busy_us=busy_us, device_ops=len(device),
+                launches=len(starts), per_scope=per, host_ms=host_ms)
+
+
+def phase_xlstm_serve(torch, dev) -> dict:
+    """Path 14: xlstm-125m served at full width and depth.  Returns the
+    launch counts of its prefill + decode run: no port kernel (xLSTM has
+    no attention), which the run checks."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    cfg = configs.get("xlstm_125m")
+    b, s, n_gen = XLSTM_B, XLSTM_PROMPT, XLSTM_GEN
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    params = transformer.init(gen, cfg)
+    sp = transformer.serving_params(params, cfg)
+    del params
+    n_params = transformer.param_count(cfg)
+    if n_params != XLSTM_PARAMS:
+        raise AssertionError(f"path 14: {n_params} parameters")
+    print(f"[path 14] {cfg.name}: {n_params} parameters, {cfg.num_layers} "
+          f"layers ({'/'.join(x.mixer for x in cfg.pattern)} x "
+          f"{cfg.num_groups}), d_model {cfg.d_model}, {cfg.xlstm_heads} "
+          f"heads, vocab {cfg.vocab_size}, mLSTM chunk {cfg.ssm_chunk}, "
+          f"{cfg.dtype_compute} compute", flush=True)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(sp, prompt, cfg)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("path 14: non-finite prefill logits")
+    first_tok = tok = logits[:, -1].argmax(-1)[:, None]
+    logits, cache = transformer.decode_step(sp, tok, cache, s, cfg)
+    first_logits = logits.clone()
+    tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, n_gen):
+        logits, cache = transformer.decode_step(sp, tok, cache, s + i, cfg)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (n_gen - 1)
+    counts = read_counts()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("path 14: non-finite decode logits")
+    print(f"[path 14] B={b} prompt {s}: prefill cold {cold:.3f}s; decode "
+          f"{n_gen} greedy steps, warm {step_s * 1e3:.3f} ms per step = "
+          f"{b / step_s:.1f} tokens/s; launches {counts}", flush=True)
+    if counts != dict.fromkeys(_counters(), 0):
+        raise AssertionError(f"path 14 launch counts {counts}")
+    del cache
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(sp, prompt, cfg)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[path 14] prefill warm {warm:.3f}s = {b * s / warm:.0f} tokens/s; "
+          f"max_memory_allocated {peak / 2 ** 30:.2f} GiB", flush=True)
+    prof = profile_scopes(torch, lambda: transformer.decode_step(
+        sp, tok, cache, s + n_gen, cfg), ())
+    print(f"[path 14] profiled decode step: wall {prof['wall_us'] / 1e3:.3f} "
+          f"ms, device busy {prof['busy_us'] / 1e3:.3f} ms, idle share "
+          f"{1 - prof['busy_us'] / prof['wall_us']:.3f}; "
+          f"{prof['launches']} launches, {prof['device_ops']} device "
+          f"operations", flush=True)
+    del cache
+    rel, _ = serve_parity(torch, transformer, sp, cfg, prompt, first_tok,
+                          first_logits, "bf16", path=14)
+    if not rel < SERVE_PARITY_TOL:
+        raise AssertionError(f"path 14 decode parity rel err {rel}")
+    del sp, first_logits
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train(torch, dev, smi: str) -> dict:
+    """Path 13: the federated trainer (``launch.train``'s own setup,
+    batch and schedule, ``launch.steps``' federated step) at full width
+    and depth.  Returns the launch counts of its TRAIN_STEPS steps."""
+    from repro_torch.checkpoint import msgpack_ckpt
+    from repro_torch.kernels import fedavg_agg as fk
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer
+    run = train.setup(train.parse_args([
+        "--arch", "xlstm-125m", "--federated", str(TRAIN_K), "--batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed",
+        str(SEED + 13)]))
+    cfg, ocfg, gen, state, clients, step = (run.cfg, run.ocfg, run.gen,
+                                            run.state, run.clients, run.step)
+    on = run.dev
+    del run
+    per_pass = steps.pass_size(TRAIN_K, TRAIN_BATCH // TRAIN_K * TRAIN_SEQ)
+    print(f"[path 13] {cfg.name} federated on {on}: "
+          f"{transformer.param_count(cfg)} parameters, K={TRAIN_K} clients, "
+          f"global batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, AdamW lr "
+          f"{ocfg.learning_rate} warmup {ocfg.warmup_steps}, DAS (n_min "
+          f"{clients.scfg.n_min}, {clients.scfg.allocator}, iterations_max "
+          f"{clients.scfg.iterations_max}); per-client gradients by "
+          f"torch.func.vmap(grad), {per_pass} clients a pass (the CLI's "
+          f"default: {steps.PASS_TOKENS} tokens a pass)", flush=True)
+
+    def iteration(out: list) -> None:
+        """One iteration of the driver's loop, timed by part."""
+        t0 = time.perf_counter()
+        batch = train.driver_batch(gen, TRAIN_BATCH, TRAIN_SEQ,
+                                   cfg.vocab_size, clients)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new, metrics = step(out[0], batch)
+        ce, n_sel = float(metrics["ce"]), int(metrics["n_selected"])
+        t2 = time.perf_counter()
+        out[:] = [new, (t2 - t0, t1 - t0, t2 - t1), ce, n_sel,
+                  batch["selected"].int().tolist(),
+                  float(metrics["grad_norm"])]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    walls, out = [], [state]
+    for i in range(TRAIN_STEPS):
+        how = ("cold" if i == 0 else "profiled" if i == TRAIN_STEPS - 1
+               else "warm")
+        if how == "profiled":
+            prof = profile_scopes(torch, lambda: iteration(out),
+                                  TRAIN_SCOPES)
+        else:
+            iteration(out)
+        state, wall, ce, n_sel, selected, gnorm = out
+        out = [state]
+        walls.append(wall)
+        if not (math.isfinite(ce) and n_sel >= clients.scfg.n_min):
+            raise AssertionError(f"path 13 step {i}: ce {ce}, n_selected "
+                                 f"{n_sel}")
+        print(f"[path 13] step {i} ({how}): wall {wall[0]:.3f}s = batch + "
+              f"schedule {wall[1]:.3f}s + federated step {wall[2]:.3f}s; ce "
+              f"{ce:.4f}; n_selected {n_sel} {selected}; grad_norm "
+              f"{gnorm:.4f}", flush=True)
+    counts = read_counts()
+    routes = dict(fk.fedavg_agg.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(dict.fromkeys(_counters(), 0), fedavg_agg=TRAIN_STEPS)
+    print(f"[path 13] launches {counts}; fedavg_agg by route {routes}",
+          flush=True)
+    if counts != want or routes["vec4"] != TRAIN_STEPS:
+        raise AssertionError(f"path 13 launch counts {counts}, routes "
+                             f"{routes}, expected {want}, all vec4")
+    warm, tokens = walls[1], TRAIN_BATCH * TRAIN_SEQ
+    print(f"[path 13] warm wall a step {warm[0]:.3f}s = {tokens / warm[0]:.0f}"
+          f" tokens/s (federated step {warm[2]:.3f}s = "
+          f"{tokens / warm[2]:.0f} tokens/s, batch + schedule "
+          f"{warm[1]:.3f}s); max_memory_allocated {peak / 2 ** 30:.2f} GiB; "
+          f"{smi}", flush=True)
+    print(f"[path 13] profiled step: wall {prof['wall_us'] / 1e6:.3f}s, "
+          f"device busy {prof['busy_us'] / 1e6:.3f}s, idle share "
+          f"{1 - prof['busy_us'] / prof['wall_us']:.3f} (against the "
+          f"unprofiled warm step: {1 - prof['busy_us'] / 1e6 / warm[0]:.3f});"
+          f" {prof['launches']} launches ({prof['device_ops']} device "
+          f"operations) by scope {prof['per_scope']}; host ms by scope "
+          f"{ {k: round(v, 1) for k, v in prof['host_ms'].items()} }",
+          flush=True)
+    os.makedirs(os.path.join(ROOT, "build", "train"), exist_ok=True)
+    path = os.path.join(ROOT, "build", "train", "path13.msgpack")
+    t0 = time.perf_counter()
+    msgpack_ckpt.save(path, state["params"],
+                      meta={"step": TRAIN_STEPS, "arch": cfg.name})
+    save_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[path 13] checkpoint {os.path.getsize(path)} bytes saved in "
+          f"{save_ms:.0f} ms", flush=True)
+    os.remove(path)
+    train_microbatches(torch, cfg, state["params"], gen)
+    del state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def microbatch_agreement(torch, cfg, params, batch) -> dict:
+    """``make_train_step`` with 1 and 2 microbatches from ``params`` on
+    ``batch``, SGD as the reference test takes it (momentum 0, lr 0.05,
+    no clip or warmup).  Returns, read back at once: ``excess`` the
+    largest |a - b| - TRAIN_MB_TOL |b| over the two steps' parameters,
+    ``ce`` the two ce's relative difference, ``grad`` the relative
+    distance ||g1 - g2|| / ||g1|| of the gradients the two steps hand
+    the optimizer (recorded on their way into ``optim.apply_updates``),
+    ``finite`` whether every parameter, gradient and ce is finite; and
+    each step's wall and peak memory.  A NaN anywhere makes every number
+    NaN or ``finite`` False."""
+    from repro_torch import optim
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_leaves
+    ocfg = optim.OptimizerConfig(name="sgd", momentum=0.0, learning_rate=0.05,
+                                 grad_clip=0.0, warmup_steps=0)
+    state = {"params": params, "opt": optim.init_state(params, ocfg)}
+    cuda = tree_leaves(params)[0].is_cuda
+    apply_updates, handed = optim.apply_updates, []
+
+    def recorded(params, grads, *args):
+        handed.append(grads)
+        return apply_updates(params, grads, *args)
+
+    new, ce, out = {}, {}, {}
+    optim.apply_updates = recorded
+    try:
+        for mb in (1, 2):
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got, metrics = steps.make_train_step(cfg, ocfg, mb)(state, batch)
+            new[mb], ce[mb] = tree_leaves(got["params"]), metrics["ce"]
+            if cuda:
+                torch.cuda.synchronize()
+            out[f"wall{mb}"] = time.perf_counter() - t0
+            out[f"peak{mb}"] = (torch.cuda.max_memory_allocated() if cuda
+                                else 0)
+    finally:
+        optim.apply_updates = apply_updates
+    names = leaf_paths(handed[0])
+    (g1, g2), a, b = map(tree_leaves, handed), new[1], new[2]
+    excess = torch.stack([((x - y).abs() - TRAIN_MB_TOL * y.abs()).amax()
+                          for x, y in zip(a, b)]).amax()
+    apart = torch.stack([torch.sum(torch.square(x.float() - y.float()))
+                         for x, y in zip(g1, g2)])
+    norm = torch.stack([torch.sum(torch.square(x.float())) for x in g1])
+    finite = torch.stack([torch.isfinite(x).all() for x in a + b + g1 + g2]
+                         + [torch.isfinite(ce[1]), torch.isfinite(ce[2])]
+                         ).all()
+    vals = torch.stack([excess, (ce[1] - ce[2]).abs() / ce[1].abs(),
+                        torch.sqrt(apart.sum() / norm.sum()),
+                        finite.float(), ce[1], ce[2]]).tolist()
+    out.update(zip(("excess", "ce", "grad", "finite", "ce1", "ce2"), vals))
+    out["finite"] = out["finite"] == 1.0
+    # Where the gradients part: the leaf with the largest share of
+    # ||g1 - g2||^2, and the spread of the leaves' own relative distances.
+    apart, norm = apart.tolist(), norm.tolist()
+    i = max(range(len(apart)), key=apart.__getitem__)
+    rels = sorted((d / n) ** 0.5 for d, n in zip(apart, norm) if n > 0)
+    out["where"] = (f"{names[i]} {apart[i] / max(sum(apart), 1e-300):.2f} "
+                    f"of it (its own {(apart[i] / norm[i]) ** 0.5:.3g}); "
+                    f"leaves {rels[0]:.3g} - {rels[-1]:.3g}, median "
+                    f"{rels[len(rels) // 2]:.3g}")
+    return out
+
+
+def leaf_paths(tree, prefix: str = "") -> list:
+    """The '/'-joined key paths of ``tree``'s leaves, in
+    ``tree_leaves``' order."""
+    if not isinstance(tree, dict):
+        return [prefix]
+    return [p for k, v in tree.items()
+            for p in leaf_paths(v, f"{prefix}/{k}")]
+
+
+def microbatches_agree(m: dict, grad_tol: float) -> bool:
+    return (m["finite"] and m["excess"] <= TRAIN_MB_TOL
+            and m["ce"] <= TRAIN_MB_CE_RTOL and m["grad"] <= grad_tol)
+
+
+def train_microbatches(torch, cfg, params, gen) -> None:
+    """One plain step at path 13's width, depth and sequence in f32 with
+    TF32 off (TRAIN_MB_BATCH x 512), 1 and 2 microbatches, from path 13's
+    last parameters (``microbatch_agreement``)."""
+    from repro_torch.launch import train
+    f32 = dataclasses.replace(cfg, dtype_compute="float32")
+    batch = train.synthetic_lm_batch(gen, TRAIN_MB_BATCH, TRAIN_SEQ,
+                                     cfg.vocab_size)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        m = microbatch_agreement(torch, f32, params, batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for mb in (1, 2):
+        print(f"[path 13] plain SGD step, f32, {TRAIN_MB_BATCH} x "
+              f"{TRAIN_SEQ}, {mb} microbatch(es): wall {m[f'wall{mb}']:.3f}s"
+              f" (first call), ce {m[f'ce{mb}']:.4f}, max_memory_allocated "
+              f"{m[f'peak{mb}'] / 2 ** 30:.2f} GiB", flush=True)
+    print(f"[path 13] plain step mb 1 vs mb 2: max(|a - b| - "
+          f"{TRAIN_MB_TOL:g} |b|) = {m['excess']:.3g} (limit "
+          f"{TRAIN_MB_TOL:g}), ce rel {m['ce']:.3g} (limit "
+          f"{TRAIN_MB_CE_RTOL:g}), gradient rel {m['grad']:.3g} (limit "
+          f"{TRAIN_MB_GRAD_TOL:g}), all finite {m['finite']}; gradients "
+          f"part most in {m['where']}", flush=True)
+    if not microbatches_agree(m, TRAIN_MB_GRAD_TOL):
+        raise AssertionError(f"path 13 mb 1 vs mb 2: {m}")
+
+
+def phase_xlstm_card_vs_cpu(torch, dev) -> None:
+    """xlstm-125m at ``reduced(num_layers=4)``, f32 with TF32 off, one set
+    of weights and batches on the card and the CPU: forward logits,
+    prefill of 128 positions (two mLSTM chunks of 64) + 3 decode steps,
+    and one federated step (K = 3, the reference test's selection
+    [1, 0, 1] and sizes [100, 999, 300], SGD lr 0.1); then, on the card,
+    the plain step with 1 and 2 microbatches (``microbatch_agreement``,
+    the gradients within TRAIN_MB_GRAD_TOL_REDUCED)."""
+    from repro_torch import configs, optim
+    from repro_torch.kernels import fedavg_agg as fk
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get("xlstm_125m").reduced(num_layers=4)
+    ocfg = optim.OptimizerConfig(name="sgd", momentum=0.0, learning_rate=0.1,
+                                 grad_clip=0.0, warmup_steps=0)
+    gen = torch.Generator().manual_seed(SEED + 15)
+    state = steps.init_train_state(gen, cfg, ocfg)
+    b, s, n_dec = 2, 128, 3
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + n_dec), generator=gen)
+    batch = {"inputs": torch.randint(0, cfg.vocab_size, (3, 2, 64),
+                                     generator=gen),
+             "labels": torch.randint(0, cfg.vocab_size, (3, 2, 64),
+                                     generator=gen),
+             "selected": torch.tensor([1.0, 0.0, 1.0]),
+             "sizes": torch.tensor([100.0, 999.0, 300.0])}
+    out = {}
+    for device in ("cpu", dev):
+        st = _to(state, device)
+        t = tokens.to(device)
+        fwd, _ = transformer.forward(st["params"], t, cfg)
+        logits, cache = transformer.prefill(st["params"], t[:, :s], cfg)
+        dec = [logits]
+        for i in range(n_dec):
+            logits, cache = transformer.decode_step(
+                st["params"], t[:, s + i:s + i + 1], cache, s + i, cfg)
+            dec.append(logits)
+        before = fk.fedavg_agg.launches
+        new, metrics = steps.make_federated_train_step(cfg, ocfg, 3)(
+            st, {k: v.to(device) for k, v in batch.items()})
+        launched = fk.fedavg_agg.launches - before
+        out[str(device)] = (fwd.cpu(), [x.cpu() for x in dec],
+                            [x.cpu() for x in tree_leaves(new["params"])],
+                            float(metrics["n_selected"]), launched)
+    (f_c, d_c, p_c, n_c, _), (f_g, d_g, p_g, n_g, launched) = out.values()
+    rel_f = float((f_c - f_g).abs().max() / f_c.abs().max())
+    rel_d = max(float((c - g).abs().max() / c.abs().max())
+                for c, g in zip(d_c, d_g))
+    err_p = max(float((c - g).abs().max()) for c, g in zip(p_c, p_g))
+    print(f"[card-vs-cpu] {cfg.name} reduced(num_layers=4) f32: forward "
+          f"logits rel err {rel_f:.3g}, prefill + {n_dec} decode steps "
+          f"{rel_d:.3g}, federated step (K=3) parameters max abs err "
+          f"{err_p:.3g} (limits {XLSTM_CARD_CPU_TOL:g}); n_selected card "
+          f"{n_g} CPU {n_c}; card fedavg_agg launches {launched}",
+          flush=True)
+    if not (max(rel_f, rel_d, err_p) <= XLSTM_CARD_CPU_TOL and n_g == n_c
+            and launched == 1):
+        raise AssertionError("xlstm card vs CPU")
+    mb_batch = {k: torch.randint(0, cfg.vocab_size, (4, 64), generator=gen
+                                 ).to(dev) for k in ("inputs", "labels")}
+    m = microbatch_agreement(torch, cfg, _to(state, dev)["params"], mb_batch)
+    print(f"[card-vs-cpu] {cfg.name} reduced(num_layers=4) f32 on the card, "
+          f"plain SGD step mb 1 vs mb 2 (4 x 64): max(|a - b| - "
+          f"{TRAIN_MB_TOL:g} |b|) = {m['excess']:.3g}, ce rel {m['ce']:.3g},"
+          f" gradient rel {m['grad']:.3g} (limit "
+          f"{TRAIN_MB_GRAD_TOL_REDUCED:g}), all finite {m['finite']}; "
+          f"gradients part most in {m['where']}", flush=True)
+    if not microbatches_agree(m, TRAIN_MB_GRAD_TOL_REDUCED):
+        raise AssertionError(f"xlstm mb 1 vs mb 2 in f32: {m}")
+
+
 KERNELS = {
     "fedavg_agg": ("src/repro_torch/csrc/fedavg_agg.cu",
                    "src/repro/kernels/fedavg_agg.py:30"),
@@ -3287,10 +3789,12 @@ KERNELS = {
                                "src/repro/kernels/flash_attention.py:90"),
 }
 # The batch paths' rows: each kernel at the S = BATCH_S shapes of its
-# batch path, with that path's launches.
+# batch path, with that path's launches; and fedavg_agg at path 13's shape
+# (the federated trainer's K = 8 flattened gradients of xlstm-125m).
 KERNELS.update({f"{name}_batch": KERNELS[name] for name in (
     "diversity", "sub2_pgd", "fedavg_agg", "stream_update",
     "fedavg_agg_masked", "compress_update", "fedavg_agg_stale")})
+KERNELS["fedavg_agg_train"] = KERNELS["fedavg_agg"]
 
 
 def main() -> int:
@@ -3300,6 +3804,7 @@ def main() -> int:
         return 2
     from repro_torch.core import bandwidth
     from repro_torch.kernels import _build
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = smi_line()
     print(f"[card] {smi} (torch {torch.__version__}, CUDA "
@@ -3329,6 +3834,8 @@ def main() -> int:
         "fedavg_agg_masked": phase_masked(torch, dev, 100, P_CNN),
         "fedavg_agg_stale": phase_stale(torch, dev, 100, P_CNN),
         **phase_flash(torch, dev),
+        "fedavg_agg_train": phase_fedavg_train(torch, dev, TRAIN_K,
+                                               XLSTM_PARAMS),
     }
     phase_fedavg(torch, dev, 100, P_MLP)
     results["sub2_pgd_batch"] = phase_sub2(torch, dev, BATCH_S, 100)
@@ -3364,7 +3871,7 @@ def main() -> int:
              "diversity_batch": 7, "sub2_pgd_batch": 7,
              "fedavg_agg_batch": 7, "stream_update_batch": 8,
              "fedavg_agg_masked_batch": 8, "compress_update_batch": 9,
-             "fedavg_agg_stale_batch": 10}
+             "fedavg_agg_stale_batch": 10, "fedavg_agg_train": 13}
     by_path, recs, walls = {}, {}, {}
     for path in (1, 2, 3):
         by_path[path], recs[path], walls[path] = phase_path(
@@ -3405,11 +3912,16 @@ def main() -> int:
         phase_batch_card_vs_cpu(torch, dev, path, horizon=horizon16)
     by_path[6] = phase_serve(torch, dev)
     phase_dense_card_vs_cpu(torch, dev)
+    by_path[14] = phase_xlstm_serve(torch, dev)
+    by_path[13] = phase_train(torch, dev, smi)
+    phase_xlstm_card_vs_cpu(torch, dev)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=by_path[owner[name]][name.removesuffix(
-                        "_batch")], **results[name])
+                    launches=by_path[owner[name]][re.sub(
+                        "_(batch|train)$", "", name)], **results[name])
                for name, (src, rep) in KERNELS.items()]
+    print(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,9 @@ a random prompt, ``transformer.prefill`` then token-by-token
 ``transformer.decode_step`` with temperature sampling.  Runs on the CUDA
 card by default, where every attention layer goes through the
 ``flash_attention`` kernel; ``--device cpu`` runs its plain version.
-Dense decoder-only architectures only (h2o-danube-3-4b,
-codeqwen1.5-7b, qwen3-14b, stablelm-12b); the others raise
-``NotImplementedError``.
+The dense decoder-only architectures (h2o-danube-3-4b,
+codeqwen1.5-7b, qwen3-14b, stablelm-12b) and xlstm-125m (recurrent
+states in place of K/V); the others raise ``NotImplementedError``.
 """
 
 import argparse

@@ -76,23 +76,47 @@ def dataset_from_numpy(*, images, labels, mask, sizes, test_images,
         test_labels=torch.from_numpy(np.array(test_labels, np.int32)))
 
 
+def _tensor_from_numpy(a, device=None) -> torch.Tensor:
+    """One array as a tensor of its dtype on ``device``; an ``ml_dtypes``
+    bfloat16 array (numpy has no bfloat16 of its own) through its raw
+    16-bit payload."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _tree_from_numpy(tree, device):
+    if isinstance(tree, Mapping):
+        return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    return _tensor_from_numpy(tree, device)
+
+
 def transformer_params_from_numpy(params_np, cfg, device=None) -> dict:
     """The model zoo's parameters from the reference's pytree as numpy.
 
     ``params_np`` is ``{"embed", "layers": {"pos<i>": {... stacked
     (num_groups, ...)}}, "final_norm", "lm_head"}``, as
-    ``repro.models.transformer.init`` builds it; the port keeps the same
-    nesting, shapes and (in, out) weight layout, so each leaf becomes a
-    tensor of its dtype on ``device``.  ``cfg`` is checked against the
-    port's support (``transformer.check_supported``).
+    ``repro.models.transformer.init`` builds it (attention, MLP and xLSTM
+    leaves alike); the port keeps the same nesting, shapes and (in, out)
+    weight layout, so each leaf becomes a tensor of its dtype on
+    ``device``.  ``cfg`` is checked against the port's support
+    (``transformer.check_supported``).
     """
     from repro_torch.models import transformer
     transformer.check_supported(cfg)
+    return _tree_from_numpy(params_np, device)
 
-    def conv(tree):
-        if isinstance(tree, Mapping):
-            return {k: conv(v) for k, v in tree.items()}
-        return torch.from_numpy(np.array(tree)).to(device)
 
-    return conv(params_np)
-
+def train_state_from_numpy(state_np, cfg, device=None) -> dict:
+    """A train state ``{"params", "opt"}`` from the reference's
+    (``repro.launch.steps.init_train_state`` or a step's output) as
+    numpy: the parameters as :func:`transformer_params_from_numpy`, the
+    optimizer state's moments (``mu`` and ``nu`` for AdamW, ``mu`` for
+    SGD with momentum; f32 or bf16) with the parameters' nesting, and its
+    int32 step ``count``, so the port's step resumes the reference's run
+    mid-way."""
+    return {"params": transformer_params_from_numpy(state_np["params"], cfg,
+                                                    device),
+            "opt": _tree_from_numpy(state_np["opt"], device)}

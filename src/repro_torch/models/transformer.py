@@ -1,22 +1,24 @@
-"""Model assembly for the dense decoder-only zoo: serving and evaluation.
+"""Model assembly for the decoder-only zoo: serving, evaluation, training.
 
 Port of ``repro.models.transformer`` for configurations whose mixers are
-all ``attn`` and whose FFNs are all ``mlp`` (h2o-danube-3-4b,
-codeqwen1.5-7b, qwen3-14b, stablelm-12b).  A model is: token embedding ->
+``attn``, ``mlstm`` or ``slstm`` and whose FFNs are ``mlp`` or ``none``:
+the four dense decoders (h2o-danube-3-4b, codeqwen1.5-7b, qwen3-14b,
+stablelm-12b) and xlstm-125m.  A model is: token embedding ->
 ``num_groups`` repetitions of the layer ``pattern`` -> final norm -> LM
 head.  Layer parameters are stacked per pattern position with a leading
 group dim, as in the reference, and run as a Python loop over the groups
-(the reference's ``unroll`` mode; without a backward pass ``remat`` has
-no meaning).  Any other mixer, MoE FFNs, encoder-decoder models, M-RoPE
-or embedding inputs raise ``NotImplementedError`` naming their ROADMAP
-item.
+(the reference's ``unroll`` mode; the train steps' rematerialization is
+``launch.steps.chunked_xent``'s).  Mamba mixers, MoE FFNs,
+encoder-decoder models, M-RoPE or embedding inputs raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Three entry points:
 
-* :func:`forward`      — full-sequence logits (evaluation)
+* :func:`forward`      — full-sequence logits (training / evaluation),
+  or the final-norm hidden states (``return_hidden``)
 * :func:`prefill`      — prompt -> last-token logits + decode cache
 * :func:`decode_step`  — one token + cache -> logits; the cache is
-  updated in place
+  updated in place (attention K/V and recurrent states alike)
 
 ``decode_step`` takes the position ``index`` as a host ``int``: the
 serving loop counts positions on the host, so the kernel's ``kv_len``
@@ -33,13 +35,16 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models import attention, common, moe
+from repro_torch.models import attention, common, moe, xlstm
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.tree import tree_leaves
 
 Params = Dict[str, Any]
 
-# Leaves the reference reads in f32 whatever the compute dtype.
-_F32_KEYS = frozenset({"norm1", "norm2", "final_norm", "q_norm", "k_norm"})
+# Leaves the reference reads in f32 whatever the compute dtype: the
+# norms, and xLSTM's gate projections, biases and sLSTM recurrence.
+_F32_KEYS = frozenset({"norm1", "norm2", "final_norm", "q_norm", "k_norm",
+                       "norm", "wif", "if_bias", "wr", "bias"})
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -50,16 +55,12 @@ def check_supported(cfg: ModelConfig) -> None:
                 "sinusoidal positions)", "17g")
     elif cfg.input_mode != "tokens" or cfg.mrope_sections:
         what = "VLM inputs (M-RoPE, embeddings input)", "17f"
-    elif mixers - {"attn"} and "attn" in mixers:
+    elif "mamba" in mixers and "attn" in mixers:
         what = "hybrid attention/SSM stacks (Jamba)", "17e"
     elif "mamba" in mixers:
         what = "SSM (Mamba) mixers", "17c"
-    elif mixers - {"attn"}:
-        what = "xLSTM mixers", "17d"
     elif cfg.is_moe:
         what = "MoE FFNs (router and expert dispatch)", "17b"
-    elif any(s.ffn != "mlp" for s in cfg.pattern):
-        what = "layers without an MLP", "17"
     else:
         return
     raise NotImplementedError(
@@ -92,13 +93,8 @@ def _init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     grp = (cfg.num_groups,)
     p: Params = {"embed": common.embed_init(gen, cfg.vocab_size,
                                             cfg.d_model, dt)}
-    p["layers"] = {
-        f"pos{i}": {
-            "norm1": common.norm_init(cfg.d_model, cfg.norm_type, grp),
-            "mixer": attention.init(gen, cfg, grp),
-            "norm2": common.norm_init(cfg.d_model, cfg.norm_type, grp),
-            "ffn": moe.mlp_init(gen, cfg, groups=grp),
-        } for i in range(len(cfg.pattern))}
+    p["layers"] = {f"pos{i}": _block_init(gen, spec, cfg, grp)
+                   for i, spec in enumerate(cfg.pattern)}
     p["final_norm"] = common.norm_init(cfg.d_model, cfg.norm_type)
     if not cfg.tie_embeddings:
         p["lm_head"] = common.dense_init(gen, (cfg.d_model, cfg.vocab_size),
@@ -106,12 +102,20 @@ def _init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+_MIXER_INIT = {"attn": attention.init, "mlstm": xlstm.mlstm_init,
+               "slstm": xlstm.slstm_init}
+
+
+def _block_init(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
+                grp: Tuple[int, ...]) -> Params:
+    """One pattern position's stacked block: ``norm1`` and ``mixer``,
+    then ``norm2`` and ``ffn`` unless the layer has no FFN."""
+    p: Params = {"norm1": common.norm_init(cfg.d_model, cfg.norm_type, grp),
+                 "mixer": _MIXER_INIT[spec.mixer](gen, cfg, grp)}
+    if spec.ffn != "none":
+        p["norm2"] = common.norm_init(cfg.d_model, cfg.norm_type, grp)
+        p["ffn"] = moe.mlp_init(gen, cfg, groups=grp)
+    return p
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -119,14 +123,16 @@ def param_count(cfg: ModelConfig) -> int:
     into them)."""
     check_supported(cfg)
     with torch.device("meta"):
-        return sum(t.numel() for t in _leaves(_init(torch.Generator(), cfg)))
+        return sum(t.numel()
+                   for t in tree_leaves(_init(torch.Generator(), cfg)))
 
 
 def serving_params(params: Params, cfg: ModelConfig) -> Params:
     """A copy of ``params`` with every weight the blocks cast at use in
-    the compute dtype (the norms' parameters and ``q_norm``/``k_norm``
-    stay f32, as the blocks read them).  The products then see the same
-    rounded values as with ``params``."""
+    the compute dtype (the norms' parameters, ``q_norm``/``k_norm`` and
+    xLSTM's gate and recurrent leaves stay f32, as the blocks read
+    them).  The products then see the same rounded values as with
+    ``params``."""
     dt = common.dtype_of(cfg.dtype_compute)
 
     def cast(tree, keep: bool):
@@ -148,16 +154,33 @@ def _group(tree, g: int):
 # Blocks and entry points
 # ---------------------------------------------------------------------------
 
+def _mixer_full(bp: Params, spec: LayerSpec, h: torch.Tensor,
+                cfg: ModelConfig, positions, collect_state: bool):
+    if spec.mixer == "attn":
+        return attention.forward(bp["mixer"], h, cfg, positions,
+                                 layer_window=spec.sliding_window,
+                                 return_kv=collect_state)
+    fwd = (xlstm.mlstm_forward if spec.mixer == "mlstm"
+           else xlstm.slstm_forward)
+    return fwd(bp["mixer"], h, cfg, return_state=collect_state)
+
+
+def _ffn(bp: Params, spec: LayerSpec, x: torch.Tensor,
+         cfg: ModelConfig) -> torch.Tensor:
+    if spec.ffn == "none":
+        return x
+    h = common.apply_norm(bp["norm2"], x, cfg.norm_type, cfg.norm_eps)
+    return x + moe.mlp_apply(bp["ffn"], h, cfg)
+
+
 def _block_full(bp: Params, spec: LayerSpec, x: torch.Tensor,
                 cfg: ModelConfig, positions, collect_state: bool):
-    """Pre-norm residual block.  Returns ``(x, (k, v) or None)``."""
+    """Pre-norm residual block.  Returns ``(x, state)``: ``(k, v)`` of an
+    attention layer or a recurrent mixer's final state when
+    ``collect_state``, else None."""
     h = common.apply_norm(bp["norm1"], x, cfg.norm_type, cfg.norm_eps)
-    h, kv = attention.forward(bp["mixer"], h, cfg, positions,
-                              layer_window=spec.sliding_window,
-                              return_kv=collect_state)
-    x = x + h
-    h = common.apply_norm(bp["norm2"], x, cfg.norm_type, cfg.norm_eps)
-    return x + moe.mlp_apply(bp["ffn"], h, cfg), kv
+    h, state = _mixer_full(bp, spec, h, cfg, positions, collect_state)
+    return _ffn(bp, spec, x + h, cfg), state
 
 
 def embed_inputs(params: Params, inputs: torch.Tensor,
@@ -167,13 +190,21 @@ def embed_inputs(params: Params, inputs: torch.Tensor,
     return x.to(common.dtype_of(cfg.dtype_compute))
 
 
+def head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The (D, V) LM head."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def final_norm(params: Params, x: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    return common.apply_norm(params["final_norm"], x, cfg.norm_type,
+                             cfg.norm_eps)
+
+
 def lm_logits(params: Params, x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
-    x = common.apply_norm(params["final_norm"], x, cfg.norm_type,
-                          cfg.norm_eps)
-    head = (params["embed"].T if cfg.tie_embeddings
-            else params["lm_head"])
-    logits = x @ head.to(x.dtype)
+    x = final_norm(params, x, cfg)
+    logits = x @ head_matrix(params, cfg).to(x.dtype)
     if cfg.logits_softcap > 0.0:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
     return logits
@@ -184,9 +215,15 @@ def default_positions(inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return torch.arange(s, device=inputs.device)[None].expand(b, s)
 
 
-def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig
+def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
+            return_hidden: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence logits (B, S, V) and the MoE aux loss (0 here)."""
+    """Full-sequence logits (B, S, V) and the MoE aux loss (0 here).
+
+    ``return_hidden=True`` returns the final-norm hidden states (B, S, D)
+    in place of the logits, so the loss can fold the LM head into a
+    chunked cross-entropy (``launch.steps.chunked_xent``).
+    """
     check_supported(cfg)
     x = embed_inputs(params, inputs, cfg)
     positions = default_positions(inputs, cfg)
@@ -195,23 +232,46 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig
         for i, spec in enumerate(cfg.pattern):
             x, _ = _block_full(gp[f"pos{i}"], spec, x, cfg, positions, False)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return final_norm(params, x, cfg), aux
     return lm_logits(params, x, cfg), aux
+
+
+def _layer_cache_init(spec: LayerSpec, cfg: ModelConfig, batch: int,
+                      max_len: int, dtype, device) -> Params:
+    grp = (cfg.num_groups,)
+    if spec.mixer == "mlstm":
+        return xlstm.mlstm_init_state(cfg, batch, device, grp)
+    if spec.mixer == "slstm":
+        return xlstm.slstm_init_state(cfg, batch, device, grp)
+    size = (cfg.sliding_window if spec.sliding_window and cfg.sliding_window
+            else max_len)
+    return attention.init_cache(cfg, batch, size, dtype, device, groups=grp)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None) -> Params:
-    """Zero decode cache, stacked (num_groups, B, L, KV, hd) per pattern
-    position: full-attention layers hold ``max_len`` positions, SWA
-    layers a ring of ``sliding_window`` slots, as the reference's
-    ``prefill`` lays them out (its ``init_cache`` trims the ring to
-    ``max_len`` when that is shorter, and a ring shorter than the window
-    would drop visible keys once decoding passes ``max_len``)."""
+    """Decode cache, stacked (num_groups, ...) per pattern position.
+    Attention layers: zero K/V (B, L, KV, hd) in ``dtype``, full-attention
+    layers holding ``max_len`` positions and SWA layers a ring of
+    ``sliding_window`` slots, as the reference's ``prefill`` lays them out
+    (its ``init_cache`` trims the ring to ``max_len`` when that is
+    shorter, and a ring shorter than the window would drop visible keys
+    once decoding passes ``max_len``).  mLSTM / sLSTM layers: the
+    recurrent state's start, in f32 whatever ``dtype``, as the
+    reference's."""
     check_supported(cfg)
     dtype = dtype or common.dtype_of(cfg.dtype_compute)
-    return {f"pos{i}": attention.init_cache(
-        cfg, batch, cfg.sliding_window if spec.sliding_window
-        and cfg.sliding_window else max_len, dtype, device,
-        groups=(cfg.num_groups,)) for i, spec in enumerate(cfg.pattern)}
+    return {f"pos{i}": _layer_cache_init(spec, cfg, batch, max_len, dtype,
+                                         device)
+            for i, spec in enumerate(cfg.pattern)}
+
+
+def _store_state(dst: Dict[str, torch.Tensor],
+                 state: Dict[str, torch.Tensor]) -> None:
+    """Write a recurrent mixer's state into its layer's cache slices."""
+    for key, t in state.items():
+        dst[key].copy_(t)
 
 
 def _attn_cache_layout(dst: Dict[str, torch.Tensor], k: torch.Tensor,
@@ -237,7 +297,7 @@ def prefill(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
     """Process the prompt (B, S); return (last-token logits (B, 1, V),
     decode cache).  Full-attention layers keep S positions zero-padded to
     ``pad_to`` (when larger), SWA layers a ring of ``sliding_window``
-    slots."""
+    slots, recurrent layers their final state."""
     check_supported(cfg)
     x = embed_inputs(params, inputs, cfg)
     positions = default_positions(inputs, cfg)
@@ -247,10 +307,13 @@ def prefill(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
     for g in range(cfg.num_groups):
         gp = _group(params["layers"], g)
         for i, spec in enumerate(cfg.pattern):
-            x, (k, v) = _block_full(gp[f"pos{i}"], spec, x, cfg, positions,
-                                    True)
-            _attn_cache_layout(_group(caches[f"pos{i}"], g), k, v, spec,
-                               cfg, seq_len)
+            x, state = _block_full(gp[f"pos{i}"], spec, x, cfg, positions,
+                                   True)
+            dst = _group(caches[f"pos{i}"], g)
+            if spec.mixer == "attn":
+                _attn_cache_layout(dst, *state, spec, cfg, seq_len)
+            else:
+                _store_state(dst, state)
     return lm_logits(params, x[:, -1:, :], cfg), caches
 
 
@@ -265,13 +328,16 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
     for g in range(cfg.num_groups):
         for i, spec in enumerate(cfg.pattern):
             bp = _group(params["layers"][f"pos{i}"], g)
+            gc = _group(cache[f"pos{i}"], g)
             h = common.apply_norm(bp["norm1"], x, cfg.norm_type,
                                   cfg.norm_eps)
-            h, _ = attention.decode(bp["mixer"], h,
-                                    _group(cache[f"pos{i}"], g), index, cfg,
-                                    layer_window=spec.sliding_window)
-            x = x + h
-            h = common.apply_norm(bp["norm2"], x, cfg.norm_type,
-                                  cfg.norm_eps)
-            x = x + moe.mlp_apply(bp["ffn"], h, cfg)
+            if spec.mixer == "attn":
+                h, _ = attention.decode(bp["mixer"], h, gc, index, cfg,
+                                        layer_window=spec.sliding_window)
+            else:
+                dec = (xlstm.mlstm_decode if spec.mixer == "mlstm"
+                       else xlstm.slstm_decode)
+                h, state = dec(bp["mixer"], h, gc, cfg)
+                _store_state(gc, state)
+            x = _ffn(bp, spec, x + h, cfg)
     return lm_logits(params, x, cfg), cache
