@@ -141,7 +141,29 @@ each phase failing the script on error:
     microbatches, parameters within 2e-3; and xlstm-125m at
     ``reduced(num_layers=4)`` card against CPU in f32 with TF32 off:
     forward, prefill + 3 decode steps and one federated step (K = 3)
-    within 1e-4.
+    within 1e-4;
+15. paths 15-17, the MoE decoders and the Jamba hybrid served at their
+    published widths with seeded random weights made in bf16, cut in
+    depth to fit one card (``MOE_PATHS``): path 15 mixtral-8x22b, 4 of
+    56 layers (48 / 8 heads of 128, window 4096, 8 experts top-2, d_ff
+    16384); path 16 qwen3-moe-235b-a22b, 4 of 94 (64 / 4 heads, qk_norm,
+    128 experts top-8, d_ff 1536); path 17 jamba-1.5-large-398b, the
+    first four positions of its period (attention + MoE, Mamba + MLP,
+    Mamba + MoE, Mamba + MLP; d_model 8192, 16 experts top-2, d_ff 24576,
+    a Mamba of d_inner 16384 in 256 heads of 64, state 16).  Each: B =
+    4, a 5120-token prompt, 32 greedy decode steps through
+    ``transformer.prefill`` / ``decode_step`` with ``dense_grouped``
+    dispatch; its cuts, parameter count (against the reckoning),
+    prefill cold and warm, decode ms a step, peak memory, a profiled
+    decode step's idle share and flash's share of device time, the
+    profiled prefill's, flash launches by route (4 prefill + 4 x 32
+    decode on paths 15-16, 1 + 32 on path 17, every one checked), the
+    share of MoE assignments dropped in prefill by MoE layer, and decode
+    parity against ``forward`` within 2e-2 on a second, dropless run
+    (``moe_impl="ragged"``); then the three at ``reduced()`` on the card
+    and the CPU (f32, TF32 off, groups of 32 at capacity factor 0.5):
+    forward, prefill and 3 decode steps within 1e-4, equal expert ids
+    and kept assignments, drops in several prefill groups.
 
 The kernel phase first prints, from ``cuobjdump -sass``, the size and
 the atomic instructions of the ``stream_update``, ``diversity`` and
@@ -180,7 +202,11 @@ SDPA.  The kernels line has two rows for ``flash_attention`` (the bf16
 prefill on the tensor cores, and ``flash_attention_decode``, the decode
 kernel, each with its route's launches on path 6) and two for
 ``compress_update`` (its quant launches on path 3, and
-``compress_update_topk``, path 3's topk round), and one row
+``compress_update_topk``, path 3's topk round), four for flash at paths
+15-17's query groups (``MOE_FLASH``: ``flash_attention_g6``, ``_g16``,
+``_g8`` the prefill of paths 15, 16, 17 and
+``flash_attention_decode_g8`` path 17's decode, each timed at its path's
+shape and with that path's launches), and one row
 ``<kernel>_batch`` for each kernel of a batch path (at S = 16, with that
 path's launches; ``fedavg_agg_stale_batch`` with path 10's).  Each
 path prints its launches by route.  At S = 16 the kernel phase also
@@ -1206,7 +1232,34 @@ FLASH_EDGES = [
     (2, 1, 100, 6, 1, 256, dict(causal=False, window=0)),
     (2, 1, 96, 8, 2, 120, dict(causal=False, window=0, kv_len=70)),
     (1, 1, 40, 4, 1, 120, dict(causal=False, window=0)),
+    # The query groups of paths 15-17 at hd 128: mixtral's G = 6 under
+    # its 4096 window (Sq past it), jamba's G = 8, qwen3-moe's G = 16
+    # (4 positions to a 64-row tile; Sq not a multiple of 64), and
+    # decode at G = 8.
+    (1, 4500, 4500, 6, 1, 128, dict(causal=True, window=4096)),
+    (2, 300, 300, 16, 2, 128, dict(causal=True, window=0)),
+    (1, 250, 250, 16, 1, 128, dict(causal=True, window=0, kv_len=230)),
+    (2, 1, 500, 64, 8, 128, dict(causal=False, window=0, kv_len=450)),
 ]
+# The kernel phase's rows at the shapes of paths 15-17, by the kernels
+# line's row names: (path, the timed shape (B, Sq, Skv, H, KV), the
+# checked shape, masks), all at hd 128 in bf16.  The prefill is timed on
+# one sequence of the prompt (the plain version's (H, S, S) f32 scores
+# of four do not fit beside its softmax) and checked on one KV group, as
+# path 6's; decode at jamba's cache after its last step.  Each row's
+# launches are its path's, by route.
+MOE_FLASH = {
+    "flash_attention_g6": (15, (1, 5120, 5120, 48, 8), (1, 5120, 5120, 6, 1),
+                           dict(causal=True, window=4096)),
+    "flash_attention_g16": (16, (1, 5120, 5120, 64, 4),
+                            (1, 5120, 5120, 16, 1),
+                            dict(causal=True, window=0)),
+    "flash_attention_g8": (17, (1, 5120, 5120, 64, 8), (1, 5120, 5120, 8, 1),
+                           dict(causal=True, window=0)),
+    "flash_attention_decode_g8": (17, (4, 1, 5153, 64, 8),
+                                  (4, 1, 5153, 64, 8),
+                                  dict(causal=False, window=0)),
+}
 
 
 def flash_inputs(torch, dev, gen, b, sq, skv, h, kv, hd, dtype, copies=1):
@@ -1403,9 +1456,10 @@ def flash_timed(torch, fa, sets, label: str, **kw) -> dict:
 def phase_flash(torch, dev) -> dict:
     """flash_attention against its plain version at the prefill (one KV
     group), decode and edge shapes in bf16 and f32; times at the path's
-    prefill (B = 4) and decode shapes.  Returns the rows of the kernels
-    line: the bf16 prefill (``flash_attention``, the tensor-core kernel)
-    and the bf16 decode (``flash_attention_decode``)."""
+    prefill (B = 4) and decode shapes, and at paths 15-17's
+    (``MOE_FLASH``).  Returns the rows of the kernels line: the bf16
+    prefill (``flash_attention``, the tensor-core kernel), the bf16
+    decode (``flash_attention_decode``) and the ``MOE_FLASH`` rows."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     lib = _build.library()
@@ -1465,6 +1519,16 @@ def phase_flash(torch, dev) -> dict:
                                               **dec)
         del sets
         torch.cuda.empty_cache()
+    # Paths 15-17's shapes at hd 128 (see MOE_FLASH); the decode row at
+    # jamba's cache after its last step.
+    for name, (path, (b, sq, skv, hh, kvv), _, kw) in MOE_FLASH.items():
+        n = cycling(2 * b * (sq * hh + 2 * skv * kvv) * 128)
+        sets = flash_inputs(torch, dev, gen, b, sq, skv, hh, kvv, 128,
+                            torch.bfloat16, n)
+        rows[name] = flash_timed(torch, fa, sets, f"(e) {name}, path {path} "
+                                 f"shape", kv_len=skv, **kw)
+        del sets
+        torch.cuda.empty_cache()
     # The wider head widths of the tensor-core prefill (stablelm-12b's 160,
     # and 256, where the kernel spills registers): timed, not in the line.
     for b, sq, hh, kvv, d in ((2, 4096, 32, 8, 160), (1, 2048, 8, 2, 256)):
@@ -1501,12 +1565,21 @@ def phase_flash(torch, dev) -> dict:
     splits = {key: n for key, n in fa._MAX_SPLITS.items()}
     print(f"[kernel] flash_attention decode cluster sizes chosen "
           f"(SMs, dtype, G, hd, clusters) -> splits: {splits}", flush=True)
+    moe_rows = {}
+    for name, (path, _, shape, kw) in MOE_FLASH.items():
+        (q, k, v), = flash_inputs(torch, dev, gen, *shape, 128,
+                                  torch.bfloat16)
+        err = flash_check(torch, fa, q, k, v, f"(e) {name}, path {path}",
+                          kv_len=k.shape[1], **kw)
+        moe_rows[name] = dict(rows[name], max_abs_err=err)
+        del q, k, v
     return {
         "flash_attention": dict(rows[("prefill", torch.bfloat16)],
                                 max_abs_err=errs[("prefill", torch.bfloat16)]),
         "flash_attention_decode": dict(
             rows[("decode", torch.bfloat16)],
             max_abs_err=errs[("decode", torch.bfloat16)]),
+        **moe_rows,
     }
 
 
@@ -3482,6 +3555,349 @@ def phase_xlstm_serve(torch, dev) -> dict:
     return counts
 
 
+# Paths 15-17: the MoE decoders and the Jamba hybrid served at their
+# published widths, cut in depth to fit one card: 4 of mixtral-8x22b's 56
+# layers, 4 of qwen3-moe-235b-a22b's 94, and the first four positions of
+# jamba-1.5-large-398b's period of 8 (attention + MoE, Mamba + MLP,
+# Mamba + MoE, Mamba + MLP; the whole period is 84.06 GiB in bf16).  The
+# weights are made in bf16 (``dtype_params``): an f32 draw and a bf16
+# copy would take 6 bytes a parameter.  B = 4 and a 5120-token prompt:
+# past mixtral's 4096 window, 20 SSD chunks of 256, and 5 MoE groups of
+# 4096 tokens (not the one-group fallback).
+MOE_B, MOE_PROMPT, MOE_GEN, MOE_LAYERS = 4, 5120, 32, 4
+# path -> (architecture, parameters of the cut configuration, as the
+# reference's ``transformer.param_count`` reckons them).
+MOE_PATHS = {15: ("mixtral_8x22b", 10_418_903_040),
+             16: ("qwen3_moe_235b_a22b", 11_195_683_840),
+             17: ("jamba_1_5_large_398b", 22_975_670_528)}
+# Card against CPU at reduced() (f32, TF32 off): groups of 32 tokens at
+# half the capacity, so that several groups drop assignments (a group of
+# 16 tokens or fewer never drops: the capacity's floor).
+MOE_CARD_CPU_DISPATCH = dict(moe_group_size=32, moe_capacity_factor=0.5)
+
+
+def moe_path_config(path: int):
+    from repro_torch import configs
+    cfg = configs.get(MOE_PATHS[path][0])
+    return dataclasses.replace(cfg, num_layers=MOE_LAYERS,
+                               pattern=cfg.pattern[:MOE_LAYERS],
+                               dtype_params="bfloat16")
+
+
+@contextlib.contextmanager
+def moe_records(last_of: int = 0):
+    """Record every MoE layer call's expert ids (``moe.route``) and
+    kept assignments (``moe.dispatch_slots``, ``dense_grouped`` only) as
+    device tensors, read after the run.  With ``last_of``, also each
+    call's router input and f32 router probabilities at the last of
+    every ``last_of`` rows (each sequence's last position)."""
+    from repro_torch.models import moe
+    rec = {"ids": [], "keep": [], "x": [], "probs": []}
+    route, slots = moe.route, moe.dispatch_slots
+
+    def route_rec(p, x2d, cfg):
+        out = route(p, x2d, cfg)
+        rec["ids"].append(out[0])
+        if last_of:
+            x = x2d.view(-1, last_of, x2d.shape[-1])[:, -1].float()
+            rec["x"].append(x)
+            rec["probs"].append((x @ p["router"].float()).softmax(dim=-1))
+        return out
+
+    def slots_rec(*args, **kw):
+        out = slots(*args, **kw)
+        rec["keep"].append(out[1])
+        return out
+    moe.route, moe.dispatch_slots = route_rec, slots_rec
+    try:
+        yield rec
+    finally:
+        moe.route, moe.dispatch_slots = route, slots
+
+
+# Decode parity of paths 15-17 holds each sequence whose routing at the
+# last position is the same in forward and in decode.  Where a top-k
+# choice first differs in a sequence, the two probabilities it parts
+# must nearly tie (their gap below this share of the k-th probability:
+# bf16 rounding moves the router's input by ~1e-2, its logits by a few
+# 1e-2; gaps of 0.009-0.013 read on path 16), and that sequence's logits
+# are printed, not held (its later layers see inputs parted by the flip).
+# The f32 run holds every sequence.
+MOE_FLIP_GAP = 0.05
+
+
+def moe_parity(torch, transformer, params, cfg, prompt, label: str,
+               path: int, tol: float, flips: bool = True,
+               held: bool = True) -> None:
+    """Prefill + one decode step against ``forward`` at the last
+    position on a dropless dispatch (``ragged``), per sequence, with the
+    routing of both at that position; ``flips=False`` holds every
+    sequence, ``held=False`` only prints the errors."""
+    cfg = dataclasses.replace(cfg, moe_impl="ragged")
+    b, s = prompt.shape
+    n = s + 1
+    logits, cache = transformer.prefill(params, prompt, cfg, pad_to=n)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    with moe_records(last_of=1) as dec:
+        logits, cache = transformer.decode_step(params, tok, cache, s, cfg)
+    del cache
+    d = logits[:, 0].float()
+    # Forward over S + 1 = 5121 positions would make one SSD chunk of them
+    # (the chunk must divide the sequence): a (4, 5121, 5121, 256) f32
+    # tensor of 100 GiB.  The chunk length changes only the order of the
+    # SSD's sums, so forward takes the least divisor of S + 1 from the
+    # configured chunk up (569 here: 9 chunks).
+    chunk = next(c for c in range(min(cfg.ssm_chunk, n), n + 1)
+                 if n % c == 0)
+    with moe_records(last_of=n) as fwd:
+        hidden, _ = transformer.forward(
+            params, torch.cat([prompt, tok], 1),
+            dataclasses.replace(cfg, ssm_chunk=chunk), return_hidden=True)
+    last = hidden[:, -1]
+    del hidden
+    a = (last @ transformer.head_matrix(params, cfg).to(last.dtype)).float()
+    scale = a.abs().max()
+    rel = ((a - d).abs().amax(dim=-1) / scale).tolist()
+    k = cfg.num_experts_per_tok
+    flipped, notes, bad = set(), [], []
+    for layer, (i_f, i_d) in enumerate(zip(fwd["ids"], dec["ids"])):
+        i_f = i_f.view(b, n, k)[:, -1].sort(dim=-1).values
+        i_d = i_d.sort(dim=-1).values
+        for seq in range(b):
+            if torch.equal(i_f[seq], i_d[seq]):
+                continue
+            top = fwd["probs"][layer][seq].sort(descending=True).values
+            gap = float((top[k - 1] - top[k]) / top[k - 1])
+            dx = float((fwd["x"][layer][seq] - dec["x"][layer][seq]).norm()
+                       / fwd["x"][layer][seq].norm())
+            first = seq not in flipped
+            flipped.add(seq)
+            notes.append(f"MoE layer {layer} sequence {seq}: experts "
+                         f"{i_f[seq].tolist()} in forward, "
+                         f"{i_d[seq].tolist()} in decode; forward's k-th and "
+                         f"(k+1)-th probabilities {float(top[k - 1]):.4g}, "
+                         f"{float(top[k]):.4g} (gap {gap:.3g} of the k-th); "
+                         f"router inputs {dx:.3g} apart")
+            if (first and gap >= MOE_FLIP_GAP) or not flips:
+                bad.append(gap)
+    same = torch.equal(a.argmax(-1), d.argmax(-1))
+    chunks = (f"; forward in SSD chunks of {chunk}"
+              if any(x.mixer == "mamba" for x in cfg.pattern) else "")
+    print(f"[path {path}] {label} decode parity vs forward at position {s} "
+          f"(ragged{chunks}): rel err by sequence "
+          f"{[f'{r:.3g}' for r in rel]} "
+          f"({'limit' if held else 'printed, not held; the limit'} "
+          f"{tol:g} where the routing agrees); routing flipped in "
+          f"sequences {sorted(flipped)}; greedy tokens forward "
+          f"{a.argmax(-1).tolist()} decode {d.argmax(-1).tolist()} "
+          f"({'same' if same else 'differ'})", flush=True)
+    for note in notes:
+        print(f"[path {path}]   {note}", flush=True)
+    if bad:
+        raise AssertionError(f"path {path} {label}: routing flips at gaps "
+                             f"{bad}")
+    kept = [r for seq, r in enumerate(rel) if seq not in flipped]
+    if held and kept and max(kept) >= tol:
+        raise AssertionError(f"path {path} {label} decode parity {rel}, "
+                             f"flipped {sorted(flipped)}")
+
+
+def phase_moe_serve(torch, dev, path: int) -> dict:
+    """Paths 15-17 (``MOE_PATHS``): one configuration served at its
+    published widths.  Returns the launch counts of its prefill + decode
+    run, with the flash rows' counts by route."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_leaves
+    cfg = moe_path_config(path)
+    full = configs.get(MOE_PATHS[path][0])
+    b, s, n_gen = MOE_B, MOE_PROMPT, MOE_GEN
+    gen = torch.Generator(device=dev).manual_seed(SEED + path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp = transformer.serving_params(transformer.init(gen, cfg), cfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = transformer.param_count(cfg)
+    if n_params != MOE_PATHS[path][1]:
+        raise AssertionError(f"path {path}: {n_params} parameters, "
+                             f"reckoned {MOE_PATHS[path][1]}")
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(sp))
+    attn = cfg.num_groups * sum(x.mixer == "attn" for x in cfg.pattern)
+    moes = cfg.num_groups * sum(x.ffn == "moe" for x in cfg.pattern)
+    mamba = (f", Mamba d_inner {cfg.ssm_d_inner} in {cfg.ssm_num_heads} "
+             f"heads of {cfg.ssm_head_dim}, state {cfg.ssm_state_dim}, "
+             f"chunk {cfg.ssm_chunk}"
+             if any(x.mixer == "mamba" for x in cfg.pattern) else "")
+    print(f"[path {path}] {cfg.name} cut to {cfg.num_layers} of "
+          f"{full.num_layers} layers "
+          f"({', '.join(x.mixer + '+' + x.ffn for x in cfg.pattern)} x "
+          f"{cfg.num_groups}) at its published widths: d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV "
+          f"heads of {cfg.resolved_head_dim}, window {cfg.sliding_window}, "
+          f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok} of d_ff "
+          f"{cfg.d_ff}{mamba}, vocab {cfg.vocab_size}; {n_params} parameters "
+          f"(the reckoning's {MOE_PATHS[path][1]}; "
+          f"{transformer.active_param_count(cfg)} active), "
+          f"{n_bytes / 2 ** 30:.2f} GiB made in {cfg.dtype_params} in "
+          f"{t_init:.2f}s; moe_impl {cfg.moe_impl}, groups of "
+          f"{cfg.moe_group_size}, capacity factor {cfg.moe_capacity_factor}",
+          flush=True)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev)
+    pad_to = s + n_gen + 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with moe_records() as rec:
+        t0 = time.perf_counter()
+        logits, cache = transformer.prefill(sp, prompt, cfg, pad_to=pad_to)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+    if len(rec["keep"]) != moes:
+        raise AssertionError(f"path {path}: {len(rec['keep'])} dispatches "
+                             f"for {moes} MoE layers")
+    groups = rec["keep"][0].shape[0]
+    drops = [f"{1 - float(k.float().mean()):.4f}" for k in rec["keep"]]
+    del rec
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"path {path}: non-finite prefill logits")
+    first_tok = tok = logits[:, -1].argmax(-1)[:, None]
+    logits, cache = transformer.decode_step(sp, tok, cache, s, cfg)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, n_gen):
+        logits, cache = transformer.decode_step(sp, tok, cache, s + i, cfg)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (n_gen - 1)
+    counts = read_counts()
+    routes = dict(fa.flash_attention.route_launches)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"path {path}: non-finite decode logits")
+    print(f"[path {path}] B={b} prompt {s}, pad_to {pad_to}: prefill cold "
+          f"{cold:.3f}s; decode {n_gen} greedy steps, warm "
+          f"{step_s * 1e3:.3f} ms per step = {b / step_s:.1f} tokens/s; "
+          f"share of MoE assignments dropped in prefill ({groups} groups "
+          f"of {cfg.moe_group_size}), by MoE layer: {drops}; flash "
+          f"launches by route {routes}; launches {counts}", flush=True)
+    want = dict.fromkeys(_counters(), 0)
+    want["flash_attention"] = attn * (1 + n_gen)
+    want_routes = dict(prefill_tc=attn, prefill_f32=0, decode=attn * n_gen)
+    if routes != want_routes or counts != want:
+        raise AssertionError(f"path {path}: flash routes {routes}, launches "
+                             f"{counts}; expected {want_routes}, {want}")
+    del cache
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(sp, prompt, cfg, pad_to=pad_to)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[path {path}] prefill warm {warm:.3f}s = {b * s / warm:.0f} "
+          f"tokens/s; max_memory_allocated {peak / 2 ** 30:.2f} GiB",
+          flush=True)
+    wall, busy, flash = profile_device(
+        torch, lambda: transformer.decode_step(sp, tok, cache, s + n_gen,
+                                               cfg), host_top=8)
+    print(f"[path {path}] profiled decode step: wall {wall / 1e3:.3f} ms, "
+          f"device busy {busy / 1e3:.3f} ms, idle share "
+          f"{1 - busy / wall:.3f}; flash_attention {flash / 1e3:.3f} ms = "
+          f"{flash / busy:.3f} of device time", flush=True)
+    del cache, logits
+    wall, busy, flash = profile_device(
+        torch, lambda: transformer.prefill(sp, prompt, cfg, pad_to=pad_to))
+    print(f"[path {path}] profiled prefill: wall {wall / 1e3:.1f} ms, device "
+          f"busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall:.3f}; "
+          f"flash_attention {flash / 1e3:.1f} ms = {flash / busy:.3f} of "
+          f"device time", flush=True)
+    # Decode parity against forward at the last position needs a dropless
+    # dispatch: at a capacity factor of 1.25, forward's one group of
+    # B (S + 1) tokens drops other assignments than the prefill's groups
+    # of 4096 and decode's of B.  So it routes through ``ragged`` (each
+    # expert's tokens, nothing dropped): in bf16, and in f32 compute on
+    # the same bf16 weights (every weight cast at use, TF32 off), where
+    # every sequence is held at the f32 limit.  Jamba's bf16 reading is
+    # printed, not held: its Mamba layers round forward and decode
+    # apart by the reference's own arithmetic (forward adds D and sums
+    # the conv taps in bf16, decode in f32), which puts the hybrid at
+    # 1.7e-2 - 2.0e-2 of the 2e-2 limit at full width, and the
+    # reference's own bf16 prefill + decode at 1.0e-2 - 1.9e-2 of forward
+    # on jamba's first four positions at reduced width.
+    hybrid = any(x.mixer == "mamba" for x in cfg.pattern)
+    moe_parity(torch, transformer, sp, cfg, prompt, "bf16", path,
+               SERVE_PARITY_TOL, held=not hybrid)
+    print(f"[path {path}] greedy first tokens (dense_grouped) "
+          f"{first_tok[:, 0].tolist()}", flush=True)
+    moe_parity(torch, transformer, sp,
+               dataclasses.replace(cfg, dtype_compute="float32"), prompt,
+               "f32 compute", path, SERVE_F32_PARITY_TOL, flips=False)
+    del sp
+    torch.cuda.empty_cache()
+    return dict(counts, flash_attention=routes["prefill_tc"],
+                flash_attention_decode=routes["decode"])
+
+
+def phase_moe_card_vs_cpu(torch, dev) -> None:
+    """The three configurations of paths 15-17 at ``reduced()`` with
+    ``MOE_CARD_CPU_DISPATCH``, on the card and the CPU (f32, TF32 off):
+    forward, prefill of 128 tokens (8 dispatch groups) and 3 decode steps
+    within 1e-4, every MoE call's expert ids equal, and drops in several
+    of the prefill's groups."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, s, steps = 2, 128, 3
+    for path, (arch, _) in MOE_PATHS.items():
+        cfg = dataclasses.replace(configs.get(arch).reduced(),
+                                  **MOE_CARD_CPU_DISPATCH)
+        gen = torch.Generator().manual_seed(SEED + path)
+        params = transformer.init(gen, cfg)
+        tokens = torch.randint(0, cfg.vocab_size, (b, s + steps),
+                               generator=gen)
+        outs, ids, keeps = {}, {}, {}
+        for device in ("cpu", dev):
+            p = _to(params, device)
+            t = tokens.to(device)
+            with moe_records() as rec:
+                got = [transformer.forward(p, t, cfg)[0]]
+                logits, cache = transformer.prefill(p, t[:, :s], cfg,
+                                                    pad_to=s + steps)
+                got.append(logits)
+                for i in range(steps):
+                    logits, cache = transformer.decode_step(
+                        p, t[:, s + i:s + i + 1], cache, s + i, cfg)
+                    got.append(logits)
+            outs[str(device)] = [x.float().cpu() for x in got]
+            ids[str(device)] = [x.cpu() for x in rec["ids"]]
+            keeps[str(device)] = [x.cpu() for x in rec["keep"]]
+        rel = max(float((c - g).abs().max() / c.abs().max())
+                  for c, g in zip(outs["cpu"], outs[str(dev)]))
+        same_ids = len(ids["cpu"]) == len(ids[str(dev)]) and all(
+            torch.equal(a, c) for a, c in zip(ids["cpu"], ids[str(dev)]))
+        same_keep = all(torch.equal(a, c)
+                        for a, c in zip(keeps["cpu"], keeps[str(dev)]))
+        moes = cfg.num_groups * sum(x.ffn == "moe" for x in cfg.pattern)
+        # Calls in order: forward's, prefill's, then each decode step's.
+        pre = keeps["cpu"][moes:2 * moes]
+        dropping = [int((~k).any(dim=(1, 2)).sum()) for k in pre]
+        print(f"[card-vs-cpu] {cfg.name} reduced f32, groups of "
+              f"{cfg.moe_group_size}, capacity factor "
+              f"{cfg.moe_capacity_factor}: forward, prefill + {steps} decode "
+              f"steps, logits max rel err {rel:.3g} (limit "
+              f"{DENSE_CARD_CPU_TOL:g}); {len(ids['cpu'])} MoE calls, expert "
+              f"ids {'equal' if same_ids else 'differ'}, kept assignments "
+              f"{'equal' if same_keep else 'differ'}; prefill groups "
+              f"dropping, by MoE layer: {dropping} of {pre[0].shape[0]}",
+              flush=True)
+        if not (rel <= DENSE_CARD_CPU_TOL and same_ids and same_keep):
+            raise AssertionError(f"{cfg.name}: card and CPU differ")
+        if min(dropping) < 2:
+            raise AssertionError(f"{cfg.name}: drops in {dropping} groups")
+
+
 def phase_train(torch, dev, smi: str) -> dict:
     """Path 13: the federated trainer (``launch.train``'s own setup,
     batch and schedule, ``launch.steps``' federated step) at full width
@@ -3795,6 +4211,10 @@ KERNELS.update({f"{name}_batch": KERNELS[name] for name in (
     "diversity", "sub2_pgd", "fedavg_agg", "stream_update",
     "fedavg_agg_masked", "compress_update", "fedavg_agg_stale")})
 KERNELS["fedavg_agg_train"] = KERNELS["fedavg_agg"]
+# Paths 15-17's flash rows (MOE_FLASH): the prefill at each path's query
+# group, and jamba's decode.
+KERNELS.update({name: KERNELS["flash_attention_decode" if "decode" in name
+                              else "flash_attention"] for name in MOE_FLASH})
 
 
 def main() -> int:
@@ -3871,7 +4291,8 @@ def main() -> int:
              "diversity_batch": 7, "sub2_pgd_batch": 7,
              "fedavg_agg_batch": 7, "stream_update_batch": 8,
              "fedavg_agg_masked_batch": 8, "compress_update_batch": 9,
-             "fedavg_agg_stale_batch": 10, "fedavg_agg_train": 13}
+             "fedavg_agg_stale_batch": 10, "fedavg_agg_train": 13,
+             **{name: path for name, (path, *_) in MOE_FLASH.items()}}
     by_path, recs, walls = {}, {}, {}
     for path in (1, 2, 3):
         by_path[path], recs[path], walls[path] = phase_path(
@@ -3912,13 +4333,17 @@ def main() -> int:
         phase_batch_card_vs_cpu(torch, dev, path, horizon=horizon16)
     by_path[6] = phase_serve(torch, dev)
     phase_dense_card_vs_cpu(torch, dev)
+    for path in MOE_PATHS:
+        by_path[path] = phase_moe_serve(torch, dev, path)
+    phase_moe_card_vs_cpu(torch, dev)
     by_path[14] = phase_xlstm_serve(torch, dev)
     by_path[13] = phase_train(torch, dev, smi)
     phase_xlstm_card_vs_cpu(torch, dev)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=by_path[owner[name]][re.sub(
-                        "_(batch|train)$", "", name)], **results[name])
+                        "_(batch|train|g6|g8|g16)$", "", name)],
+                    **results[name])
                for name, (src, rep) in KERNELS.items()]
     print(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f}s",
           flush=True)

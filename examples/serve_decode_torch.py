@@ -11,8 +11,11 @@ a random prompt, ``transformer.prefill`` then token-by-token
 card by default, where every attention layer goes through the
 ``flash_attention`` kernel; ``--device cpu`` runs its plain version.
 The dense decoder-only architectures (h2o-danube-3-4b,
-codeqwen1.5-7b, qwen3-14b, stablelm-12b) and xlstm-125m (recurrent
-states in place of K/V); the others raise ``NotImplementedError``.
+codeqwen1.5-7b, qwen3-14b, stablelm-12b), the MoE decoders
+(mixtral-8x22b, qwen3-moe-235b-a22b: top-k routing and the capacity
+dispatch), the Jamba hybrid (jamba-1.5-large-398b: attention, Mamba
+states and MoE) and xlstm-125m (recurrent states in place of K/V);
+qwen2-vl-72b and whisper-small raise ``NotImplementedError``.
 """
 
 import argparse

@@ -98,8 +98,8 @@ def transformer_params_from_numpy(params_np, cfg, device=None) -> dict:
 
     ``params_np`` is ``{"embed", "layers": {"pos<i>": {... stacked
     (num_groups, ...)}}, "final_norm", "lm_head"}``, as
-    ``repro.models.transformer.init`` builds it (attention, MLP and xLSTM
-    leaves alike); the port keeps the same nesting, shapes and (in, out)
+    ``repro.models.transformer.init`` builds it (attention, MLP, MoE,
+    Mamba and xLSTM leaves alike); the port keeps the same nesting, shapes and (in, out)
     weight layout, so each leaf becomes a tensor of its dtype on
     ``device``.  ``cfg`` is checked against the port's support
     (``transformer.check_supported``).

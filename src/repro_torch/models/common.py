@@ -33,7 +33,8 @@ def dense_init(gen: torch.Generator, shape: Tuple[int, ...], fan_in: int,
     """Truncated normal at +-2 sigma, scaled by ``fan_in ** -0.5``."""
     t = torch.empty(shape)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * fan_in ** -0.5).to(dtype)
+    # In place: at full width a leaf's f32 draw is the init's peak.
+    return t.mul_(fan_in ** -0.5).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,

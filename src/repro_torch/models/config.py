@@ -7,7 +7,7 @@ architecture: dense / MoE / SSM / hybrid / VLM / audio enc-dec.  Layer
 heterogeneity is a ``pattern`` of :class:`LayerSpec` entries cycled over
 the depth; parameters are stacked per pattern position over
 ``num_layers / len(pattern)`` groups.  Fields that only the JAX
-package's lowering reads (``layer_mode``, ``remat``, ``moe_impl``,
+package's lowering reads (``layer_mode``, ``remat``,
 ``sequence_sharding``, ``attn_chunk``) are kept so configurations
 compare equal field by field.
 """

@@ -1,15 +1,16 @@
 """Model assembly for the decoder-only zoo: serving, evaluation, training.
 
 Port of ``repro.models.transformer`` for configurations whose mixers are
-``attn``, ``mlstm`` or ``slstm`` and whose FFNs are ``mlp`` or ``none``:
-the four dense decoders (h2o-danube-3-4b, codeqwen1.5-7b, qwen3-14b,
-stablelm-12b) and xlstm-125m.  A model is: token embedding ->
-``num_groups`` repetitions of the layer ``pattern`` -> final norm -> LM
-head.  Layer parameters are stacked per pattern position with a leading
-group dim, as in the reference, and run as a Python loop over the groups
-(the reference's ``unroll`` mode; the train steps' rematerialization is
-``launch.steps.chunked_xent``'s).  Mamba mixers, MoE FFNs,
-encoder-decoder models, M-RoPE or embedding inputs raise
+``attn``, ``mamba``, ``mlstm`` or ``slstm`` and whose FFNs are ``mlp``,
+``moe`` or ``none``: the four dense decoders (h2o-danube-3-4b,
+codeqwen1.5-7b, qwen3-14b, stablelm-12b), the MoE decoders
+(mixtral-8x22b, qwen3-moe-235b-a22b), the Jamba hybrid and xlstm-125m.
+A model is: token embedding -> ``num_groups`` repetitions of the layer
+``pattern`` -> final norm -> LM head.  Layer parameters are stacked per
+pattern position with a leading group dim, as in the reference, and run
+as a Python loop over the groups (the reference's ``unroll`` mode; the
+train steps' rematerialization is ``launch.steps.chunked_xent``'s).
+Encoder-decoder models, M-RoPE or embedding inputs raise
 ``NotImplementedError`` naming their ROADMAP item.
 
 Three entry points:
@@ -35,32 +36,28 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models import attention, common, moe, xlstm
+from repro_torch.models import attention, common, moe, ssm, xlstm
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.tree import tree_leaves
 
 Params = Dict[str, Any]
 
 # Leaves the reference reads in f32 whatever the compute dtype: the
-# norms, and xLSTM's gate projections, biases and sLSTM recurrence.
+# norms, xLSTM's gate projections, biases and sLSTM recurrence, the MoE
+# router (a rounded router flips top-k choices) and Mamba's step-size
+# bias, decay and skip (``D``, which forward casts at use).
 _F32_KEYS = frozenset({"norm1", "norm2", "final_norm", "q_norm", "k_norm",
-                       "norm", "wif", "if_bias", "wr", "bias"})
+                       "norm", "wif", "if_bias", "wr", "bias", "router",
+                       "dt_bias", "A_log", "D"})
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice does not port."""
-    mixers = {s.mixer for s in cfg.pattern}
     if cfg.is_encdec or cfg.cross_attention or cfg.pos_embedding != "rope":
         what = ("encoder-decoder models (Whisper: encoder, cross-attention, "
                 "sinusoidal positions)", "17g")
     elif cfg.input_mode != "tokens" or cfg.mrope_sections:
         what = "VLM inputs (M-RoPE, embeddings input)", "17f"
-    elif "mamba" in mixers and "attn" in mixers:
-        what = "hybrid attention/SSM stacks (Jamba)", "17e"
-    elif "mamba" in mixers:
-        what = "SSM (Mamba) mixers", "17c"
-    elif cfg.is_moe:
-        what = "MoE FFNs (router and expert dispatch)", "17b"
     else:
         return
     raise NotImplementedError(
@@ -102,8 +99,8 @@ def _init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
-_MIXER_INIT = {"attn": attention.init, "mlstm": xlstm.mlstm_init,
-               "slstm": xlstm.slstm_init}
+_MIXER_INIT = {"attn": attention.init, "mamba": ssm.init,
+               "mlstm": xlstm.mlstm_init, "slstm": xlstm.slstm_init}
 
 
 def _block_init(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
@@ -114,7 +111,8 @@ def _block_init(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
                  "mixer": _MIXER_INIT[spec.mixer](gen, cfg, grp)}
     if spec.ffn != "none":
         p["norm2"] = common.norm_init(cfg.d_model, cfg.norm_type, grp)
-        p["ffn"] = moe.mlp_init(gen, cfg, groups=grp)
+        p["ffn"] = (moe.moe_init if spec.ffn == "moe" else moe.mlp_init)(
+            gen, cfg, groups=grp)
     return p
 
 
@@ -127,12 +125,29 @@ def param_count(cfg: ModelConfig) -> int:
                    for t in tree_leaves(_init(torch.Generator(), cfg)))
 
 
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: top-k of E experts), counted as
+    the reference counts them: in a MoE model it scales the ``wi`` /
+    ``wg`` / ``wo`` leaves of every FFN by ``(E - k) / E``, Jamba's
+    dense MLPs too."""
+    total = param_count(cfg)
+    if not cfg.is_moe:
+        return total
+    frac = (cfg.num_experts - cfg.num_experts_per_tok) / cfg.num_experts
+    with torch.device("meta"):
+        layers = _init(torch.Generator(), cfg)["layers"]
+    inactive = sum(int(ffn[name].numel() * frac)
+                   for ffn in (pos.get("ffn", {}) for pos in layers.values())
+                   for name in ("wi", "wg", "wo") if name in ffn)
+    return total - inactive
+
+
 def serving_params(params: Params, cfg: ModelConfig) -> Params:
     """A copy of ``params`` with every weight the blocks cast at use in
-    the compute dtype (the norms' parameters, ``q_norm``/``k_norm`` and
-    xLSTM's gate and recurrent leaves stay f32, as the blocks read
-    them).  The products then see the same rounded values as with
-    ``params``."""
+    the compute dtype (the norms' parameters, ``q_norm``/``k_norm``,
+    xLSTM's gate and recurrent leaves, the MoE router and Mamba's
+    ``dt_bias`` / ``A_log`` / ``D`` stay f32, as the blocks read them).
+    The products then see the same rounded values as with ``params``."""
     dt = common.dtype_of(cfg.dtype_compute)
 
     def cast(tree, keep: bool):
@@ -160,27 +175,33 @@ def _mixer_full(bp: Params, spec: LayerSpec, h: torch.Tensor,
         return attention.forward(bp["mixer"], h, cfg, positions,
                                  layer_window=spec.sliding_window,
                                  return_kv=collect_state)
-    fwd = (xlstm.mlstm_forward if spec.mixer == "mlstm"
-           else xlstm.slstm_forward)
+    fwd = {"mamba": ssm.forward, "mlstm": xlstm.mlstm_forward,
+           "slstm": xlstm.slstm_forward}[spec.mixer]
     return fwd(bp["mixer"], h, cfg, return_state=collect_state)
 
 
-def _ffn(bp: Params, spec: LayerSpec, x: torch.Tensor,
-         cfg: ModelConfig) -> torch.Tensor:
+def _ffn(bp: Params, spec: LayerSpec, x: torch.Tensor, cfg: ModelConfig
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The FFN half of a block: ``(x, the MoE aux loss or None)``."""
     if spec.ffn == "none":
-        return x
+        return x, None
     h = common.apply_norm(bp["norm2"], x, cfg.norm_type, cfg.norm_eps)
-    return x + moe.mlp_apply(bp["ffn"], h, cfg)
+    if spec.ffn == "moe":
+        h, aux = moe.moe_apply(bp["ffn"], h, cfg)
+        return x + h, aux
+    return x + moe.mlp_apply(bp["ffn"], h, cfg), None
 
 
 def _block_full(bp: Params, spec: LayerSpec, x: torch.Tensor,
                 cfg: ModelConfig, positions, collect_state: bool):
-    """Pre-norm residual block.  Returns ``(x, state)``: ``(k, v)`` of an
-    attention layer or a recurrent mixer's final state when
-    ``collect_state``, else None."""
+    """Pre-norm residual block.  Returns ``(x, aux, state)``: the MoE
+    aux loss (None without a MoE FFN), and ``(k, v)`` of an attention
+    layer or a recurrent mixer's final state when ``collect_state``, else
+    None."""
     h = common.apply_norm(bp["norm1"], x, cfg.norm_type, cfg.norm_eps)
     h, state = _mixer_full(bp, spec, h, cfg, positions, collect_state)
-    return _ffn(bp, spec, x + h, cfg), state
+    x, aux = _ffn(bp, spec, x + h, cfg)
+    return x, aux, state
 
 
 def embed_inputs(params: Params, inputs: torch.Tensor,
@@ -218,7 +239,8 @@ def default_positions(inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
             return_hidden: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence logits (B, S, V) and the MoE aux loss (0 here).
+    """Full-sequence logits (B, S, V) and the MoE aux loss, summed over
+    the MoE layers (0 without any).
 
     ``return_hidden=True`` returns the final-norm hidden states (B, S, D)
     in place of the logits, so the loss can fold the LM head into a
@@ -227,11 +249,14 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
     check_supported(cfg)
     x = embed_inputs(params, inputs, cfg)
     positions = default_positions(inputs, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.num_groups):
         gp = _group(params["layers"], g)
         for i, spec in enumerate(cfg.pattern):
-            x, _ = _block_full(gp[f"pos{i}"], spec, x, cfg, positions, False)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a, _ = _block_full(gp[f"pos{i}"], spec, x, cfg, positions,
+                                  False)
+            if a is not None:
+                aux = aux + a
     if return_hidden:
         return final_norm(params, x, cfg), aux
     return lm_logits(params, x, cfg), aux
@@ -240,6 +265,8 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
 def _layer_cache_init(spec: LayerSpec, cfg: ModelConfig, batch: int,
                       max_len: int, dtype, device) -> Params:
     grp = (cfg.num_groups,)
+    if spec.mixer == "mamba":
+        return ssm.init_state(cfg, batch, dtype, device, grp)
     if spec.mixer == "mlstm":
         return xlstm.mlstm_init_state(cfg, batch, device, grp)
     if spec.mixer == "slstm":
@@ -257,9 +284,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     ``sliding_window`` slots, as the reference's ``prefill`` lays them out
     (its ``init_cache`` trims the ring to ``max_len`` when that is
     shorter, and a ring shorter than the window would drop visible keys
-    once decoding passes ``max_len``).  mLSTM / sLSTM layers: the
-    recurrent state's start, in f32 whatever ``dtype``, as the
-    reference's."""
+    once decoding passes ``max_len``).  Mamba, mLSTM and sLSTM layers:
+    the recurrent state's start, in f32 whatever ``dtype`` (Mamba's conv
+    buffer of pre-conv inputs in ``dtype``), as the reference's."""
     check_supported(cfg)
     dtype = dtype or common.dtype_of(cfg.dtype_compute)
     return {f"pos{i}": _layer_cache_init(spec, cfg, batch, max_len, dtype,
@@ -307,8 +334,8 @@ def prefill(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
     for g in range(cfg.num_groups):
         gp = _group(params["layers"], g)
         for i, spec in enumerate(cfg.pattern):
-            x, state = _block_full(gp[f"pos{i}"], spec, x, cfg, positions,
-                                   True)
+            x, _, state = _block_full(gp[f"pos{i}"], spec, x, cfg,
+                                      positions, True)
             dst = _group(caches[f"pos{i}"], g)
             if spec.mixer == "attn":
                 _attn_cache_layout(dst, *state, spec, cfg, seq_len)
@@ -335,9 +362,9 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
                 h, _ = attention.decode(bp["mixer"], h, gc, index, cfg,
                                         layer_window=spec.sliding_window)
             else:
-                dec = (xlstm.mlstm_decode if spec.mixer == "mlstm"
-                       else xlstm.slstm_decode)
+                dec = {"mamba": ssm.decode, "mlstm": xlstm.mlstm_decode,
+                       "slstm": xlstm.slstm_decode}[spec.mixer]
                 h, state = dec(bp["mixer"], h, gc, cfg)
                 _store_state(gc, state)
-            x = _ffn(bp, spec, x + h, cfg)
+            x, _ = _ffn(bp, spec, x + h, cfg)     # decode drops the aux
     return lm_logits(params, x, cfg), cache

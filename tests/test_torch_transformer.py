@@ -31,6 +31,7 @@ from repro import configs as jconfigs  # noqa: E402
 from repro.configs import shapes as jshapes  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
 from repro.models import transformer as jt  # noqa: E402
+from repro.models.config import ModelConfig as JConfig  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import shapes as tshapes  # noqa: E402
@@ -39,6 +40,7 @@ from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 
 DENSE = ("h2o_danube_3_4b", "codeqwen1_5_7b", "qwen3_14b", "stablelm_12b")
+MOE_HYBRID = ("mixtral_8x22b", "qwen3_moe_235b_a22b", "jamba_1_5_large_398b")
 TOL = 1e-4
 # bf16 compute: the two frameworks round bf16 intermediates at other
 # places (matmul outputs, activations; the reference also rounds the
@@ -93,24 +95,58 @@ def _tokens(vocab: int, b: int, s: int, seed: int) -> np.ndarray:
         .astype(np.int32)
 
 
-def _run_both(jcfg, b=2, s=37, gen_pad=8, seed=0):
-    """forward / prefill / decode_step of both on one set of weights."""
+def _compiled(fn):
+    """``fn`` (a reference entry point; its configuration and keyword
+    arguments static) compiled with ``jax.jit`` at its first call's
+    shapes, without XLA's excess precision: so compiled, bf16 rounds
+    after each operation as the eager reference and the port do."""
+    held = {}
+
+    def call(*args, **kw):
+        static = [i for i, a in enumerate(args) if isinstance(a, JConfig)]
+        if not held:
+            held["fn"] = jax.jit(fn, static_argnums=static,
+                                 static_argnames=tuple(kw)).lower(
+                *args, **kw).compile(compiler_options={
+                    "xla_allow_excess_precision": False})
+        return held["fn"](*[a for i, a in enumerate(args)
+                            if i not in static])
+    return call
+
+
+def _run_both(jcfg, b=2, s=37, gen_pad=8, seed=0, steps=1, serving=False,
+              jit=False):
+    """forward / prefill / ``steps`` decode_steps of both on one set of
+    weights (the port's through ``serving_params`` if ``serving``; the
+    reference's compiled with ``jax.jit`` if ``jit``, which compiles a
+    hybrid stack in a few seconds where op-by-op dispatch compiles each
+    operation's shapes): ``decode`` the first step, ``decodes`` every
+    step, ``aux`` the forward's MoE aux loss."""
     params, tp, tcfg = _pair(jcfg, seed)
-    full = _tokens(jcfg.vocab_size, b, s + 1, seed + 1)
+    if serving:
+        tp = tt.serving_params(tp, tcfg)
+    fwd, pre, dec = jt.forward, jt.prefill, jt.decode_step
+    if jit:
+        fwd, pre, dec = _compiled(fwd), _compiled(pre), _compiled(dec)
+    full = _tokens(jcfg.vocab_size, b, s + steps, seed + 1)
     tfull = torch.from_numpy(full).long()
     out = {}
-    out["forward"] = (jt.forward(params, jnp.asarray(full), jcfg)[0],
-                      tt.forward(tp, tfull, tcfg)[0])
-    jl, jc = jt.prefill(params, jnp.asarray(full[:, :s]), jcfg,
-                        pad_to=s + gen_pad)
+    jf, jaux = fwd(params, jnp.asarray(full), jcfg)
+    tf, taux = tt.forward(tp, tfull, tcfg)
+    out["forward"], out["aux"] = (jf, tf), (jaux, taux)
+    jl, jc = pre(params, jnp.asarray(full[:, :s]), jcfg, pad_to=s + gen_pad)
     tl, tc = tt.prefill(tp, tfull[:, :s], tcfg, pad_to=s + gen_pad)
     out["prefill"] = (jl, tl)
     out["cache"] = {f"{pos}/{k}": (np.asarray(jc[pos][k]), _np(tc[pos][k]))
                     for pos in jc for k in jc[pos]}
-    jd, _ = jt.decode_step(params, jnp.asarray(full[:, s:]), jc,
-                           jnp.asarray(s), jcfg)
-    td, _ = tt.decode_step(tp, tfull[:, s:], tc, s, tcfg)
-    out["decode"] = (jd, td)
+    out["decodes"] = []
+    for i in range(steps):
+        jd, jc = dec(params, jnp.asarray(full[:, s + i:s + i + 1]), jc,
+                     jnp.asarray(s + i), jcfg)
+        td, _ = tt.decode_step(tp, tfull[:, s + i:s + i + 1], tc, s + i,
+                               tcfg)
+        out["decodes"].append((jd, td))
+    out["decode"] = out["decodes"][0]
     return out
 
 
@@ -144,10 +180,13 @@ def test_config_matches_reference(arch):
             jshapes.applicable(j, shape)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE_HYBRID)
 def test_param_count_matches_reference(arch):
+    """Total and (MoE: top-k of E experts) active parameters."""
     assert tt.param_count(tconfigs.get(arch)) == \
         jt.param_count(jconfigs.get(arch))
+    assert tt.active_param_count(tconfigs.get(arch)) == \
+        jt.active_param_count(jconfigs.get(arch))
 
 
 # ---------------------------------------------------------------------------
@@ -280,12 +319,144 @@ def test_bf16_compute_matches_reference():
 
 
 # ---------------------------------------------------------------------------
+# The MoE decoders and the Jamba hybrid at reduced size
+# ---------------------------------------------------------------------------
+
+# Prompt lengths: mixtral's past its reduced 128-slot window (the ring
+# wraps), jamba's two SSD chunks of 64.
+MOE_PROMPT = {"mixtral_8x22b": 150, "qwen3_moe_235b_a22b": 37,
+              "jamba_1_5_large_398b": 128}
+# bf16: the two frameworks round the products' outputs apart by a bf16
+# ulp here and there.  Top-k routing turns such a difference into a
+# different expert wherever two router probabilities nearly tie, and
+# then that token's logits part by far more than any rounding (the
+# reference's own bf16 run reads 0.15-0.38 from its f32 run on jamba at
+# reduced size); so the bf16 cases route every token to all E experts
+# (top-k = E, renormalized: the output is continuous in the router's
+# probabilities), whose choice of k the f32 cases hold.  And rounding
+# grows with depth: jamba's 8 reduced layers read 5e-2 - 7e-2 apart in
+# bf16 even so (the reference's bf16 against its f32: 6.5e-2), so each
+# of its three block kinds (attention + MoE, Mamba + MLP, Mamba + MoE)
+# runs as a one-layer model.  ``python tests/test_torch_transformer.py``
+# prints the readings.
+BF16_CASES = {"mixtral_8x22b": None, "qwen3_moe_235b_a22b": None,
+              "jamba_1_5_large_398b/attn+moe": 0,
+              "jamba_1_5_large_398b/mamba+mlp": 1,
+              "jamba_1_5_large_398b/mamba+moe": 2}
+
+
+def _bf16_cfg(case):
+    arch = case.split("/")[0]
+    cfg = jconfigs.get(arch).reduced(dtype_compute="bfloat16")
+    cfg = dataclasses.replace(cfg, num_experts_per_tok=cfg.num_experts)
+    pos = BF16_CASES[case]
+    if pos is not None:
+        cfg = dataclasses.replace(cfg, num_layers=1,
+                                  pattern=cfg.pattern[pos:pos + 1])
+    return cfg, MOE_PROMPT[arch]
+
+
+@pytest.fixture(scope="module")
+def moe_runs():
+    """f32 at ``reduced()``, and the bf16 cases (see BF16_CASES) from the
+    serving copy; the reference compiled (``_compiled``)."""
+    cache = {}
+
+    def get(case, dtype="float32"):
+        if (case, dtype) not in cache:
+            if dtype == "float32":
+                cfg, s = jconfigs.get(case).reduced(), MOE_PROMPT[case]
+            else:
+                cfg, s = _bf16_cfg(case)
+            cache[case, dtype] = _run_both(cfg, s=s, steps=3, seed=11,
+                                           serving=dtype == "bfloat16",
+                                           jit=True)
+        return cache[case, dtype]
+    return get
+
+
+@pytest.mark.parametrize("arch", MOE_HYBRID)
+def test_moe_hybrid_forward_and_aux_match_reference(moe_runs, arch):
+    """Logits, and the aux loss summed over the MoE layers."""
+    run = moe_runs(arch)
+    want, got = run["forward"]
+    assert tuple(got.shape) == want.shape
+    assert _rel(want, _np(got)) < TOL
+    jaux, taux = run["aux"]
+    assert float(jaux) > 0
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=TOL)
+
+
+@pytest.mark.parametrize("arch", MOE_HYBRID)
+def test_moe_hybrid_prefill_and_cache_match_reference(moe_runs, arch):
+    """Last-token logits and every cache tensor: K/V (a ring for
+    mixtral's SWA layers) and Mamba's SSD state and conv buffer."""
+    run = moe_runs(arch)
+    want, got = run["prefill"]
+    assert _rel(want, _np(got)) < TOL
+    for name, (w, g) in run["cache"].items():
+        assert g.shape == w.shape, name
+        assert _rel(w, g) < TOL, name
+
+
+@pytest.mark.parametrize("arch", MOE_HYBRID)
+def test_moe_hybrid_decode_steps_match_reference(moe_runs, arch):
+    """Three decode steps against the reference's, and against forward
+    at each position (``reduced()`` dispatches without drops)."""
+    run = moe_runs(arch)
+    fwd = np.asarray(run["forward"][0])
+    s = MOE_PROMPT[arch]
+    for i, (want, got) in enumerate(run["decodes"]):
+        assert tuple(got.shape) == want.shape
+        assert _rel(want, _np(got)) < TOL, i
+        assert _rel(fwd[:, s + i], _np(got)[:, 0]) < TOL, i
+
+
+@pytest.mark.parametrize("case", list(BF16_CASES))
+def test_moe_hybrid_bf16_serving_matches_reference(moe_runs, case):
+    """bf16 compute, the port from its ``serving_params`` copy (router,
+    Mamba's step-size leaves and norms f32) and the reference casting its
+    f32 weights at use: forward, prefill and 3 decode steps within
+    BF16_TOL."""
+    run = moe_runs(case, "bfloat16")
+    assert run["forward"][1].dtype == torch.bfloat16
+    for stage in ("forward", "prefill"):
+        want, got = run[stage]
+        assert _rel(want, _np(got)) < BF16_TOL, stage
+    for i, (want, got) in enumerate(run["decodes"]):
+        assert _rel(want, _np(got)) < BF16_TOL, i
+
+
+def test_serving_params_keeps_router_and_ssm_leaves_f32():
+    """The leaves the reference reads in f32 stay f32 in the serving
+    copy; every other weight of jamba's blocks is cast, and no other
+    leaf shares their names."""
+    cfg = tconfigs.get("jamba_1_5_large_398b").reduced(
+        dtype_compute="bfloat16")
+    sp = tt.serving_params(tt.init(torch.Generator().manual_seed(0), cfg),
+                           cfg)
+    f32 = {"router", "dt_bias", "A_log", "D", "norm", "scale"}
+    seen = set()
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+                continue
+            seen.add(k)
+            want = torch.float32 if k in f32 else torch.bfloat16
+            assert v.dtype == want, path + (k,)
+    walk(sp, ())
+    assert {"router", "dt_bias", "A_log", "D", "wi", "conv"} <= seen
+    moe_leaves = set(sp["layers"]["pos0"]["ffn"])
+    assert moe_leaves == {"router", "wi", "wg", "wo"}
+
+
+# ---------------------------------------------------------------------------
 # The port's own contracts
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch,item", [
-    ("mixtral_8x22b", "17b"), ("qwen3_moe_235b_a22b", "17b"),
-    ("jamba_1_5_large_398b", "17e"),
     ("qwen2_vl_72b", "17f"), ("whisper_small", "17g")])
 def test_unported_architectures_raise(arch, item):
     cfg = tconfigs.get(arch).reduced()
@@ -295,13 +466,12 @@ def test_unported_architectures_raise(arch, item):
         tt.forward({}, torch.zeros((1, 4), dtype=torch.long), cfg)
 
 
-def test_ssm_mixer_raises():
-    cfg = dataclasses.replace(
-        tconfigs.get("jamba_1_5_large_398b").reduced(),
-        pattern=(tconfigs.get("jamba_1_5_large_398b").pattern[1],))
-    assert {s.mixer for s in cfg.pattern} == {"mamba"}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17c"):
-        tt.init(torch.Generator(), cfg)
+def test_only_vlm_and_whisper_raise():
+    """Every other configuration of the zoo is supported."""
+    for arch in tconfigs.ARCH_IDS:
+        if arch in ("qwen2_vl_72b", "whisper_small"):
+            continue
+        tt.check_supported(tconfigs.get(arch))
 
 
 def test_serving_params_and_in_place_cache():
@@ -361,7 +531,9 @@ def test_decode_launches_nothing_on_the_cpu():
     assert tfa.flash_attention.launches == before
 
 
-@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "codeqwen1.5-7b"])
+@pytest.mark.parametrize("arch", [
+    "h2o-danube-3-4b", "codeqwen1.5-7b", "mixtral-8x22b",
+    "qwen3-moe-235b-a22b", "jamba-1.5-large-398b"])
 def test_serve_example_runs_on_cpu(arch, monkeypatch, capsys):
     monkeypatch.setattr(sys, "argv", [
         "serve_decode_torch.py", "--device", "cpu", "--arch", arch,
@@ -392,6 +564,32 @@ def main() -> None:
         f"{k} {_rel(bf16[k][0], _np(bf16[k][1])):.2e}"
         for k in ("forward", "prefill", "decode"))
         + f" (limit {BF16_TOL:g})")
+
+    def stages(run):
+        return ", ".join(
+            [f"{k} {_rel(run[k][0], _np(run[k][1])):.2e}"
+             for k in ("forward", "prefill")]
+            + [f"decode {i} {_rel(w, _np(g)):.2e}"
+               for i, (w, g) in enumerate(run["decodes"])])
+    for arch in MOE_HYBRID:
+        run = _run_both(jconfigs.get(arch).reduced(), s=MOE_PROMPT[arch],
+                        steps=3, seed=11, jit=True)
+        print(f"{arch} f32: {stages(run)}, aux {float(run['aux'][0]):.6f} / "
+              f"{float(run['aux'][1]):.6f} (limit {TOL:g})")
+    for case in BF16_CASES:
+        cfg, s = _bf16_cfg(case)
+        run = _run_both(cfg, s=s, steps=3, seed=11, serving=True, jit=True)
+        print(f"{case} bf16, top-k = E: {stages(run)} (limit {BF16_TOL:g})")
+    for arch in MOE_HYBRID:
+        for k in ("top-2", "top-k = E"):
+            cfg = jconfigs.get(arch).reduced(dtype_compute="bfloat16")
+            if k != "top-2":
+                cfg = dataclasses.replace(
+                    cfg, num_experts_per_tok=cfg.num_experts)
+            run = _run_both(cfg, s=MOE_PROMPT[arch], steps=3, seed=11,
+                            serving=True, jit=True)
+            print(f"{arch} bf16 at every layer, {k}, not held: "
+                  f"{stages(run)}")
 
 
 if __name__ == "__main__":
