@@ -163,7 +163,28 @@ each phase failing the script on error:
     (``moe_impl="ragged"``); then the three at ``reduced()`` on the card
     and the CPU (f32, TF32 off, groups of 32 at capacity factor 0.5):
     forward, prefill and 3 decode steps within 1e-4, equal expert ids
-    and kept assignments, drops in several prefill groups.
+    and kept assignments, drops in several prefill groups;
+16. paths 18-19, the VLM and the encoder-decoder served at their
+    published widths with seeded random weights made in bf16
+    (``MEDIA_PATHS``): path 18 qwen2-vl-72b, 8 of its 80 layers (64 / 8
+    heads of 128, d_ff 29,568, M-RoPE sections (16, 24, 24)), B = 4, a
+    prompt of 4096 patch embeddings, 32 greedy text steps; path 19
+    whisper-small at full depth (12 encoder + 12 decoder layers,
+    d_model 768, 12 heads of 64), B = 16 clips of 1500 frame
+    embeddings, a 64-token decoder prompt, the self-attention cache
+    padded to 448, 32 greedy steps.  Each: its cut and parameter count
+    (against the reference's reckoning), prefill cold and warm (path 19:
+    the encoder alone too, and time to first token), decode ms a step,
+    peak memory, a profiled prefill's and decode step's busy time, idle
+    share, launches and flash's share, flash launches by route and by
+    kind of call (encoder, self-, cross-attention; every one checked),
+    and decode parity against ``forward`` (prefill + decode against
+    forward over the prompt and the token) within 1e-3 in f32 compute
+    and, on path 19, 2e-2 in bf16 (path 18's bf16 reading is printed);
+    then the two at ``reduced()`` on the card and the CPU
+    (f32, TF32 off): qwen2-vl's ``forward`` over an image grid's
+    three-axis positions, whisper's ``encode`` and ``forward``, and each
+    one's prefill and 3 decode steps within 1e-4.
 
 The kernel phase first prints, from ``cuobjdump -sass``, the size and
 the atomic instructions of the ``stream_update``, ``diversity`` and
@@ -202,11 +223,12 @@ SDPA.  The kernels line has two rows for ``flash_attention`` (the bf16
 prefill on the tensor cores, and ``flash_attention_decode``, the decode
 kernel, each with its route's launches on path 6) and two for
 ``compress_update`` (its quant launches on path 3, and
-``compress_update_topk``, path 3's topk round), four for flash at paths
-15-17's query groups (``MOE_FLASH``: ``flash_attention_g6``, ``_g16``,
-``_g8`` the prefill of paths 15, 16, 17 and
-``flash_attention_decode_g8`` path 17's decode, each timed at its path's
-shape and with that path's launches), and one row
+``compress_update_topk``, path 3's topk round), six for flash at paths
+15-19's shapes (``PATH_FLASH``: ``flash_attention_g6``, ``_g16``,
+``_g8`` the prefill of paths 15, 16, 17, ``flash_attention_decode_g8``
+path 17's decode, ``flash_attention_enc`` path 19's encoder prefill and
+``flash_attention_cross_decode`` its cross-attention decode, each timed
+at its path's shape and with that path's launches by route), and one row
 ``<kernel>_batch`` for each kernel of a batch path (at S = 16, with that
 path's launches; ``fedavg_agg_stale_batch`` with path 10's).  Each
 path prints its launches by route.  At S = 16 the kernel phase also
@@ -1240,25 +1262,46 @@ FLASH_EDGES = [
     (2, 300, 300, 16, 2, 128, dict(causal=True, window=0)),
     (1, 250, 250, 16, 1, 128, dict(causal=True, window=0, kv_len=230)),
     (2, 1, 500, 64, 8, 128, dict(causal=False, window=0, kv_len=450)),
+    # Paths 18-19: whisper's hd 64 with one query head per KV head (G =
+    # 1), non-causal, in cross-attention's prefill (64 decoder rows
+    # against 1500 encoder frames) and the encoder's (1500 rows, not a
+    # multiple of 64); its decode at G = 1 against the 1500-frame
+    # encoder cache and against the 448-slot self-attention cache part
+    # filled; qwen2-vl's G = 8 at hd 128, causal, Sq not a multiple of 64.
+    (2, 64, 1500, 12, 12, 64, dict(causal=False, window=0)),
+    (1, 1500, 1500, 12, 12, 64, dict(causal=False, window=0)),
+    (4, 1, 1500, 12, 12, 64, dict(causal=False, window=0)),
+    (4, 1, 448, 12, 12, 64, dict(causal=False, window=0, kv_len=97)),
+    (1, 1000, 1000, 64, 8, 128, dict(causal=True, window=0)),
 ]
-# The kernel phase's rows at the shapes of paths 15-17, by the kernels
-# line's row names: (path, the timed shape (B, Sq, Skv, H, KV), the
-# checked shape, masks), all at hd 128 in bf16.  The prefill is timed on
+# The kernel phase's rows at the shapes of paths 15-19, by the kernels
+# line's row names: (path, the timed shape (B, Sq, Skv, H, KV, hd), the
+# checked shape, masks), all in bf16.  Paths 15-17's prefill is timed on
 # one sequence of the prompt (the plain version's (H, S, S) f32 scores
 # of four do not fit beside its softmax) and checked on one KV group, as
-# path 6's; decode at jamba's cache after its last step.  Each row's
-# launches are its path's, by route.
-MOE_FLASH = {
-    "flash_attention_g6": (15, (1, 5120, 5120, 48, 8), (1, 5120, 5120, 6, 1),
+# path 6's; decode at jamba's cache after its last step.  Path 19's
+# encoder prefill (16 clips of 1500 frames) and cross-attention decode
+# (against those frames) at their whole shapes.  Each row's launches
+# are its path's, by route.
+PATH_FLASH = {
+    "flash_attention_g6": (15, (1, 5120, 5120, 48, 8, 128),
+                           (1, 5120, 5120, 6, 1, 128),
                            dict(causal=True, window=4096)),
-    "flash_attention_g16": (16, (1, 5120, 5120, 64, 4),
-                            (1, 5120, 5120, 16, 1),
+    "flash_attention_g16": (16, (1, 5120, 5120, 64, 4, 128),
+                            (1, 5120, 5120, 16, 1, 128),
                             dict(causal=True, window=0)),
-    "flash_attention_g8": (17, (1, 5120, 5120, 64, 8), (1, 5120, 5120, 8, 1),
+    "flash_attention_g8": (17, (1, 5120, 5120, 64, 8, 128),
+                           (1, 5120, 5120, 8, 1, 128),
                            dict(causal=True, window=0)),
-    "flash_attention_decode_g8": (17, (4, 1, 5153, 64, 8),
-                                  (4, 1, 5153, 64, 8),
+    "flash_attention_decode_g8": (17, (4, 1, 5153, 64, 8, 128),
+                                  (4, 1, 5153, 64, 8, 128),
                                   dict(causal=False, window=0)),
+    "flash_attention_enc": (19, (16, 1500, 1500, 12, 12, 64),
+                            (16, 1500, 1500, 12, 12, 64),
+                            dict(causal=False, window=0)),
+    "flash_attention_cross_decode": (19, (16, 1, 1500, 12, 12, 64),
+                                     (16, 1, 1500, 12, 12, 64),
+                                     dict(causal=False, window=0)),
 }
 
 
@@ -1456,10 +1499,10 @@ def flash_timed(torch, fa, sets, label: str, **kw) -> dict:
 def phase_flash(torch, dev) -> dict:
     """flash_attention against its plain version at the prefill (one KV
     group), decode and edge shapes in bf16 and f32; times at the path's
-    prefill (B = 4) and decode shapes, and at paths 15-17's
-    (``MOE_FLASH``).  Returns the rows of the kernels line: the bf16
+    prefill (B = 4) and decode shapes, and at paths 15-19's
+    (``PATH_FLASH``).  Returns the rows of the kernels line: the bf16
     prefill (``flash_attention``, the tensor-core kernel), the bf16
-    decode (``flash_attention_decode``) and the ``MOE_FLASH`` rows."""
+    decode (``flash_attention_decode``) and the ``PATH_FLASH`` rows."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     lib = _build.library()
@@ -1519,11 +1562,10 @@ def phase_flash(torch, dev) -> dict:
                                               **dec)
         del sets
         torch.cuda.empty_cache()
-    # Paths 15-17's shapes at hd 128 (see MOE_FLASH); the decode row at
-    # jamba's cache after its last step.
-    for name, (path, (b, sq, skv, hh, kvv), _, kw) in MOE_FLASH.items():
-        n = cycling(2 * b * (sq * hh + 2 * skv * kvv) * 128)
-        sets = flash_inputs(torch, dev, gen, b, sq, skv, hh, kvv, 128,
+    # Paths 15-19's shapes (see PATH_FLASH).
+    for name, (path, (b, sq, skv, hh, kvv, d), _, kw) in PATH_FLASH.items():
+        n = cycling(2 * b * (sq * hh + 2 * skv * kvv) * d)
+        sets = flash_inputs(torch, dev, gen, b, sq, skv, hh, kvv, d,
                             torch.bfloat16, n)
         rows[name] = flash_timed(torch, fa, sets, f"(e) {name}, path {path} "
                                  f"shape", kv_len=skv, **kw)
@@ -1565,21 +1607,21 @@ def phase_flash(torch, dev) -> dict:
     splits = {key: n for key, n in fa._MAX_SPLITS.items()}
     print(f"[kernel] flash_attention decode cluster sizes chosen "
           f"(SMs, dtype, G, hd, clusters) -> splits: {splits}", flush=True)
-    moe_rows = {}
-    for name, (path, _, shape, kw) in MOE_FLASH.items():
-        (q, k, v), = flash_inputs(torch, dev, gen, *shape, 128,
-                                  torch.bfloat16)
+    path_rows = {}
+    for name, (path, _, shape, kw) in PATH_FLASH.items():
+        (q, k, v), = flash_inputs(torch, dev, gen, *shape, torch.bfloat16)
         err = flash_check(torch, fa, q, k, v, f"(e) {name}, path {path}",
                           kv_len=k.shape[1], **kw)
-        moe_rows[name] = dict(rows[name], max_abs_err=err)
+        path_rows[name] = dict(rows[name], max_abs_err=err)
         del q, k, v
+        torch.cuda.empty_cache()
     return {
         "flash_attention": dict(rows[("prefill", torch.bfloat16)],
                                 max_abs_err=errs[("prefill", torch.bfloat16)]),
         "flash_attention_decode": dict(
             rows[("decode", torch.bfloat16)],
             max_abs_err=errs[("decode", torch.bfloat16)]),
-        **moe_rows,
+        **path_rows,
     }
 
 
@@ -2693,8 +2735,8 @@ DENSE_CARD_CPU_TOL = 1e-4
 
 def profile_device(torch, fn, host_top: int = 0):
     """Run ``fn`` once under torch.profiler -> (wall us, device busy us,
-    flash_attention's device us); print the ``host_top`` operators with
-    the most host time of their own."""
+    flash_attention's device us, device kernels run); print the
+    ``host_top`` operators with the most host time of their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2717,7 +2759,7 @@ def profile_device(torch, fn, host_top: int = 0):
         for e in ops[:host_top]:
             print(f"[profile] host {e.self_cpu_time_total / 1e3:8.3f} ms self "
                   f"in {e.count:5d} calls  {e.key[:70]}", flush=True)
-    return wall_us, busy, flash
+    return wall_us, busy, flash, len(kernels)
 
 
 def phase_serve(torch, dev) -> dict:
@@ -2793,22 +2835,23 @@ def phase_serve(torch, dev) -> dict:
     peak = torch.cuda.max_memory_allocated()
     print(f"[path 6] prefill warm {warm:.3f}s; max_memory_allocated "
           f"{peak / 2 ** 30:.2f} GiB", flush=True)
-    wall, busy, flash = profile_device(
+    wall, busy, flash, n_kern = profile_device(
         torch, lambda: transformer.decode_step(sp, tok, cache, s + n_gen,
                                                cfg), host_top=12)
     print(f"[path 6] profiled decode step: wall {wall / 1e3:.3f} ms, device "
           f"busy {busy / 1e3:.3f} ms, idle share {1 - busy / wall:.3f} "
           f"(against the unprofiled warm step: "
-          f"{1 - busy / (step_s * 1e6):.3f}); flash_attention "
+          f"{1 - busy / (step_s * 1e6):.3f}), {n_kern} device kernels; "
+          f"flash_attention "
           f"{flash / 1e3:.3f} ms = {flash / busy:.3f} of device time",
           flush=True)
     del cache
-    wall, busy, flash = profile_device(
+    wall, busy, flash, n_kern = profile_device(
         torch, lambda: transformer.prefill(sp, prompt, cfg, pad_to=pad_to))
     print(f"[path 6] profiled prefill: wall {wall / 1e3:.1f} ms, device "
-          f"busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall:.3f}; "
-          f"flash_attention {flash / 1e3:.1f} ms = {flash / busy:.3f} of "
-          f"device time", flush=True)
+          f"busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall:.3f}, "
+          f"{n_kern} device kernels; flash_attention {flash / 1e3:.1f} ms = "
+          f"{flash / busy:.3f} of device time", flush=True)
     rel, _ = serve_parity(torch, transformer, sp, cfg, prompt, first_tok,
                           first_logits, "bf16")
     if not rel < SERVE_PARITY_TOL:
@@ -3798,20 +3841,21 @@ def phase_moe_serve(torch, dev, path: int) -> dict:
     print(f"[path {path}] prefill warm {warm:.3f}s = {b * s / warm:.0f} "
           f"tokens/s; max_memory_allocated {peak / 2 ** 30:.2f} GiB",
           flush=True)
-    wall, busy, flash = profile_device(
+    wall, busy, flash, n_kern = profile_device(
         torch, lambda: transformer.decode_step(sp, tok, cache, s + n_gen,
                                                cfg), host_top=8)
     print(f"[path {path}] profiled decode step: wall {wall / 1e3:.3f} ms, "
           f"device busy {busy / 1e3:.3f} ms, idle share "
-          f"{1 - busy / wall:.3f}; flash_attention {flash / 1e3:.3f} ms = "
-          f"{flash / busy:.3f} of device time", flush=True)
+          f"{1 - busy / wall:.3f}, {n_kern} device kernels; flash_attention "
+          f"{flash / 1e3:.3f} ms = {flash / busy:.3f} of device time",
+          flush=True)
     del cache, logits
-    wall, busy, flash = profile_device(
+    wall, busy, flash, n_kern = profile_device(
         torch, lambda: transformer.prefill(sp, prompt, cfg, pad_to=pad_to))
     print(f"[path {path}] profiled prefill: wall {wall / 1e3:.1f} ms, device "
-          f"busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall:.3f}; "
-          f"flash_attention {flash / 1e3:.1f} ms = {flash / busy:.3f} of "
-          f"device time", flush=True)
+          f"busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall:.3f}, "
+          f"{n_kern} device kernels; flash_attention {flash / 1e3:.1f} ms = "
+          f"{flash / busy:.3f} of device time", flush=True)
     # Decode parity against forward at the last position needs a dropless
     # dispatch: at a capacity factor of 1.25, forward's one group of
     # B (S + 1) tokens drops other assignments than the prefill's groups
@@ -3896,6 +3940,359 @@ def phase_moe_card_vs_cpu(torch, dev) -> None:
             raise AssertionError(f"{cfg.name}: card and CPU differ")
         if min(dropping) < 2:
             raise AssertionError(f"{cfg.name}: drops in {dropping} groups")
+
+
+# Paths 18-19: the VLM and the encoder-decoder served at their published
+# widths, random weights made in bf16 (``dtype_params``) from a seed.
+# Path 18 is qwen2-vl-72b (arXiv 2409.12191) cut to 8 of its 80 layers:
+# the whole model is 72,705,384,448 parameters, 145 GB in bf16, and does
+# not fit one 80 GB card.  B = 4; the prompt is 4096 rows of patch
+# embeddings, one 1792 x 1792 image after Qwen2-VL's 14-pixel patches
+# and 2 x 2 merge ((1792 / 28)^2 = 4096), at the text-like M-RoPE
+# positions the reference's prefill gives; then 32 greedy text steps.
+# Path 19 is whisper-small (arXiv 2212.04356) at full depth and width:
+# B = 16 clips of 30 s, 1500 stub frame embeddings each, a 64-token
+# decoder prompt, the self-attention cache padded to whisper's 448-token
+# text context, 32 greedy steps.  Each entry: the architecture, the
+# layers kept (0: all), the parameters as the reference's
+# ``transformer.param_count`` reckons them, B, prompt rows, encoder
+# frames, the self-attention cache's length (0: prompt + steps + 1), and
+# whether the bf16 decode parity is held (see ``phase_media_serve``).
+MEDIA_PATHS = {
+    18: dict(arch="qwen2_vl_72b", layers=8, params=9_512_820_736, b=4,
+             prompt=4096, frames=0, ctx=0, bf16_held=False),
+    19: dict(arch="whisper_small", layers=0, params=278_143_488, b=16,
+             prompt=64, frames=1500, ctx=448, bf16_held=True),
+}
+MEDIA_GEN = 32
+
+
+def media_path_config(path: int):
+    from repro_torch import configs
+    spec = MEDIA_PATHS[path]
+    cfg = dataclasses.replace(configs.get(spec["arch"]),
+                              dtype_params="bfloat16")
+    if spec["layers"]:
+        cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+    return cfg
+
+
+@contextlib.contextmanager
+def attention_calls():
+    """Count the model's ``flash_attention`` calls by (Sq, Skv, causal)
+    while the block runs (the wrapper, which counts launches, does the
+    work)."""
+    import collections
+    from repro_torch.models import attention
+    calls = collections.Counter()
+    wrapped = attention.flash_attention
+
+    def recorded(q, k, v, **kw):
+        calls[(q.shape[1], k.shape[1], kw.get("causal", True))] += 1
+        return wrapped(q, k, v, **kw)
+    attention.flash_attention = recorded
+    try:
+        yield calls
+    finally:
+        attention.flash_attention = wrapped
+
+
+def media_calls(cfg, s: int, frames: int, cache_len: int, steps: int):
+    """The attention calls of a prefill of ``s`` rows and ``steps``
+    decode steps, by (Sq, Skv, causal): decoder self-attention (causal
+    at prefill, then against the cache), and under an encoder the
+    encoder's (non-causal over the frames) and cross-attention's (the
+    decoder rows, then each step's token, against the frames)."""
+    calls = {(s, s, True): cfg.num_layers,
+             (1, cache_len, False): steps * cfg.num_layers}
+    if cfg.is_encdec:
+        calls[(frames, frames, False)] = cfg.encoder_layers
+        calls[(s, frames, False)] = cfg.num_layers
+        calls[(1, frames, False)] = steps * cfg.num_layers
+    return calls
+
+
+def media_parity(torch, transformer, params, cfg, prompt, enc, label: str,
+                 path: int, tol: float, held: bool = True) -> None:
+    """Prefill + one decode step against ``forward`` over the prompt and
+    the decoded token (its embedding row after an embeddings prompt) at
+    the last position: max-abs error over the max-abs logit, within
+    ``tol``; and the same greedy token wherever forward's top-two margin
+    exceeds twice that error.  ``held=False`` only prints them."""
+    s = prompt.shape[1]
+    logits, cache = transformer.prefill(params, prompt, cfg,
+                                        encoder_inputs=enc, pad_to=s + 1)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    logits, cache = transformer.decode_step(params, tok, cache, s, cfg)
+    del cache
+    d = logits[:, 0].float()
+    nxt = (torch.nn.functional.embedding(tok, params["embed"]).to(
+        prompt.dtype) if prompt.is_floating_point() else tok)
+    hidden, _ = transformer.forward(params, torch.cat([prompt, nxt], 1), cfg,
+                                    encoder_inputs=enc, return_hidden=True)
+    last = hidden[:, -1]
+    del hidden
+    a = (last @ transformer.head_matrix(params, cfg).to(last.dtype)).float()
+    rel = float((a - d).abs().max() / a.abs().max())
+    top = a.topk(2, dim=-1).values
+    margin = (top[:, 0] - top[:, 1]) / a.abs().max()
+    same = a.argmax(-1) == d.argmax(-1)
+    decided = margin > 2 * rel
+    print(f"[path {path}] {label} decode parity vs forward at position {s}: "
+          f"rel err {rel:.3g} ({'limit' if held else 'printed, not held; the '
+                                'limit'} {tol:g}); greedy tokens forward "
+          f"{a.argmax(-1).tolist()} decode {d.argmax(-1).tolist()}; "
+          f"{int(same.sum())} of {len(same)} equal, every one of the "
+          f"{int(decided.sum())} whose forward top-two margin over the max "
+          f"logit exceeds twice the error must be (smallest margin "
+          f"{float(margin.min()):.2e})", flush=True)
+    if held and not (rel < tol and bool(same[decided].all())):
+        raise AssertionError(f"path {path} {label}: decode parity {rel}, "
+                             f"tokens {same.tolist()}")
+
+
+def phase_media_serve(torch, dev, path: int) -> dict:
+    """Paths 18-19 (``MEDIA_PATHS``): the VLM on an embeddings prompt or
+    the encoder-decoder on frame embeddings, served at published widths.
+    Returns the launch counts of its prefill + decode run, with the
+    flash rows' counts by route."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_leaves
+    spec = MEDIA_PATHS[path]
+    cfg = media_path_config(path)
+    full = configs.get(spec["arch"])
+    b, s, frames, n_gen = spec["b"], spec["prompt"], spec["frames"], MEDIA_GEN
+    pad_to = spec["ctx"] or s + n_gen + 1
+    gen = torch.Generator(device=dev).manual_seed(SEED + path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp = transformer.serving_params(transformer.init(gen, cfg), cfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = transformer.param_count(cfg)
+    if n_params != spec["params"]:
+        raise AssertionError(f"path {path}: {n_params} parameters, "
+                             f"reckoned {spec['params']}")
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(sp))
+    cut = (f"cut to {cfg.num_layers} of {full.num_layers} layers "
+           f"({transformer.param_count(full)} parameters, "
+           f"{transformer.param_count(full) * 2 / 1e9:.1f} GB in bf16, do "
+           f"not fit one 80 GB card)" if cfg.num_layers < full.num_layers
+           else f"at full depth ({cfg.encoder_layers} encoder + "
+                f"{cfg.num_layers} decoder layers)")
+    print(f"[path {path}] {cfg.name} {cut} at its published widths: "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads / "
+          f"{cfg.num_kv_heads} KV heads of {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff} ({cfg.mlp_activation}, {cfg.norm_type}), vocab "
+          f"{cfg.vocab_size}, positions {cfg.pos_embedding}"
+          f"{f' M-RoPE {cfg.mrope_sections}' if cfg.mrope_sections else ''}"
+          f"; {n_params} parameters (the reckoning's {spec['params']}), "
+          f"{n_bytes / 2 ** 30:.2f} GiB made in {cfg.dtype_params} in "
+          f"{t_init:.2f}s", flush=True)
+    dt = torch.bfloat16
+    if cfg.input_mode == "embeddings":
+        prompt = torch.randn((b, s, cfg.d_model), generator=gen,
+                             device=dev).to(dt)
+    else:
+        prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                               device=dev)
+    enc = (torch.randn((b, frames, cfg.d_model), generator=gen,
+                       device=dev).to(dt) if cfg.is_encdec else None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with attention_calls() as calls:
+        t0 = time.perf_counter()
+        logits, cache = transformer.prefill(sp, prompt, cfg,
+                                            encoder_inputs=enc,
+                                            pad_to=pad_to)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"path {path}: non-finite prefill logits")
+        tok = logits[:, -1].argmax(-1)[:, None]
+        logits, cache = transformer.decode_step(sp, tok, cache, s, cfg)
+    want_calls = media_calls(cfg, s, frames, pad_to, 1)
+    print(f"[path {path}] attention calls of the prefill and the first "
+          f"decode step by (Sq, Skv, causal): {dict(calls)}", flush=True)
+    if dict(calls) != want_calls:
+        raise AssertionError(f"path {path}: attention calls {dict(calls)}, "
+                             f"expected {want_calls}")
+    tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, n_gen):
+        logits, cache = transformer.decode_step(sp, tok, cache, s + i, cfg)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (n_gen - 1)
+    counts = read_counts()
+    routes = dict(fa.flash_attention.route_launches)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"path {path}: non-finite decode logits")
+    want_run = media_calls(cfg, s, frames, pad_to, n_gen)
+    n_pre = sum(n for (sq, _, _), n in want_run.items() if sq > 1)
+    n_dec = sum(want_run.values()) - n_pre
+    want = dict.fromkeys(_counters(), 0)
+    want["flash_attention"] = n_pre + n_dec
+    want_routes = dict(prefill_tc=n_pre, prefill_f32=0, decode=n_dec)
+    print(f"[path {path}] B={b} prompt {s}"
+          f"{f', {frames} encoder frames' if frames else ''}, cache "
+          f"{pad_to}: prefill cold {cold:.3f}s; decode {n_gen} greedy "
+          f"steps, warm {step_s * 1e3:.3f} ms per step = "
+          f"{b / step_s:.1f} tokens/s; flash_attention.route_launches "
+          f"{routes}; launches {counts}", flush=True)
+    if routes != want_routes or counts != want:
+        raise AssertionError(f"path {path}: flash routes {routes}, launches "
+                             f"{counts}; expected {want_routes}, {want}")
+    del cache
+    enc_line = ""
+    if cfg.is_encdec:
+        transformer.encode(sp, enc, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        transformer.encode(sp, enc, cfg)
+        torch.cuda.synchronize()
+        enc_line = f"encode warm {time.perf_counter() - t0:.4f}s; "
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(sp, prompt, cfg, encoder_inputs=enc,
+                                        pad_to=pad_to)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[path {path}] {enc_line}prefill warm {warm:.4f}s"
+          f"{' (time to first token, the encoder included)' if enc_line else ''}"
+          f" = {b * s / warm:.0f} prompt rows/s; max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+    wall, busy, flash, n_kern = profile_device(
+        torch, lambda: transformer.decode_step(sp, tok, cache, s + n_gen,
+                                               cfg), host_top=8)
+    print(f"[path {path}] profiled decode step: wall {wall / 1e3:.3f} ms, "
+          f"device busy {busy / 1e3:.3f} ms, idle share "
+          f"{1 - busy / wall:.3f}, {n_kern} device kernels; flash_attention "
+          f"{flash / 1e3:.3f} ms = {flash / busy:.3f} of device time",
+          flush=True)
+    del cache, logits
+    wall, busy, flash, n_kern = profile_device(
+        torch, lambda: transformer.prefill(sp, prompt, cfg,
+                                           encoder_inputs=enc, pad_to=pad_to))
+    print(f"[path {path}] profiled prefill: wall {wall / 1e3:.1f} ms, device "
+          f"busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall:.3f}, "
+          f"{n_kern} device kernels; flash_attention {flash / 1e3:.1f} ms = "
+          f"{flash / busy:.3f} of device time", flush=True)
+    # Path 18's bf16 reading is printed, not held: 8 layers of bf16
+    # rounding put prefill + decode 1.98e-2 from forward at full width (an
+    # H100 80GB HBM3 at 700 W), at the 2e-2 limit, by the model's own
+    # arithmetic: the reference's bf16 prefill + decode parts from its
+    # forward by 1.4e-2 at reduced(num_layers=8) with the same kind of
+    # prompt (the port 1.3e-2), and by 4e-3 at 2 layers.  The f32 compute
+    # run below holds every path's parity.
+    media_parity(torch, transformer, sp, cfg, prompt, enc, "bf16", path,
+                 SERVE_PARITY_TOL, held=spec["bf16_held"])
+    # The same bf16 weights in f32 compute (each cast at use), TF32 off.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    media_parity(torch, transformer, sp,
+                 dataclasses.replace(cfg, dtype_compute="float32"), prompt,
+                 enc, "f32 compute", path, SERVE_F32_PARITY_TOL)
+    del sp
+    torch.cuda.empty_cache()
+    return dict(counts, flash_attention=routes["prefill_tc"],
+                flash_attention_decode=routes["decode"])
+
+
+def grid_positions(torch, b: int, prefix: int, rows: int, cols: int,
+                   tail: int):
+    """(3, B, S) M-RoPE ids of ``prefix`` text tokens, an image of
+    ``rows`` x ``cols`` merged patches and ``tail`` text tokens, as
+    Qwen2-VL's ``get_rope_index`` lays them: text runs on all three axes;
+    the image holds t and spreads h and w over its grid from where the
+    text stopped; text resumes one past the largest id."""
+    r, c = torch.meshgrid(torch.arange(rows), torch.arange(cols),
+                          indexing="ij")
+    img = torch.stack([torch.zeros(rows * cols, dtype=torch.long),
+                       r.flatten(), c.flatten()]) + prefix
+    nxt = prefix + max(rows, cols)
+    pos = torch.cat([torch.arange(prefix).expand(3, prefix), img,
+                     torch.arange(nxt, nxt + tail).expand(3, tail)], dim=1)
+    return pos[:, None].expand(3, b, pos.shape[1]).contiguous()
+
+
+def phase_media_card_vs_cpu(torch, dev) -> None:
+    """The configurations of paths 18-19 at ``reduced()`` on the card and
+    the CPU (f32, TF32 off), within 1e-4 of the largest logit: qwen2-vl's
+    ``forward`` over an image grid's three-axis positions (t = 0, h and w
+    over an 8 x 8 grid, 69 rows) and its embeddings prefill; whisper's
+    ``encode`` (150 frames) and ``forward``, and its prefill of 40
+    tokens; each then 3 decode steps."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, steps = 2, 3
+    for path, spec in MEDIA_PATHS.items():
+        cfg = configs.get(spec["arch"]).reduced()
+        gen = torch.Generator().manual_seed(SEED + path)
+        params = transformer.init(gen, cfg)
+        enc, positions = None, None
+        if cfg.is_encdec:
+            s = 40
+            enc = torch.randn((b, 150, cfg.d_model), generator=gen)
+            prompt = torch.randint(0, cfg.vocab_size, (b, s + steps),
+                                   generator=gen)
+            full, prompt = prompt, prompt[:, :s]
+            toks = full[:, s:]
+        else:
+            positions = grid_positions(torch, b, 3, 8, 8, 2)
+            s = positions.shape[-1]
+            prompt = torch.randn((b, s, cfg.d_model), generator=gen)
+            full = prompt
+            toks = torch.randint(0, cfg.vocab_size, (b, steps),
+                                 generator=gen)
+        outs = {}
+        before = dict(fa.flash_attention.route_launches)
+        for device in ("cpu", dev):
+            p = _to(params, device)
+            e = None if enc is None else enc.to(device)
+            got = []
+            if e is not None:
+                got.append(transformer.encode(p, e, cfg))
+            got.append(transformer.forward(
+                p, full.to(device), cfg,
+                positions=None if positions is None else positions.to(device),
+                encoder_inputs=e)[0])
+            logits, cache = transformer.prefill(p, prompt.to(device), cfg,
+                                                encoder_inputs=e,
+                                                pad_to=s + steps)
+            got.append(logits)
+            for i in range(steps):
+                logits, cache = transformer.decode_step(
+                    p, toks[:, i:i + 1].to(device), cache, s + i, cfg)
+                got.append(logits)
+            outs[str(device)] = [x.float().cpu() for x in got]
+        routed = {r: n - before[r]
+                  for r, n in fa.flash_attention.route_launches.items()}
+        rels = [float((c - g).abs().max() / c.abs().max())
+                for c, g in zip(outs["cpu"], outs[str(dev)])]
+        per_pass = cfg.num_layers + (cfg.encoder_layers + cfg.num_layers
+                                     if cfg.is_encdec else 0)
+        want = dict(prefill_tc=0, prefill_f32=2 * per_pass + (
+            cfg.encoder_layers if cfg.is_encdec else 0),
+            decode=steps * cfg.num_layers * (2 if cfg.is_encdec else 1))
+        print(f"[card-vs-cpu] {cfg.name} reduced f32 "
+              f"({'encode, ' if enc is not None else ''}forward"
+              f"{'' if enc is not None else ' over grid positions'}, "
+              f"prefill + {steps} decode steps): logits max rel err "
+              f"{[f'{r:.3g}' for r in rels]} (limit {DENSE_CARD_CPU_TOL:g}); "
+              f"card flash launches by route {routed}", flush=True)
+        if routed != want:
+            raise AssertionError(f"{cfg.name}: card routes {routed}, "
+                                 f"expected {want}")
+        if not max(rels) <= DENSE_CARD_CPU_TOL:
+            raise AssertionError(f"{cfg.name}: card and CPU differ by {rels}")
 
 
 def phase_train(torch, dev, smi: str) -> dict:
@@ -4211,10 +4608,11 @@ KERNELS.update({f"{name}_batch": KERNELS[name] for name in (
     "diversity", "sub2_pgd", "fedavg_agg", "stream_update",
     "fedavg_agg_masked", "compress_update", "fedavg_agg_stale")})
 KERNELS["fedavg_agg_train"] = KERNELS["fedavg_agg"]
-# Paths 15-17's flash rows (MOE_FLASH): the prefill at each path's query
-# group, and jamba's decode.
+# Paths 15-19's flash rows (PATH_FLASH): the prefill at each MoE path's
+# query group, jamba's decode, whisper's encoder prefill and its
+# cross-attention decode.
 KERNELS.update({name: KERNELS["flash_attention_decode" if "decode" in name
-                              else "flash_attention"] for name in MOE_FLASH})
+                              else "flash_attention"] for name in PATH_FLASH})
 
 
 def main() -> int:
@@ -4292,7 +4690,7 @@ def main() -> int:
              "fedavg_agg_batch": 7, "stream_update_batch": 8,
              "fedavg_agg_masked_batch": 8, "compress_update_batch": 9,
              "fedavg_agg_stale_batch": 10, "fedavg_agg_train": 13,
-             **{name: path for name, (path, *_) in MOE_FLASH.items()}}
+             **{name: path for name, (path, *_) in PATH_FLASH.items()}}
     by_path, recs, walls = {}, {}, {}
     for path in (1, 2, 3):
         by_path[path], recs[path], walls[path] = phase_path(
@@ -4336,13 +4734,17 @@ def main() -> int:
     for path in MOE_PATHS:
         by_path[path] = phase_moe_serve(torch, dev, path)
     phase_moe_card_vs_cpu(torch, dev)
+    for path in MEDIA_PATHS:
+        by_path[path] = phase_media_serve(torch, dev, path)
+    phase_media_card_vs_cpu(torch, dev)
     by_path[14] = phase_xlstm_serve(torch, dev)
     by_path[13] = phase_train(torch, dev, smi)
     phase_xlstm_card_vs_cpu(torch, dev)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=by_path[owner[name]][re.sub(
-                        "_(batch|train|g6|g8|g16)$", "", name)],
+                        "_(batch|train|g6|g8|g16|enc)$|_cross(?=_decode$)",
+                        "", name)],
                     **results[name])
                for name, (src, rep) in KERNELS.items()]
     print(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f}s",

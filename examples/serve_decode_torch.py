@@ -10,12 +10,15 @@ a random prompt, ``transformer.prefill`` then token-by-token
 ``transformer.decode_step`` with temperature sampling.  Runs on the CUDA
 card by default, where every attention layer goes through the
 ``flash_attention`` kernel; ``--device cpu`` runs its plain version.
-The dense decoder-only architectures (h2o-danube-3-4b,
-codeqwen1.5-7b, qwen3-14b, stablelm-12b), the MoE decoders
-(mixtral-8x22b, qwen3-moe-235b-a22b: top-k routing and the capacity
-dispatch), the Jamba hybrid (jamba-1.5-large-398b: attention, Mamba
-states and MoE) and xlstm-125m (recurrent states in place of K/V);
-qwen2-vl-72b and whisper-small raise ``NotImplementedError``.
+Every architecture of the zoo: the dense decoder-only ones
+(h2o-danube-3-4b, codeqwen1.5-7b, qwen3-14b, stablelm-12b), the MoE
+decoders (mixtral-8x22b, qwen3-moe-235b-a22b: top-k routing and the
+capacity dispatch), the Jamba hybrid (jamba-1.5-large-398b: attention,
+Mamba states and MoE), xlstm-125m (recurrent states in place of K/V),
+the VLM (qwen2-vl-72b: a prompt of random patch embeddings, M-RoPE) and
+the encoder-decoder (whisper-small: random frame embeddings through the
+encoder, cross-attention K/V kept in the cache), as the JAX example
+feeds them.
 """
 
 import argparse
@@ -44,15 +47,21 @@ def main() -> None:
     params = transformer.serving_params(transformer.init(gen, cfg), cfg)
     b, s = args.batch, args.prompt_len
     max_len = s + args.gen + 1
-    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
-                           device=dev)
+    if cfg.input_mode == "embeddings":
+        prompt = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    else:
+        prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                               device=dev)
+    enc = (torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+           if cfg.is_encdec else None)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
     t0 = time.time()
-    logits, cache = transformer.prefill(params, prompt, cfg, pad_to=max_len)
+    logits, cache = transformer.prefill(params, prompt, cfg,
+                                        encoder_inputs=enc, pad_to=max_len)
     sync()
     print(f"[serve] {cfg.name}: prefill {b}x{s} in {time.time() - t0:.2f}s "
           f"on {dev}")

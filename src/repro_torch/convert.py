@@ -99,13 +99,17 @@ def transformer_params_from_numpy(params_np, cfg, device=None) -> dict:
     ``params_np`` is ``{"embed", "layers": {"pos<i>": {... stacked
     (num_groups, ...)}}, "final_norm", "lm_head"}``, as
     ``repro.models.transformer.init`` builds it (attention, MLP, MoE,
-    Mamba and xLSTM leaves alike); the port keeps the same nesting, shapes and (in, out)
-    weight layout, so each leaf becomes a tensor of its dtype on
-    ``device``.  ``cfg`` is checked against the port's support
-    (``transformer.check_supported``).
+    Mamba and xLSTM leaves alike; a decoder block's ``norm_cross`` and
+    ``cross`` under cross-attention; an encoder-decoder's ``"encoder":
+    {"layers": {"pos0": ... stacked (encoder_layers, ...)},
+    "final_norm"}``).  The port keeps the same nesting, shapes and (in,
+    out) weight layout, so each leaf becomes a tensor of its dtype on
+    ``device``.  ``cfg`` is the configuration both were built from: the
+    tree must hold an ``encoder`` exactly when ``cfg.is_encdec``.
     """
-    from repro_torch.models import transformer
-    transformer.check_supported(cfg)
+    if ("encoder" in params_np) != cfg.is_encdec:
+        raise ValueError(f"{cfg.name}: an encoder subtree is "
+                         f"{'missing' if cfg.is_encdec else 'unexpected'}")
     return _tree_from_numpy(params_np, device)
 
 

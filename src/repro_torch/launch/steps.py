@@ -51,9 +51,7 @@ F32 = torch.float32
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the train steps cannot
-    differentiate on the card (and whatever the model zoo does not
-    port)."""
-    transformer.check_supported(cfg)
+    differentiate on the card."""
     if any(s.mixer == "attn" for s in cfg.pattern):
         raise NotImplementedError(
             f"{cfg.name}: training attention layers needs a backward of "

@@ -6,12 +6,13 @@ and every initializer makes its tensor on the default device, which
 ``transformer.init`` sets to the generator's (``meta`` when it only
 counts parameters).  Norms and rotary
 embeddings compute in f32 and cast back to the input's dtype, as the
-reference does.  ``mrope_sin_cos`` and ``sinusoidal_positions`` (the
-VLM and Whisper paths) are not ported yet.
+reference does, and so do Qwen2-VL's M-RoPE and Whisper's sinusoidal
+absolute positions.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -85,7 +86,7 @@ def apply_norm(p: dict, x: torch.Tensor, norm_type: str,
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings (RoPE / partial rotary)
+# Rotary embeddings (RoPE / partial rotary / M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, fraction: float = 1.0,
@@ -106,6 +107,35 @@ def rope_sin_cos(positions: torch.Tensor, head_dim: int, theta: float,
     return torch.sin(angles), torch.cos(angles)
 
 
+def mrope_axes(sections: Tuple[int, ...], slots: int) -> list:
+    """The position axis (0 temporal, 1 height, 2 width) that drives each
+    of ``slots`` frequency slots: ``sections[i]`` slots for axis i in
+    order, as ``jnp.repeat(arange(3), sections, total_repeat_length=
+    slots)`` gives them, which truncates past ``slots`` and pads a short
+    repeat with the last axis (``reduced()``'s (4, 6, 6) covers 16 of 32
+    slots, so slots 16-31 follow the width axis)."""
+    axes = [i for i, n in enumerate(sections) for _ in range(n)][:slots]
+    return axes + [len(sections) - 1] * (slots - len(axes))
+
+
+def mrope_sin_cos(positions: torch.Tensor, head_dim: int, theta: float,
+                  sections: Tuple[int, ...]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL multimodal RoPE (arXiv:2409.12191).
+
+    ``positions``: (3, B, S) temporal / height / width position ids
+    (equal for text).  ``sections`` split the hd/2 frequency slots among
+    the three axes (:func:`mrope_axes`).  Returns sin/cos (B, S, hd/2).
+    """
+    assert positions.shape[0] == len(sections) == 3
+    freqs = rope_freqs(head_dim, theta, 1.0, positions.device)
+    axes = torch.tensor(mrope_axes(sections, freqs.shape[0]),
+                        device=positions.device)
+    # Slot j's angle: its axis's position times freqs[j].
+    angles = positions[axes].permute(1, 2, 0).float() * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
 def apply_rope(x: torch.Tensor, sin: torch.Tensor,
                cos: torch.Tensor) -> torch.Tensor:
     """x: (B, S, H, hd); sin/cos: (B, S, rot/2).  Rotates the first
@@ -121,3 +151,22 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
     o2 = x2 * c + x1 * s
     out = torch.stack([o1, o2], dim=-1).reshape(x_rot.shape).to(x.dtype)
     return torch.cat([out, x_pass], dim=-1) if x_pass.shape[-1] else out
+
+
+def sinusoid(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Rows of Whisper's absolute sinusoidal table at integer
+    ``positions`` (N,): (N, dim), f32, sin of ``position * freqs`` then
+    cos of it."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device)
+                      / max(half - 1, 1))
+    angles = positions[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
+def sinusoidal_positions(length: int, dim: int,
+                         device=None) -> torch.Tensor:
+    """Whisper's absolute sinusoidal embeddings (length, dim), f32."""
+    return sinusoid(torch.arange(length, device=device), dim)
