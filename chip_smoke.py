@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --moe-prefill   # paths 15-17's prefill alone
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc/`` and runs,
 each phase failing the script on error:
@@ -184,7 +185,20 @@ each phase failing the script on error:
     then the two at ``reduced()`` on the card and the CPU
     (f32, TF32 off): qwen2-vl's ``forward`` over an image grid's
     three-axis positions, whisper's ``encode`` and ``forward``, and each
-    one's prefill and 3 decode steps within 1e-4.
+    one's prefill and 3 decode steps within 1e-4;
+17. path 20, the federated trainer on h2o-danube-3-4b at its published
+    widths, cut to 6 of 24 layers (``DANUBE_LAYERS``), as ``launch.train
+    --arch h2o-danube-3-4b --federated 4 --num-layers 6
+    --clients-per-pass 2`` sets it up: bf16 compute, f32 parameters,
+    AdamW (lr 3e-4, warmup 10), DAS, a global batch of 16 x 1024 tokens,
+    3 steps (cold, warm, profiled): its parameter count, step walls,
+    tokens/s, peak memory, flash launches by route (a forward on the
+    tensor cores and a backward for every layer and pass, checked) and
+    one ``fedavg_agg`` a step, the profiled step's device time, idle
+    share and the backward kernel's share of the device time; then
+    danube at ``reduced(num_layers=2)`` card against CPU in f32 with
+    TF32 off: one federated step (K = 4, 160 tokens a sequence, past the
+    window of 128), parameters within 1e-4.
 
 The kernel phase first prints, from ``cuobjdump -sass``, the size and
 the atomic instructions of the ``stream_update``, ``diversity`` and
@@ -219,7 +233,17 @@ holds ``flash_attention`` against its plain
 version at the prefill (one KV group), decode and edge-case shapes, in
 bf16 and f32, each launch after every SM's shared memory is filled with
 NaN and with the keys past ``kv_len`` set to NaN, and times it beside
-SDPA.  The kernels line has two rows for ``flash_attention`` (the bf16
+SDPA.  For training, the forward that writes each row's log-sum-exp
+and the backward (``csrc/flash_attention_bwd.cu``) are held in f32 and
+bf16 at path 20's shape and at four more (``FLASH_BWD_SHAPES``), each
+launch after a NaN fill of shared memory with the keys and values past
+``kv_len`` NaN: the output against ``flash_attention_plain`` (as the
+serving rows), the lse within 1e-4, and the gradients from the kernels'
+output and lse against ``flash_attention_bwd_plain`` from the plain
+ones, within 1e-4 (f32) and 2e-2 (bf16) of each gradient's largest
+magnitude; at path 20's shape
+it is timed by host loop and by graph beside SDPA's forward + backward
+(the ``flash_attention_bwd`` row, with path 20's backward launches).  The kernels line has two rows for ``flash_attention`` (the bf16
 prefill on the tensor cores, and ``flash_attention_decode``, the decode
 kernel, each with its route's launches on path 6) and two for
 ``compress_update`` (its quant launches on path 3, and
@@ -2815,7 +2839,7 @@ def phase_serve(torch, dev) -> dict:
     want["flash_attention"] = cfg.num_layers * (1 + n_gen)
     # Every prefill layer on the tensor cores, every step on decode.
     want_routes = dict(prefill_tc=cfg.num_layers, prefill_f32=0,
-                       decode=cfg.num_layers * n_gen)
+                       decode=cfg.num_layers * n_gen, backward=0)
     print(f"[path 6] flash_attention launches by route {routes}", flush=True)
     if routes != want_routes:
         raise AssertionError(f"path 6 flash routes {routes}, expected "
@@ -3482,13 +3506,13 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync",
                 "cudaMemsetAsync")
 
 
-def profile_scopes(torch, fn, scopes) -> dict:
+def profile_scopes(torch, fn, scopes, kernels=()) -> dict:
     """Run ``fn`` once under torch.profiler, reading the raw trace (the
     parsed events of a step with some 10^5 launches take minutes): wall,
     device busy time and operations, host launches (kernels, copies,
     fills) in total and within each of ``scopes`` (``record_function``
-    ranges; ``other`` is outside all of them), and each scope's host
-    ms."""
+    ranges; ``other`` is outside all of them), each scope's host ms, and
+    the device us of the kernels whose names hold each of ``kernels``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3519,8 +3543,11 @@ def profile_scopes(torch, fn, scopes) -> dict:
     per["other"] = len(starts) - sum(per.values())
     host_ms = {name: sum(b - a for a, b in rs) / 1e6
                for name, rs in ranges.items()}
+    kernel_us = {k: sum(e.duration_ns() for e in device if k in e.name())
+                 / 1e3 for k in kernels}
     return dict(wall_us=wall_us, busy_us=busy_us, device_ops=len(device),
-                launches=len(starts), per_scope=per, host_ms=host_ms)
+                launches=len(starts), per_scope=per, host_ms=host_ms,
+                kernel_us=kernel_us)
 
 
 def phase_xlstm_serve(torch, dev) -> dict:
@@ -3828,7 +3855,8 @@ def phase_moe_serve(torch, dev, path: int) -> dict:
           f"launches by route {routes}; launches {counts}", flush=True)
     want = dict.fromkeys(_counters(), 0)
     want["flash_attention"] = attn * (1 + n_gen)
-    want_routes = dict(prefill_tc=attn, prefill_f32=0, decode=attn * n_gen)
+    want_routes = dict(prefill_tc=attn, prefill_f32=0, decode=attn * n_gen,
+                       backward=0)
     if routes != want_routes or counts != want:
         raise AssertionError(f"path {path}: flash routes {routes}, launches "
                              f"{counts}; expected {want_routes}, {want}")
@@ -3881,6 +3909,47 @@ def phase_moe_serve(torch, dev, path: int) -> dict:
     torch.cuda.empty_cache()
     return dict(counts, flash_attention=routes["prefill_tc"],
                 flash_attention_decode=routes["decode"])
+
+
+# ``--moe-prefill``: only paths 15-17's prefill, each warm run timed
+# MOE_PREFILL_RUNS times, with the peak memory it adds above the served
+# weights.  It runs whatever tree of the port lies beside this file, so
+# two trees compare on one card with a copy of this file in each root.
+MOE_PREFILL_RUNS = 5
+
+
+def moe_prefill_only(torch, dev) -> None:
+    from repro_torch.models import transformer
+    for path in MOE_PATHS:
+        cfg = moe_path_config(path)
+        gen = torch.Generator(device=dev).manual_seed(SEED + path)
+        sp = transformer.serving_params(transformer.init(gen, cfg), cfg)
+        prompt = torch.randint(0, cfg.vocab_size, (MOE_B, MOE_PROMPT),
+                               generator=gen, device=dev)
+
+        def run():
+            return transformer.prefill(sp, prompt, cfg,
+                                       pad_to=MOE_PROMPT + MOE_GEN + 1)
+        run()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(MOE_PREFILL_RUNS):
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            del out
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[moe-prefill] path {path} {cfg.name} B={MOE_B} prompt "
+              f"{MOE_PROMPT}: warm prefill walls "
+              f"{[f'{w:.4f}' for w in walls]} s, median {median(walls):.4f}"
+              f" s; peak {peak / 2 ** 30:.3f} GiB, "
+              f"{(peak - base) / 2 ** 30:.3f} GiB above the weights",
+              flush=True)
+        del sp, prompt
+        torch.cuda.empty_cache()
 
 
 def phase_moe_card_vs_cpu(torch, dev) -> None:
@@ -4137,7 +4206,8 @@ def phase_media_serve(torch, dev, path: int) -> dict:
     n_dec = sum(want_run.values()) - n_pre
     want = dict.fromkeys(_counters(), 0)
     want["flash_attention"] = n_pre + n_dec
-    want_routes = dict(prefill_tc=n_pre, prefill_f32=0, decode=n_dec)
+    want_routes = dict(prefill_tc=n_pre, prefill_f32=0, decode=n_dec,
+                       backward=0)
     print(f"[path {path}] B={b} prompt {s}"
           f"{f', {frames} encoder frames' if frames else ''}, cache "
           f"{pad_to}: prefill cold {cold:.3f}s; decode {n_gen} greedy "
@@ -4281,7 +4351,8 @@ def phase_media_card_vs_cpu(torch, dev) -> None:
                                      if cfg.is_encdec else 0)
         want = dict(prefill_tc=0, prefill_f32=2 * per_pass + (
             cfg.encoder_layers if cfg.is_encdec else 0),
-            decode=steps * cfg.num_layers * (2 if cfg.is_encdec else 1))
+            decode=steps * cfg.num_layers * (2 if cfg.is_encdec else 1),
+            backward=0)
         print(f"[card-vs-cpu] {cfg.name} reduced f32 "
               f"({'encode, ' if enc is not None else ''}forward"
               f"{'' if enc is not None else ' over grid positions'}, "
@@ -4578,6 +4649,398 @@ def phase_xlstm_card_vs_cpu(torch, dev) -> None:
     if not microbatches_agree(m, TRAIN_MB_GRAD_TOL_REDUCED):
         raise AssertionError(f"xlstm mb 1 vs mb 2 in f32: {m}")
 
+# Path 20: h2o-danube-3-4b (arXiv 2401.16818) trained federated at its
+# published widths (d_model 3840, 32 / 8 heads of 120, d_ff 10240, vocab
+# 32,000, window 4096), random weights from a seed, as ``launch.train
+# --arch h2o-danube-3-4b --federated 4 --num-layers 6 --clients-per-pass
+# 2 --batch 16 --seq 1024`` sets it up: bf16 compute, f32 parameters,
+# AdamW at the CLI's lr 3e-4 and warmup 10, DAS every step, 4 sequences a
+# client, 3 steps (cold, warm, profiled).  Depth is cut to 6 of 24
+# layers: each layer holds ~155M parameters, and at 16 bytes a parameter
+# (f32 parameters, AdamW's two moments, a gradient) beside the (K, P) f32
+# client-gradient matrix the 24 layers' 3.96B need ~127 GB of one 80 GB
+# card; 6 layers and the embeddings are 1.18B (~38 GB).  Two clients a
+# pass: the (2, P) gradients of a pass and its 8 x 1024 tokens'
+# activations come on top (``steps.pass_size``'s token budget was
+# measured on xlstm-125m and would put all four in one pass).
+DANUBE_LAYERS = 6
+DANUBE_K, DANUBE_BATCH, DANUBE_SEQ = 4, 16, 1024
+DANUBE_PER_PASS, DANUBE_STEPS = 2, 3
+DANUBE_PASS_B = DANUBE_BATCH // DANUBE_K * DANUBE_PER_PASS
+# Card against CPU at danube's reduced(num_layers=2), f32 with TF32 off:
+# sums in another order.
+DANUBE_CARD_CPU_TOL = 1e-4
+# The backward kernel against its plain version, of each gradient's
+# largest magnitude: f32 sums in another order; bf16 outputs rounded once
+# (2^-9 of the largest) and P rounded to bf16 for dV.
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# The training forward's row log-sum-exp against its plain version, abs:
+# f32 from the kernels' online max and sum.
+FLASH_LSE_TOL = 1e-4
+# The backward's check shapes, (label, (B, Sq, Skv, H, KV, hd), masks):
+# path 20's (one pass: two clients' 4 sequences of 1024 tokens, danube's
+# heads; its 4096 window does not bind at 1024), a binding window of 64,
+# G = 8 at hd 128, whisper's cross-attention (G = 1, hd 64, 64 rows
+# against 1500 frames, non-causal) and stablelm's hd 160 with kv_len <
+# Skv.
+FLASH_BWD_SHAPES = [
+    ("path 20", (DANUBE_PASS_B, DANUBE_SEQ, DANUBE_SEQ, 32, 8, 120),
+     dict(causal=True, window=4096)),
+    ("window 64", (2, 256, 256, 32, 8, 120), dict(causal=True, window=64)),
+    ("G 8, hd 128", (2, 512, 512, 64, 8, 128), dict(causal=True, window=0)),
+    ("cross, hd 64, G 1", (4, 64, 1500, 12, 12, 64),
+     dict(causal=False, window=0)),
+    ("hd 160", (2, 300, 300, 32, 8, 160),
+     dict(causal=True, window=0, kv_len=280)),
+]
+
+
+def flash_bwd_inputs(torch, fa, gen, shape, dtype, kw):
+    """q, k, v, dO drawn in f32 and rounded, and the forward's o and lse
+    (the prefill kernel of the type, with the rows' log-sum-exp)."""
+    b, sq, skv, h, kv, hd = shape
+    dev = gen.device
+    q, k, v, do = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                   for s in ((b, sq, h, hd), (b, skv, kv, hd),
+                             (b, skv, kv, hd), (b, sq, h, hd)))
+    o, lse = fa._forward(q, k, v, kw["causal"], kw["window"],
+                         kw.get("kv_len", skv), True)
+    return q, k, v, o, lse, do
+
+
+def flash_bwd_check(torch, fa, gen, shape, dtype, kw, label: str
+                    ) -> float:
+    """The training forward (the prefill kernel of the type, writing each
+    row's lse) and the backward kernel, each against its plain version on
+    q, k, v, dO drawn as ``flash_bwd_inputs`` draws them: o against
+    ``flash_attention_plain`` (f32 within FLASH_TOL, bf16 by the
+    tensor-core prefill's ratio check, as ``flash_check``), the lse
+    within FLASH_LSE_TOL, and dq, dk, dv from the kernels' o and lse
+    against ``flash_attention_bwd_plain`` from the plain o and lse
+    (FLASH_BWD_TOL), so no kernel's output is its own reference.  The
+    kernels get the keys and values past ``kv_len`` NaN and every SM's
+    shared memory NaN before each launch; each launch must go through
+    its route once.  Returns the largest abs error over dq, dk, dv."""
+    from repro_torch.kernels import _check
+    b, sq, skv, h, kvh, hd = shape
+    kv_len = kw.get("kv_len", skv)
+    q, k, v, do = (torch.randn(s, generator=gen, device=gen.device).to(dtype)
+                   for s in ((b, sq, h, hd), (b, skv, kvh, hd),
+                             (b, skv, kvh, hd), (b, sq, h, hd)))
+    kn, vn = k.clone(), v.clone()
+    kn[:, kv_len:] = float("nan")
+    vn[:, kv_len:] = float("nan")
+    routes = fa.flash_attention.route_launches
+
+    def launched(fn, route: str):
+        before = dict(routes)
+        _check.fill_shared_memory(q.device)
+        out = fn()
+        torch.cuda.synchronize()
+        routed = {r: n - before[r] for r, n in routes.items()}
+        if routed != {r: int(r == route) for r in routed}:
+            raise AssertionError(f"flash_attention_bwd {label}: launches "
+                                 f"{routed}, expected one through {route}")
+        return out
+    fwd_route = fa.route(dtype, sq, True)
+    o, lse = launched(lambda: fa._forward(q, kn, vn, kw["causal"],
+                                          kw["window"], kv_len, True),
+                      fwd_route)
+    got = launched(lambda: fa.flash_attention_bwd(q, kn, vn, o, lse, do,
+                                                  **kw), "backward")
+    del kn, vn
+    want_o, want_lse = fa.flash_attention_plain(q.float(), k.float(),
+                                                v.float(), with_lse=True,
+                                                **kw)
+    o_err = float((o.float() - want_o).abs().max())
+    if dtype == torch.float32:
+        o_ok, o_read = o_err <= FLASH_TOL, f"(limit {FLASH_TOL:g})"
+    else:
+        want_abs_v = fa.flash_attention_plain(q.float(), k.float(),
+                                              v.float().abs(), **kw)
+        ratio = _check.bf16_prefill_ratio(o, want_o, want_abs_v, FLASH_TOL)
+        del want_abs_v
+        o_ok = ratio <= 1.0
+        o_read = (f"worst / (half ulp + 2^-8 mean|v| + {FLASH_TOL:g}) = "
+                  f"{ratio:.4f} (limit 1)")
+    # +inf on the same rows (those that see no key), close elsewhere.
+    blind = torch.isinf(want_lse)
+    lse_err = float(torch.where(blind, 0.0, lse - want_lse).abs().max())
+    lse_ok = bool(torch.equal(torch.isinf(lse), blind)) \
+        and lse_err <= FLASH_LSE_TOL
+    want = fa.flash_attention_bwd_plain(q, k, v, want_o.to(dtype), want_lse,
+                                        do, **kw)
+    rels, errs = [], []
+    for g, w in zip(got, want):
+        errs.append(float((g.float() - w.float()).abs().max()))
+        rels.append(errs[-1] / max(float(w.float().abs().max()), 1e-30))
+    finite = all(bool(t.isfinite().all()) for t in (o, *got))
+    tol = FLASH_BWD_TOL[str(dtype).split(".")[1]]
+    print(f"[kernel] flash_attention_bwd {label} {tuple(q.shape)} x "
+          f"{tuple(k.shape)} {dtype} {kw}: forward ({fwd_route}, with the "
+          f"lse) o max abs err {o_err:.3g} {o_read}, lse max abs err "
+          f"{lse_err:.3g} (limit {FLASH_LSE_TOL:g}); backward from the "
+          f"kernels' o and lse against the plain backward from the plain "
+          f"o and lse: max abs err dq/dk/dv {[f'{e:.3g}' for e in errs]}, "
+          f"of each gradient's largest {[f'{r:.3g}' for r in rels]} (limit "
+          f"{tol:g}); finite {finite}", flush=True)
+    if not (o_ok and lse_ok):
+        raise AssertionError(f"flash_attention_bwd {label} {dtype}: "
+                             f"forward o {o_read}, lse err {lse_err}")
+    if not (finite and max(rels) <= tol):
+        raise AssertionError(f"flash_attention_bwd {label} {dtype}: {rels}")
+    return max(errs)
+
+
+def flash_bwd_bound(q, k, pairs: int) -> tuple[float, str]:
+    """q, o, dO read and dq written, k and v read and dk, dv written, and
+    the lse read, each once; five products (two score products again,
+    dV, dK, dQ), 10 hd flops a visible pair and head."""
+    b, sq, h, hd = q.shape
+    n_bytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) \
+        + 4 * b * h * sq
+    n_ops = 10 * b * h * pairs * hd
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS[str(q.dtype).split(".")[1]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_bwd_timed(torch, fa, gen, shape, kw) -> dict:
+    """The backward at ``shape`` in bf16 (inputs cycled past L2): ``ms``
+    by host loop, printed beside its graph replay, the plain version's
+    ms, and SDPA's forward + backward (``enable_gqa``, ``is_causal``:
+    the window does not bind at this length) as ``library_ms``, SDPA's
+    forward alone printed beside it; also the forward with the lse
+    against the serving forward on the same inputs."""
+    import torch.nn.functional as F
+    b, sq, skv, h, kv, hd = shape
+    if kw["window"] and kw["window"] < sq:
+        raise AssertionError("SDPA's yardstick assumes no binding window")
+    n = cycling(2 * b * (4 * sq * h + 4 * skv * kv) * hd)
+    sets = [flash_bwd_inputs(torch, fa, gen, shape, torch.bfloat16, kw)
+            for _ in range(n)]
+    it = iter(range(10 ** 9))
+    calls = 10
+
+    def kernel():
+        return fa.flash_attention_bwd(*sets[next(it) % n], **kw)
+    ms = time_ms(kernel, calls)
+    graph = graph_ms(torch, kernel, calls)
+    q, k, v, o, lse, do = sets[0]
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, **kw), 2, warmup=1)
+    kv_len = kw.get("kv_len", skv)
+    fwd_lse = time_ms(lambda: fa._forward(q, k, v, kw["causal"],
+                                          kw["window"], kv_len, True), calls)
+    fwd = time_ms(lambda: fa._forward(q, k, v, kw["causal"], kw["window"],
+                                      kv_len, False), calls)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                              is_causal=kw["causal"])
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
+    with torch.no_grad():
+        sdpa_f = time_ms(sdpa_fwd, calls)
+    library_ms = time_ms(sdpa_fwd_bwd, calls)
+    sd = sdpa_fwd_bwd()
+    sdpa_err = max(float((a.transpose(1, 2).float() - g.float()).abs().max())
+                   for a, g in zip(sd, kernel()))
+    pairs = fa.visible_pairs(sq, causal=kw["causal"], window=kw["window"],
+                             kv_len=kv_len)
+    b_ms, b_by = flash_bwd_bound(q, k, pairs)
+    print(f"[kernel] flash_attention_bwd (b) path 20 shape {tuple(q.shape)} x"
+          f" {tuple(k.shape)} bf16 {kw}: ms={ms:.5f} (graph {graph:.5f}) "
+          f"plain_ms={plain_ms:.3f} library_ms(sdpa forward + backward)="
+          f"{library_ms:.5f} (sdpa forward alone {sdpa_f:.5f}; sdpa vs "
+          f"kernel gradients max diff {sdpa_err:.3g}) bound_ms={b_ms:.5f} "
+          f"({b_by}; {pairs} visible pairs per head; {b_ms / ms:.3f} of it "
+          f"by the host loop, {b_ms / graph:.3f} by the graph); forward "
+          f"with lse {fwd_lse:.5f} ms against the serving forward "
+          f"{fwd:.5f} ms on the same inputs", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
+
+
+def phase_flash_bwd(torch, dev) -> dict:
+    """The backward kernel against its plain version at FLASH_BWD_SHAPES
+    in f32 and bf16, and timed at path 20's shape.  Returns the kernels
+    line's ``flash_attention_bwd`` row (path 20's shape, bf16)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    lib = _build.library()
+    for hd in range(8, fa.MAX_HEAD_DIM + 1, 8):
+        if lib.flash_attention_bwd_smem(hd) != fa.bwd_smem_bytes(hd):
+            raise AssertionError(f"backward smem mirror at hd {hd}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, shape, kw in FLASH_BWD_SHAPES:
+            errs[label, dtype] = flash_bwd_check(torch, fa, gen, shape,
+                                                 dtype, kw, f"(a) {label}")
+            torch.cuda.empty_cache()
+    _, shape, kw = FLASH_BWD_SHAPES[0]
+    row = flash_bwd_timed(torch, fa, gen, shape, kw)
+    torch.cuda.empty_cache()
+    return dict(row, max_abs_err=errs["path 20", torch.bfloat16])
+
+
+def phase_danube_train(torch, dev, smi: str) -> dict:
+    """Path 20: the federated trainer on h2o-danube-3-4b at its published
+    widths, 6 layers (``launch.train``'s own setup, batch and schedule).
+    Returns the launch counts of its DANUBE_STEPS steps, with the
+    kernels line's ``flash_attention_bwd`` count."""
+    from repro_torch.kernels import fedavg_agg as fk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.setup(train.parse_args([
+        "--arch", "h2o-danube-3-4b", "--federated", str(DANUBE_K),
+        "--num-layers", str(DANUBE_LAYERS), "--clients-per-pass",
+        str(DANUBE_PER_PASS), "--batch", str(DANUBE_BATCH), "--seq",
+        str(DANUBE_SEQ), "--seed", str(SEED + 20)]))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg, ocfg, gen, clients, step = (run.cfg, run.ocfg, run.gen,
+                                     run.clients, run.step)
+    out = [run.state]
+    del run
+    n_params = transformer.param_count(cfg)
+    passes = -(-DANUBE_K // DANUBE_PER_PASS)
+    print(f"[path 20] {cfg.name} federated on {dev}: {DANUBE_LAYERS} of 24 "
+          f"layers at published widths (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} / {cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, window {cfg.sliding_window}), param_count "
+          f"{n_params}, {cfg.dtype_compute} compute, {cfg.dtype_params} "
+          f"parameters, AdamW lr {ocfg.learning_rate} warmup "
+          f"{ocfg.warmup_steps}; K={DANUBE_K} clients, global batch "
+          f"{DANUBE_BATCH} x {DANUBE_SEQ} tokens, {DANUBE_PER_PASS} "
+          f"clients a pass ({passes} passes); set up in {setup_s:.2f}s",
+          flush=True)
+
+    def iteration(out: list) -> None:
+        t0 = time.perf_counter()
+        batch = train.driver_batch(gen, DANUBE_BATCH, DANUBE_SEQ,
+                                   cfg.vocab_size, clients)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new, metrics = step(out[0], batch)
+        ce, n_sel = float(metrics["ce"]), int(metrics["n_selected"])
+        t2 = time.perf_counter()
+        out[:] = [new, (t2 - t0, t1 - t0, t2 - t1), ce, n_sel]
+
+    reset_counts()
+    walls = []
+    for i in range(DANUBE_STEPS):
+        how = ("cold" if i == 0 else "profiled" if i == DANUBE_STEPS - 1
+               else "warm")
+        if how == "profiled":
+            prof = profile_scopes(torch, lambda: iteration(out),
+                                  TRAIN_SCOPES,
+                                  kernels=("flash_attention_bwd",
+                                           "flash_attention_tc"))
+        else:
+            iteration(out)
+        _, wall, ce, n_sel = out
+        out = out[:1]
+        walls.append(wall)
+        if not (math.isfinite(ce) and n_sel >= clients.scfg.n_min):
+            raise AssertionError(f"path 20 step {i}: ce {ce}, n_selected "
+                                 f"{n_sel}")
+        print(f"[path 20] step {i} ({how}): wall {wall[0]:.3f}s = batch + "
+              f"schedule {wall[1]:.3f}s + federated step {wall[2]:.3f}s; ce "
+              f"{ce:.4f}; n_selected {n_sel}", flush=True)
+    counts = read_counts()
+    routes = dict(fa.flash_attention.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    layer_passes = DANUBE_STEPS * DANUBE_LAYERS * passes
+    want = dict(dict.fromkeys(_counters(), 0), fedavg_agg=DANUBE_STEPS,
+                flash_attention=2 * layer_passes)
+    want_routes = dict(prefill_tc=layer_passes, prefill_f32=0, decode=0,
+                       backward=layer_passes)
+    print(f"[path 20] launches {counts}; flash_attention by route {routes}; "
+          f"fedavg_agg by route {dict(fk.fedavg_agg.route_launches)}",
+          flush=True)
+    if counts != want or routes != want_routes:
+        raise AssertionError(f"path 20 launches {counts}, routes {routes}; "
+                             f"expected {want}, {want_routes}")
+    tokens = DANUBE_BATCH * DANUBE_SEQ
+    cold, warm = walls[0], walls[1]
+    print(f"[path 20] cold step {cold[0]:.3f}s, warm step {warm[0]:.3f}s = "
+          f"{tokens / warm[0]:.0f} tokens/s (federated step "
+          f"{warm[2]:.3f}s = {tokens / warm[2]:.0f} tokens/s, batch + "
+          f"schedule {warm[1]:.3f}s); max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB; {smi}", flush=True)
+    busy = prof["busy_us"]
+    bwd_us = prof["kernel_us"]["flash_attention_bwd"]
+    fwd_us = prof["kernel_us"]["flash_attention_tc"]
+    print(f"[path 20] profiled step: wall {prof['wall_us'] / 1e6:.3f}s, "
+          f"device busy {busy / 1e6:.3f}s, idle share "
+          f"{1 - busy / prof['wall_us']:.3f} (against the unprofiled warm "
+          f"step: {1 - busy / 1e6 / warm[0]:.3f}); flash backward "
+          f"{bwd_us / 1e3:.2f} ms = {bwd_us / busy:.3f} of device time, "
+          f"flash forward {fwd_us / 1e3:.2f} ms = {fwd_us / busy:.3f}; "
+          f"{prof['launches']} launches ({prof['device_ops']} device "
+          f"operations) by scope {prof['per_scope']}; host ms by scope "
+          f"{ {k: round(v, 1) for k, v in prof['host_ms'].items()} }",
+          flush=True)
+    del out
+    torch.cuda.empty_cache()
+    return dict(counts, flash_attention_bwd=routes["backward"])
+
+
+def phase_danube_card_vs_cpu(torch, dev) -> None:
+    """h2o-danube-3-4b at ``reduced(num_layers=2)`` (window 128) on the
+    card and on the CPU from one state, f32 with TF32 off: one federated
+    step, K = 4 clients of 2 x 160 tokens, clients 0, 2 and 3 selected,
+    SGD lr 0.1; parameters within DANUBE_CARD_CPU_TOL, and on the card
+    every layer's attention forward and backward through the kernels."""
+    from repro_torch import configs, optim
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get("h2o_danube_3_4b").reduced(num_layers=2)
+    ocfg = optim.OptimizerConfig(name="sgd", momentum=0.0, learning_rate=0.1,
+                                 grad_clip=0.0, warmup_steps=0)
+    gen = torch.Generator().manual_seed(SEED + 21)
+    state = steps.init_train_state(gen, cfg, ocfg)
+    batch = {"inputs": torch.randint(0, cfg.vocab_size, (4, 2, 160),
+                                     generator=gen),
+             "labels": torch.randint(0, cfg.vocab_size, (4, 2, 160),
+                                     generator=gen),
+             "selected": torch.tensor([1.0, 0.0, 1.0, 1.0]),
+             "sizes": torch.tensor([100.0, 999.0, 300.0, 40.0])}
+    out = {}
+    for device in ("cpu", dev):
+        before = dict(fa.flash_attention.route_launches)
+        new, metrics = steps.make_federated_train_step(cfg, ocfg, 4)(
+            _to(state, device), {k: v.to(device) for k, v in batch.items()})
+        routed = {r: n - before[r]
+                  for r, n in fa.flash_attention.route_launches.items()}
+        out[str(device)] = ([x.cpu() for x in tree_leaves(new["params"])],
+                            float(metrics["ce"]), routed)
+    (p_c, ce_c, _), (p_g, ce_g, routed) = out.values()
+    err = max(float((c - g).abs().max()) for c, g in zip(p_c, p_g))
+    want = dict(prefill_tc=0, prefill_f32=cfg.num_layers, decode=0,
+                backward=cfg.num_layers)
+    print(f"[card-vs-cpu] {cfg.name} reduced(num_layers=2) f32: federated "
+          f"step (K=4, 2 x 160 tokens a client, window "
+          f"{cfg.sliding_window}) parameters max abs err {err:.3g} (limit "
+          f"{DANUBE_CARD_CPU_TOL:g}); ce card {ce_g:.6f} CPU {ce_c:.6f}; "
+          f"card flash launches by route {routed}", flush=True)
+    if not (err <= DANUBE_CARD_CPU_TOL and routed == want):
+        raise AssertionError(f"danube card vs CPU: {err}, routes {routed}")
+
 
 KERNELS = {
     "fedavg_agg": ("src/repro_torch/csrc/fedavg_agg.cu",
@@ -4608,6 +5071,11 @@ KERNELS.update({f"{name}_batch": KERNELS[name] for name in (
     "diversity", "sub2_pgd", "fedavg_agg", "stream_update",
     "fedavg_agg_masked", "compress_update", "fedavg_agg_stale")})
 KERNELS["fedavg_agg_train"] = KERNELS["fedavg_agg"]
+# The backward has no TPU kernel to replace: the reference differentiates
+# its plain attention (``attend_full``).
+KERNELS["flash_attention_bwd"] = (
+    "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "src/repro/models/attention.py:142")
 # Paths 15-19's flash rows (PATH_FLASH): the prefill at each MoE path's
 # query group, jamba's decode, whisper's encoder prefill and its
 # cross-attention decode.
@@ -4632,6 +5100,9 @@ def main() -> int:
     _build.library()
     print(f"[build] kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
+    if sys.argv[1:] == ["--moe-prefill"]:
+        moe_prefill_only(torch, dev)
+        return 0
 
     compress_smem_mirror()
     sass_sizes(_build.build())
@@ -4652,6 +5123,7 @@ def main() -> int:
         "fedavg_agg_masked": phase_masked(torch, dev, 100, P_CNN),
         "fedavg_agg_stale": phase_stale(torch, dev, 100, P_CNN),
         **phase_flash(torch, dev),
+        "flash_attention_bwd": phase_flash_bwd(torch, dev),
         "fedavg_agg_train": phase_fedavg_train(torch, dev, TRAIN_K,
                                                XLSTM_PARAMS),
     }
@@ -4690,6 +5162,7 @@ def main() -> int:
              "fedavg_agg_batch": 7, "stream_update_batch": 8,
              "fedavg_agg_masked_batch": 8, "compress_update_batch": 9,
              "fedavg_agg_stale_batch": 10, "fedavg_agg_train": 13,
+             "flash_attention_bwd": 20,
              **{name: path for name, (path, *_) in PATH_FLASH.items()}}
     by_path, recs, walls = {}, {}, {}
     for path in (1, 2, 3):
@@ -4740,6 +5213,8 @@ def main() -> int:
     by_path[14] = phase_xlstm_serve(torch, dev)
     by_path[13] = phase_train(torch, dev, smi)
     phase_xlstm_card_vs_cpu(torch, dev)
+    by_path[20] = phase_danube_train(torch, dev, smi)
+    phase_danube_card_vs_cpu(torch, dev)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=by_path[owner[name]][re.sub(

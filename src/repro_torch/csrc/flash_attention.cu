@@ -9,7 +9,10 @@
 // k <= q if causal, and k > q - window if window > 0 (positions of q and
 // k both start at 0); online max/sum rescaling with p . v accumulated in
 // f32; out = acc / max(l, 1e-30) in the input type.  Masked entries get
-// p = 0, so a row with nothing visible gives 0.
+// p = 0, so a row with nothing visible gives 0.  For training the prefill
+// also writes each row's log-sum-exp m + log(l) of the scaled scores
+// (+inf for a row with nothing visible), which the backward
+// (flash_attention_bwd.cu) reads; serving passes no lse and writes none.
 //
 // Layout is the model's: q (B, Sq, H, hd), k and v (B, Skv, KV, hd),
 // out (B, Sq, H, hd), contiguous.  q head h reads KV head h / (H / KV):
@@ -76,67 +79,19 @@ constexpr int DEC_WARPS = 4;                         // consumer warps
 constexpr int DEC_CONSUMERS = 32 * DEC_WARPS;
 constexpr int DEC_THREADS = DEC_CONSUMERS + 32;      // + a producer warp
 
-__device__ __forceinline__ void load8(const float* p, float* d) {
-  float4 a = reinterpret_cast<const float4*>(p)[0];
-  float4 b = reinterpret_cast<const float4*>(p)[1];
-  d[0] = a.x; d[1] = a.y; d[2] = a.z; d[3] = a.w;
-  d[4] = b.x; d[5] = b.y; d[6] = b.z; d[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* d) {
-  uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    d[2 * i] = f.x;
-    d[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// Stage `rows` rows of one head into shared memory as f32 (row stride
-// ld), multiplied by `mul`; rows at or past `limit` become zeros.
-// Row r of the tile is element ((b * S + pos0 + r) * NH + head) * hd.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
-                                      int64_t base, int64_t row_stride,
-                                      int pos0, int rows, int limit, int hd,
-                                      float mul, int nthreads) {
-  const int chunks = hd / 8;
-  for (int e = threadIdx.x; e < rows * chunks; e += nthreads) {
-    const int r = e / chunks;
-    const int c = (e - r * chunks) * 8;
-    float vals[8];
-    if (pos0 + r < limit) {
-      load8(src + base + (int64_t)(pos0 + r) * row_stride + c, vals);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vals[i] = 0.f;
-    }
-    float4* out = reinterpret_cast<float4*>(dst + r * ld + c);
-    out[0] = make_float4(vals[0] * mul, vals[1] * mul, vals[2] * mul,
-                         vals[3] * mul);
-    out[1] = make_float4(vals[4] * mul, vals[5] * mul, vals[6] * mul,
-                         vals[7] * mul);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Prefill / general Sq
 // ---------------------------------------------------------------------------
 
-// NJ4: groups of 4 output columns per thread (hd <= 64 * NJ4).
-template <typename T, int NJ4>
+// NJ4: groups of 4 output columns per thread (hd <= 64 * NJ4).  LSE:
+// write each row's log-sum-exp (training); serving compiles without it.
+template <typename T, int NJ4, bool LSE>
 __global__ void __launch_bounds__(FWD_THREADS)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
-                           int Sq, int Skv, int H, int KV, int hd,
-                           int kv_len, int causal, int window, float scale) {
+                           float* __restrict__ lse, int Sq, int Skv, int H,
+                           int KV, int hd, int kv_len, int causal,
+                           int window, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int ld = hd + 4;
@@ -277,6 +232,13 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q_lo + ty + 16 * i;
     if (qpos >= Sq) continue;   // tail rows of the last tile
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    // The row's log-sum-exp of the scaled scores for the backward; +inf
+    // where no key is visible, so that every p of the row is 0 there.
+    if constexpr (LSE) {
+      if (tx == 0)
+        lse[((int64_t)b * H + h) * Sq + qpos] =
+            l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
+    }
     T* orow = o + q_base + (int64_t)qpos * H * hd;
 #pragma unroll
     for (int jj = 0; jj < NJ4; ++jj) {
@@ -771,36 +733,39 @@ size_t fwd_smem_bytes(int hd) {
 }
 
 template <typename T, int NJ4>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Skv, int H, int KV, int hd, int kv_len, int causal,
-               int window, float scale, cudaStream_t stream) {
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Skv, int H, int KV, int hd,
+               int kv_len, int causal, int window, float scale,
+               cudaStream_t stream) {
   const size_t smem = fwd_smem_bytes(hd);
+  auto kernel = lse != nullptr ? flash_attention_fwd_kernel<T, NJ4, true>
+                               : flash_attention_fwd_kernel<T, NJ4, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_fwd_kernel<T, NJ4>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_attention_fwd_kernel<T, NJ4><<<grid, FWD_THREADS, smem, stream>>>(
+  kernel<<<grid, FWD_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, KV, hd,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Skv, H, KV, hd,
       kv_len, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-int fwd_by_width(const void* q, const void* k, const void* v, void* o, int B,
-                 int Sq, int Skv, int H, int KV, int hd, int kv_len,
-                 int causal, int window, float scale, cudaStream_t stream) {
+int fwd_by_width(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int Sq, int Skv, int H, int KV, int hd,
+                 int kv_len, int causal, int window, float scale,
+                 cudaStream_t stream) {
   if (hd <= 64)
-    return launch_fwd<float, 1>(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len,
-                                causal, window, scale, stream);
+    return launch_fwd<float, 1>(q, k, v, o, lse, B, Sq, Skv, H, KV,
+                                hd, kv_len, causal, window, scale, stream);
   if (hd <= 128)
-    return launch_fwd<float, 2>(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len,
-                                causal, window, scale, stream);
+    return launch_fwd<float, 2>(q, k, v, o, lse, B, Sq, Skv, H, KV,
+                                hd, kv_len, causal, window, scale, stream);
   if (hd <= 192)
-    return launch_fwd<float, 3>(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len,
-                                causal, window, scale, stream);
-  return launch_fwd<float, 4>(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len,
-                              causal, window, scale, stream);
+    return launch_fwd<float, 3>(q, k, v, o, lse, B, Sq, Skv, H, KV,
+                                hd, kv_len, causal, window, scale, stream);
+  return launch_fwd<float, 4>(q, k, v, o, lse, B, Sq, Skv, H, KV,
+                              hd, kv_len, causal, window, scale, stream);
 }
 
 // What launch_decode does: launch, or ask the occupancy calculator.
@@ -886,14 +851,17 @@ int decode_variant(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// f32 prefill (any Sq).  Returns cudaGetLastError() after the launch.
+// f32 prefill (any Sq).  lse: null, or (B, H, Sq) f32 for each row's
+// log-sum-exp (training).  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
-                                       const void* v, void* o, int B, int Sq,
-                                       int Skv, int H, int KV, int hd,
-                                       int kv_len, int causal, int window,
-                                       float scale, void* stream) {
-  return fwd_by_width(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len, causal,
-                      window, scale, static_cast<cudaStream_t>(stream));
+                                       const void* v, void* o, void* lse,
+                                       int B, int Sq, int Skv, int H, int KV,
+                                       int hd, int kv_len, int causal,
+                                       int window, float scale,
+                                       void* stream) {
+  return fwd_by_width(q, k, v, o, static_cast<float*>(lse), B, Sq, Skv, H,
+                      KV, hd, kv_len, causal, window, scale,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // Sq == 1.  Returns cudaGetLastError() after the launch, or -(CUresult)

@@ -1,11 +1,13 @@
 // Helpers shared by the flash attention kernels (flash_attention.cu: the
 // f32 prefill on the CUDA cores and the decode; flash_attention_tc.cu:
-// the bf16 prefill on the tensor cores): masks, mbarriers, TMA loads and
+// the bf16 prefill on the tensor cores; flash_attention_bwd.cu: the
+// backward): masks, staging into shared memory, mbarriers, TMA loads and
 // tensor maps.
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,6 +34,58 @@ __device__ __forceinline__ void kv_range(int q_lo, int q_hi, int kv_len,
   if (window > 0) l = max(0, q_lo - window + 1);
   *lo = l;
   *hi = max(h, l);
+}
+
+// Eight elements as f32, and one stored in the input type (rounded to
+// nearest in bf16).
+__device__ __forceinline__ void load8(const float* p, float* d) {
+  float4 a = reinterpret_cast<const float4*>(p)[0];
+  float4 b = reinterpret_cast<const float4*>(p)[1];
+  d[0] = a.x; d[1] = a.y; d[2] = a.z; d[3] = a.w;
+  d[4] = b.x; d[5] = b.y; d[6] = b.z; d[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* d) {
+  uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 f = __bfloat1622float2(h[i]);
+    d[2 * i] = f.x;
+    d[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// Stage `rows` rows of one head into shared memory as f32 (row stride
+// ld), multiplied by `mul`; rows at or past `limit` become zeros.
+// Row r of the tile is element ((b * S + pos0 + r) * NH + head) * hd.
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
+                                      int64_t base, int64_t row_stride,
+                                      int pos0, int rows, int limit, int hd,
+                                      float mul, int nthreads) {
+  const int chunks = hd / 8;
+  for (int e = threadIdx.x; e < rows * chunks; e += nthreads) {
+    const int r = e / chunks;
+    const int c = (e - r * chunks) * 8;
+    float vals[8];
+    if (pos0 + r < limit) {
+      load8(src + base + (int64_t)(pos0 + r) * row_stride + c, vals);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) vals[i] = 0.f;
+    }
+    float4* out = reinterpret_cast<float4*>(dst + r * ld + c);
+    out[0] = make_float4(vals[0] * mul, vals[1] * mul, vals[2] * mul,
+                         vals[3] * mul);
+    out[1] = make_float4(vals[4] * mul, vals[5] * mul, vals[6] * mul,
+                         vals[7] * mul);
+  }
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -114,11 +168,13 @@ inline EncodeTiledFn encode_fn() {
 
 // A tensor map of `rank` dims (innermost first, dense strides) over
 // elements of `elem` bytes (2: bf16, 4: f32), boxes `box`, with the
-// 128-byte swizzle or none, zeros out of bounds.  Returns 0 or
-// -(CUresult).
+// 128-byte swizzle or none, zeros out of bounds.  `extent`, if given,
+// bounds each dim below its size in `dims` (which alone sets the
+// strides): reads past it come back as zeros.  Returns 0 or -(CUresult).
 inline int encode_map(CUtensorMap* map, const void* base, int elem, int rank,
                       const cuuint64_t* dims, const cuuint32_t* box,
-                      bool swizzle = true) {
+                      bool swizzle = true,
+                      const cuuint64_t* extent = nullptr) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
   cuuint64_t strides[4];
@@ -131,7 +187,8 @@ inline int encode_map(CUtensorMap* map, const void* base, int elem, int rank,
   const CUtensorMapDataType type = elem == 2
                                        ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  CUresult res = fn(map, type, rank, const_cast<void*>(base), dims, strides,
+  CUresult res = fn(map, type, rank, const_cast<void*>(base),
+                    extent != nullptr ? extent : dims, strides,
                     box, ones,
                     CU_TENSOR_MAP_INTERLEAVE_NONE,
                     swizzle ? CU_TENSOR_MAP_SWIZZLE_128B

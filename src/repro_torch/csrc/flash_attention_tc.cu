@@ -10,9 +10,11 @@
 // taken over the f32 p; p rounded to bf16 for the p . v product (as the
 // reference's model path casts its probabilities to v's type), f32
 // accumulation; out = acc / max(l, 1e-30), rounded to nearest once at the
-// bf16 store.  A row with nothing visible gives 0.  Layout as the model's:
-// q (B, Sq, H, hd), k and v (B, Skv, KV, hd), q head h reads KV head
-// h / (H / KV).
+// bf16 store.  A row with nothing visible gives 0.  For training it also
+// writes each row's log-sum-exp of the scaled scores (+inf for a row with
+// nothing visible), which the backward reads; serving passes no lse.
+// Layout as the model's: q (B, Sq, H, hd), k and v (B, Skv, KV, hd), q
+// head h reads KV head h / (H / KV).
 //
 // Bound on the H100: by operations (4 hd flops per visible (q, k) pair
 // and head, 989 TFLOP/s in bf16); danube's prefill (B = 4, S = 5000, 32
@@ -28,8 +30,10 @@
 // * K/V by TMA: 4-D tensor maps (hd, KV, Skv, B), boxes of 64 columns x
 //   64 keys, into a ring of stages with full / empty mbarriers.  One
 //   producer warp keeps the ring filled; two consumer warpgroups compute.
-//   The ragged key tail past Skv comes back as zeros; kv_len < Skv is
-//   masked in the kernel.
+//   The K/V maps end at kv_len, so the keys and values past it (the
+//   ragged tail past Skv too) come back as zeros, and a zero weight p
+//   never meets what lies there (0 x NaN would be NaN); the kernel
+//   masks their scores as well.
 // * K/V shared by the query group: a warpgroup's 64-row M tile packs
 //   (q position, head) pairs, P = 64 / G positions x the G heads of one
 //   KV head, which are adjacent rows of q in memory (a 5-D tensor map
@@ -66,6 +70,7 @@ constexpr int KT = 64;                      // keys per K/V tile
 constexpr int BOX_COLS = 64;                // hd columns per box (128 B)
 constexpr int BOX_BYTES = 64 * 128;         // 64 rows of 128 B
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // NCH: boxes of 64 columns that cover hd.
 template <int NCH>
@@ -124,13 +129,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-template <int NCH>
+// LSE: write each row's log-sum-exp (training); serving compiles without.
+template <int NCH, bool LSE>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap,
-                          __nv_bfloat16* __restrict__ o, int Sq, int H,
-                          int KV, int hd, int kv_len, int causal, int window,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int Sq, int H, int KV,
+                          int hd, int kv_len, int causal, int window,
                           float scale_log2) {
   using C = TcCfg<NCH>;
   constexpr int STAGES = C::STAGES;
@@ -239,7 +246,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const int s = i % STAGES;
     const int k0 = t * KT;
     mbar_wait(smem_u32(&bars[1 + s]), (i / STAGES) & 1);
-    if (any && k0 < whi && k0 + KT > wlo) {
+    if (any && wlo < whi && k0 < whi && k0 + KT > wlo) {
       const uint32_t kaddr = smem_u32(ring + s * C::STAGE_BYTES);
       const uint32_t vaddr = kaddr + NCH * BOX_BYTES;
       fence_regs(sacc);
@@ -327,6 +334,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (!live[h]) continue;
+    // The row's log-sum-exp of the scaled scores, from the log2 units of
+    // m and l; +inf where no key is visible (every p of the row 0).
+    if constexpr (LSE) {
+      if ((lane & 3) == 0)
+        lse[((int64_t)b * H + head[h]) * Sq + qpos[h]] =
+            l[h] > 0.f ? (m[h] + log2f(l[h])) * LN2 : INFINITY;
+    }
     __nv_bfloat16* orow =
         o + (((int64_t)b * Sq + qpos[h]) * H + head[h]) * hd;
 #pragma unroll
@@ -341,9 +355,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 template <int NCH>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int Sq, int Skv, int H, int KV, int hd, int kv_len, int causal,
-              int window, float scale, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int Sq, int Skv, int H, int KV, int hd,
+              int kv_len, int causal, int window, float scale,
+              cudaStream_t stream) {
   const int G = H / KV;
   const int P = ROWS / G;
   CUtensorMap qmap, kmap, vmap;
@@ -352,47 +367,54 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   const cuuint32_t qbox[5] = {BOX_COLS, (cuuint32_t)G, 1, (cuuint32_t)P, 1};
   const cuuint64_t kdims[4] = {(cuuint64_t)hd, (cuuint64_t)KV,
                                (cuuint64_t)Skv, (cuuint64_t)B};
+  const cuuint64_t kext[4] = {(cuuint64_t)hd, (cuuint64_t)KV,
+                               (cuuint64_t)(kv_len > 0 ? kv_len : 1),
+                               (cuuint64_t)B};
   const cuuint32_t kbox[4] = {BOX_COLS, 1, KT, 1};
   int err = encode_map(&qmap, q, 2, 5, qdims, qbox);
-  if (err == 0) err = encode_map(&kmap, k, 2, 4, kdims, kbox);
-  if (err == 0) err = encode_map(&vmap, v, 2, 4, kdims, kbox);
+  if (err == 0) err = encode_map(&kmap, k, 2, 4, kdims, kbox, true, kext);
+  if (err == 0) err = encode_map(&vmap, v, 2, 4, kdims, kbox, true, kext);
   if (err != 0) return err;
   const int smem = TcCfg<NCH>::SMEM;
+  auto kernel = lse != nullptr ? flash_attention_tc_kernel<NCH, true>
+                               : flash_attention_tc_kernel<NCH, false>;
   cudaError_t cerr = cudaFuncSetAttribute(
-      flash_attention_tc_kernel<NCH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (cerr != cudaSuccess) return (int)cerr;
   dim3 grid((Sq + TC_WG * P - 1) / (TC_WG * P), B * KV);
-  flash_attention_tc_kernel<NCH><<<grid, TC_THREADS, smem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), Sq, H, KV, hd,
+  kernel<<<grid, TC_THREADS, smem, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse, Sq, H, KV, hd,
       kv_len, causal, window, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16, Sq > 1.  H / KV <= 64, hd a multiple of 8 up to 256.  Returns
+// bf16, Sq > 1.  H / KV <= 64, hd a multiple of 8 up to 256.  lse: null,
+// or (B, H, Sq) f32 for each row's log-sum-exp (training).  Returns
 // cudaGetLastError() after the launch, or -(CUresult) if a tensor map
 // could not be encoded.
 extern "C" int flash_attention_fwd_tc(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
-                                      int Skv, int H, int KV, int hd,
-                                      int kv_len, int causal, int window,
-                                      float scale, void* stream) {
+                                      const void* v, void* o, void* lse_ptr,
+                                      int B, int Sq, int Skv, int H, int KV,
+                                      int hd, int kv_len, int causal,
+                                      int window, float scale,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_ptr);
   switch ((hd + BOX_COLS - 1) / BOX_COLS) {
     case 1:
-      return launch_tc<1>(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len, causal,
-                          window, scale, s);
+      return launch_tc<1>(q, k, v, o, lse, B, Sq, Skv, H, KV, hd, kv_len,
+                          causal, window, scale, s);
     case 2:
-      return launch_tc<2>(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len, causal,
-                          window, scale, s);
+      return launch_tc<2>(q, k, v, o, lse, B, Sq, Skv, H, KV, hd, kv_len,
+                          causal, window, scale, s);
     case 3:
-      return launch_tc<3>(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len, causal,
-                          window, scale, s);
+      return launch_tc<3>(q, k, v, o, lse, B, Sq, Skv, H, KV, hd, kv_len,
+                          causal, window, scale, s);
     default:
-      return launch_tc<4>(q, k, v, o, B, Sq, Skv, H, KV, hd, kv_len, causal,
-                          window, scale, s);
+      return launch_tc<4>(q, k, v, o, lse, B, Sq, Skv, H, KV, hd, kv_len,
+                          causal, window, scale, s);
   }
 }
 

@@ -55,10 +55,12 @@ SIGNATURES = {
     "diversity_route": [_P, _P, _I],
     "sub2_pgd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                  _F, _F, _F, _F, _I, _F, _F, _I, _I, _I, _P],
-    "flash_attention_fwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _F, _P],
-    "flash_attention_fwd_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _F, _P],
+    "flash_attention_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _F, _P],
+    "flash_attention_fwd_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _F, _P],
+    "flash_attention_bwd": [_P] * 10 + [_I] * 10 + [_F, _P],
+    "flash_attention_bwd_smem": [_I],
     "flash_attention_tc_smem": [_I],
     "flash_attention_decode_smem": [_I, _I, _I],
     "flash_attention_decode_clusters": [_I, _I, _I, _I],

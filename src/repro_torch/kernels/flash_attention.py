@@ -27,6 +27,18 @@ Three routes on the card (:func:`route`), each with its launch count in
   in the input type by TMA into a ring of stages (bf16 scores on the
   tensor cores, p . v in f32 on the CUDA cores); the splits of a KV head
   form one thread block cluster, which merges them.  Bound by bytes.
+
+The gradient (training): with grad enabled and q, k or v requiring it,
+:func:`flash_attention` goes through ``_FlashAttention``, a
+``torch.autograd.Function`` whose forward is the prefill route of its
+type with each row's log-sum-exp written beside the output, and whose
+backward is ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`,
+route ``backward``; on the CUDA cores, bound by operations).  The
+reference has no backward kernel: it differentiates its plain attention,
+which the CPU route here does in :func:`flash_attention_bwd_plain`.  Both
+Functions carry a ``vmap`` rule that folds the mapped axis into B, so the
+federated step's ``torch.func.vmap(torch.func.grad(...))`` launches each
+kernel once for all its clients.
 """
 
 from __future__ import annotations
@@ -55,10 +67,12 @@ TMA_STRIDE_LIMIT = 2 ** 40
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def route(dtype: torch.dtype, sq: int) -> str:
+def route(dtype: torch.dtype, sq: int, with_lse: bool = False) -> str:
     """The kernel that serves a call on the card: ``decode`` for one
-    query row, else ``prefill_tc`` in bf16 and ``prefill_f32`` in f32."""
-    if sq == 1:
+    query row (unless the rows' log-sum-exp is wanted, which only the
+    prefill kernels write), else ``prefill_tc`` in bf16 and
+    ``prefill_f32`` in f32."""
+    if sq == 1 and not with_lse:
         return "decode"
     return "prefill_tc" if dtype == torch.bfloat16 else "prefill_f32"
 
@@ -73,6 +87,16 @@ def tc_smem_bytes(hd: int) -> int:
     box = 64 * 128
     return 1024 + 2 * boxes * box + stages * 2 * boxes * box \
         + 8 * (1 + 2 * stages)
+
+
+def bwd_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of the backward's dK / dV kernel, the larger
+    of its two: f32 tiles of K and V (64 keys up to hd 128, 32 past it)
+    and of q and dO (64 rows), rows of hd + 4 floats, the P and dS tiles
+    (rows of 68 floats) and 64 lse and D values."""
+    rows = 64 if hd <= 128 else 32
+    return 4 * ((2 * rows + 2 * BLOCK_K) * (hd + 4)
+                + 2 * rows * (BLOCK_K + 4) + 2 * BLOCK_K)
 
 
 def decode_rows(group: int) -> int:
@@ -117,10 +141,15 @@ def visible_mask(sq: int, skv: int, *, causal: bool, window: int,
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
-                          kv_len: Optional[int] = None) -> torch.Tensor:
+                          kv_len: Optional[int] = None, with_lse: bool = False
+                          ):
     """Plain version: a port of ``kernels/ref.py::flash_attention``
     extended to the kernel's signature (``kv_len``, grouped-query heads
-    by index, ``Sq != Skv``); a row with no visible key gives 0."""
+    by index, ``Sq != Skv``); a row with no visible key gives 0.  With
+    ``with_lse``, returns (out, lse): lse (B, H, Sq) f32 is each row's
+    log-sum-exp of its visible scaled scores ``q . k / sqrt(hd)``, +inf
+    for a row that sees no key (what the kernels write for the
+    backward)."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     grp = h // kvh
@@ -130,9 +159,50 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vis = visible_mask(sq, skv, causal=causal, window=window, kv_len=kv_len,
                        device=q.device)
     s = s.masked_fill(~vis, NEG_INF)
-    p = torch.softmax(s, dim=-1) * vis.any(dim=-1, keepdim=True)
+    seen = vis.any(dim=-1)
+    p = torch.softmax(s, dim=-1) * seen[:, None]
     out = torch.einsum("bngqk,bknd->bqngd", p, v.float())
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+    out = out.reshape(b, sq, h, hd).to(q.dtype)
+    if not with_lse:
+        return out
+    lse = torch.where(seen, torch.logsumexp(s, dim=-1), math.inf)
+    return out, lse.reshape(b, h, sq)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool = True, window: int = 0,
+                              kv_len: Optional[int] = None
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain version of the backward: (dq, dk, dv) in the inputs' types.
+    ``P = exp(s - lse)`` where visible (0 elsewhere), ``D = rowsum(dO o)``,
+    ``dv = P'^T dO`` with P' = P rounded to the input type (bf16: the
+    reference rounds its probabilities to v's type before ``p . v``),
+    ``dS = P (dO v^T - D)``, ``dq = dS k / sqrt(hd)``, ``dk = dS^T q /
+    sqrt(hd)``, all in f32; a KV head's gradient sums its query group."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    grp = h // kvh
+    kv_len = skv if kv_len is None else kv_len
+    scale = hd ** -0.5
+    qf = q.float().reshape(b, sq, kvh, grp, hd)
+    dof = do.float().reshape(b, sq, kvh, grp, hd)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqngd,bknd->bngqk", qf, kf) * scale
+    vis = visible_mask(sq, skv, causal=causal, window=window, kv_len=kv_len,
+                       device=q.device)
+    p = torch.where(vis, torch.exp(s - lse.reshape(b, kvh, grp, sq, 1)), 0.0)
+    dv = torch.einsum("bngqk,bqngd->bknd", p.to(q.dtype).float(), dof)
+    delta = (dof * o.float().reshape(b, sq, kvh, grp, hd)).sum(-1)
+    dp = torch.einsum("bqngd,bknd->bngqk", dof, vf)
+    ds = torch.where(vis, p * (dp - delta.permute(0, 2, 3, 1)[..., None]),
+                     0.0)
+    dq = torch.einsum("bngqk,bknd->bqngd", ds, kf) * scale
+    dk = torch.einsum("bngqk,bqngd->bknd", ds, qf) * scale
+    return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def visible_pairs(sq: int, *, causal: bool, window: int, kv_len: int) -> int:
@@ -225,15 +295,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kv_len`` (default ``Skv``) is a host int.  CPU tensors take
     :func:`flash_attention_plain`; CUDA tensors launch the kernel of
     :func:`route` (f32 or bf16, contiguous, 16-byte aligned, ``hd`` a
-    multiple of 8 up to 256) or raise.
+    multiple of 8 up to 256) or raise.  With grad enabled and q, k or v
+    requiring grad the call is differentiable (``_FlashAttention``): on
+    the card its forward takes the prefill route of its type, whatever
+    Sq, and its backward :func:`flash_attention_bwd`.
     """
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     kv_len=kv_len)
+    kv_len = k.shape[1] if kv_len is None else int(kv_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, kv_len)[0]
+    return _forward(q, k, v, causal, window, kv_len, False)[0]
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, kv_len: int) -> None:
+    """Raise on what no flash kernel takes."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
-    kv_len = skv if kv_len is None else int(kv_len)
-    dev = q.device
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention takes f32 or bf16, got {q.dtype}")
     if hd % 8 or not 0 < hd <= MAX_HEAD_DIM:
@@ -245,14 +322,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"kv_len {kv_len} outside [0, {skv}]")
     if b * h > 65535:
         raise ValueError(f"batch x heads {b * h} exceeds the grid's 65535")
-    _check.cuda_operand("q", q, q.dtype, (b, sq, h, hd), dev)
-    _check.cuda_operand("k", k, q.dtype, (b, skv, kvh, hd), dev)
-    _check.cuda_operand("v", v, q.dtype, (b, skv, kvh, hd), dev)
-    for name, t in (("q", q), ("k", k), ("v", v)):
+
+
+def _check_operands(named: dict, q: torch.Tensor, k: torch.Tensor) -> None:
+    """Raise unless each of ``named`` (name -> tensor, q-like or k-like by
+    its name) is a contiguous, 16-byte aligned tensor of q's type on q's
+    device."""
+    for name, t in named.items():
+        shape = q.shape if name in ("q", "o", "do") else k.shape
+        _check.cuda_operand(name, t, q.dtype, tuple(shape), q.device)
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, window: int, kv_len: int, with_lse: bool
+             ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The output and, ``with_lse``, each row's log-sum-exp (B, H, Sq) f32
+    (as :func:`flash_attention_plain` gives it): plain on the CPU; on the
+    card one launch of :func:`route`'s kernel, or with the lse of the
+    prefill kernel of the type at any Sq (the decode kernel writes
+    none)."""
+    if q.device.type == "cpu":
+        got = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    kv_len=kv_len, with_lse=with_lse)
+        return got if with_lse else (got, None)
+    _check_shapes(q, k, kv_len)
+    _check_operands({"q": q, "k": k, "v": v}, q, k)
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    dev = q.device
     grp = h // kvh
-    which = route(q.dtype, sq)
+    which = route(q.dtype, sq, with_lse)
     if which == "decode":
         tma_strides((hd, kvh, skv, b), k.element_size())
     elif which == "prefill_tc":
@@ -263,8 +364,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         tma_strides((hd, kvh, skv, b), k.element_size())
         check_smem(tc_smem_bytes(hd), "prefill_tc")
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev) \
+        if with_lse else None
     if out.numel() == 0:
-        return out
+        return out, lse
     lib = _build.library()
     stream = _check.stream_handle(dev)
     scale = hd ** -0.5
@@ -282,14 +385,125 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         entry = lib.flash_attention_fwd_tc if which == "prefill_tc" \
             else lib.flash_attention_fwd_f32
         err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    b, sq, skv, h, kvh, hd, kv_len, int(causal), int(window),
-                    scale, stream)
+                    None if lse is None else lse.data_ptr(), b, sq, skv, h,
+                    kvh, hd, kv_len, int(causal), int(window), scale, stream)
     _build.check(err, f"flash_attention ({which})")
     flash_attention.launches += 1
     flash_attention.route_launches[which] += 1
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        kv_len: Optional[int] = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention` at (q, k, v) with output
+    ``o``, its rows' log-sum-exp ``lse`` (B, H, Sq) f32 and the output's
+    gradient ``do``.  CPU tensors take :func:`flash_attention_bwd_plain`;
+    CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (the checks of
+    the forward; o and do as q, contiguous) or raise.  One launch on the
+    card is counted in ``flash_attention.launches`` and its route
+    ``backward``."""
+    kv_len = k.shape[1] if kv_len is None else int(kv_len)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window, kv_len=kv_len)
+    _check_shapes(q, k, kv_len)
+    _check_operands({"q": q, "k": k, "v": v, "o": o, "do": do}, q, k)
+    b, sq, h, hd = q.shape
+    _check.cuda_operand("lse", lse, torch.float32, (b, h, sq), q.device)
+    check_smem(bwd_smem_bytes(hd), "backward")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    err = _build.library().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _DTYPE_CODE[q.dtype], b, sq, k.shape[1], h,
+        k.shape[2], hd, kv_len, int(causal), int(window), hd ** -0.5,
+        _check.stream_handle(q.device))
+    _build.check(err, "flash_attention (backward)")
+    flash_attention.launches += 1
+    flash_attention.route_launches["backward"] += 1
+    return dq, dk, dv
+
+
+def _fold(info, in_dims, tensors) -> list:
+    """Under ``vmap``: each tensor with its mapped axis (broadcast where
+    it has none) folded into its leading axis B."""
+    n = info.batch_size
+    out = []
+    for t, d in zip(tensors, in_dims):
+        t = t.expand((n,) + tuple(t.shape)) if d is None else t.movedim(d, 0)
+        out.append(t.reshape((n * t.shape[1],) + tuple(t.shape[2:])))
     return out
+
+
+def _unfold(t: torch.Tensor, n: int) -> torch.Tensor:
+    return t.reshape((n, t.shape[0] // n) + tuple(t.shape[1:]))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(out, lse) of :func:`_forward`, differentiable in q, k and v
+    (``setup_context`` form, as ``torch.func`` requires)."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, kv_len):
+        return _forward(q, k, v, causal, window, kv_len, True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, kv_len = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = (causal, window, kv_len)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _FlashAttentionBwd.apply(q, k, v, out, lse, dout,
+                                              *ctx.masks)
+        return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, kv_len):
+        n = info.batch_size
+        out, lse = _FlashAttention.apply(*_fold(info, in_dims[:3], (q, k, v)),
+                                         causal, window, kv_len)
+        return (_unfold(out, n), _unfold(lse, n)), (0, 0)
+
+
+class _FlashAttentionBwd(torch.autograd.Function):
+    """(dq, dk, dv) of :func:`flash_attention_bwd`: a Function so that
+    the backward, which runs on batched tensors under ``vmap(grad)``, has
+    a ``vmap`` rule too.  Not differentiable itself."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, do, causal, window, kv_len):
+        return flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                   causal=causal, window=window,
+                                   kv_len=kv_len)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("flash_attention has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, lse, do, causal, window, kv_len):
+        n = info.batch_size
+        grads = _FlashAttentionBwd.apply(
+            *_fold(info, in_dims[:6], (q, k, v, o, lse, do)), causal, window,
+            kv_len)
+        return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
 
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(
-    ("prefill_tc", "prefill_f32", "decode"), 0)
+    ("prefill_tc", "prefill_f32", "decode", "backward"), 0)

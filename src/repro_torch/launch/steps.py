@@ -26,8 +26,13 @@ routes to the same numbers:
   backward).  A loop of ``autograd.grad`` over the clients would run the
   sLSTM's per-position launches K times; passes run them once a pass.
 
-Training configurations with attention raise ``NotImplementedError``:
-the ``flash_attention`` kernel has no backward yet (ROADMAP item 17j).
+Attention layers differentiate through the ``flash_attention`` kernel's
+gradient (``kernels/flash_attention.py``: its backward kernel, and a
+``vmap`` rule that launches once a pass for all its clients).  The
+federated step refuses, naming ROADMAP queue 3, what it cannot map over
+clients: the encoder-decoder (the step carries only inputs and labels,
+as the reference's) and ``moe_impl="ragged"`` (its group sizes are read
+on the host).
 """
 
 from __future__ import annotations
@@ -49,14 +54,20 @@ Tensor = torch.Tensor
 F32 = torch.float32
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the train steps cannot
-    differentiate on the card."""
-    if any(s.mixer == "attn" for s in cfg.pattern):
+def check_federated(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the federated step cannot
+    map over its clients (ROADMAP queue 3)."""
+    if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: training attention layers needs a backward of "
-            f"the flash_attention kernel, which is not ported yet (ROADMAP "
-            f"item 17j)")
+            f"{cfg.name}: the federated step carries only the clients' "
+            f"inputs and labels, as the reference's, not the encoder "
+            f"inputs an encoder-decoder needs (ROADMAP queue 3, "
+            f"'federated encoder-decoder')")
+    if cfg.moe_impl == "ragged" and any(s.ffn == "moe" for s in cfg.pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: moe_impl='ragged' reads its group sizes on the "
+            f"host, which torch.func.vmap over the clients cannot; use "
+            f"'dense_grouped' (ROADMAP queue 3, 'federated ragged MoE')")
 
 
 def cross_entropy(logits: Tensor, labels: Tensor,
@@ -108,8 +119,11 @@ def chunked_xent(hidden: Tensor, head: Tensor, labels: Tensor,
 
 def loss_fn(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
             remat: bool = True) -> Tuple[Tensor, Dict[str, Tensor]]:
-    hidden, aux = transformer.forward(params, batch["inputs"], cfg,
-                                      return_hidden=True)
+    """Token cross-entropy plus the weighted MoE aux loss; ``batch`` may
+    carry ``positions`` (M-RoPE's (3, B, S)) and ``encoder_inputs``."""
+    hidden, aux = transformer.forward(
+        params, batch["inputs"], cfg, positions=batch.get("positions"),
+        encoder_inputs=batch.get("encoder_inputs"), return_hidden=True)
     ce = chunked_xent(hidden, transformer.head_matrix(params, cfg),
                       batch["labels"], cfg, remat=remat)
     total = ce + cfg.router_aux_weight * aux
@@ -136,9 +150,11 @@ def _grads(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig
             tree_unflatten(params, grads))
 
 
-def _split(v: Tensor, m: int) -> Tensor:
-    """(B, ...) -> (m, B / m, ...)."""
-    return v.reshape((m, v.shape[0] // m) + tuple(v.shape[1:]))
+def _split(v: Tensor, m: int, axis: int = 0) -> Tensor:
+    """(..., B, ...) -> (m, ..., B / m, ...), B at ``axis``."""
+    shape = tuple(v.shape)
+    v = v.reshape(shape[:axis] + (m, shape[axis] // m) + shape[axis + 1:])
+    return v.movedim(axis, 0)
 
 
 def make_train_step(cfg: ModelConfig, ocfg: optim.OptimizerConfig,
@@ -146,15 +162,15 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.OptimizerConfig,
     """The plain train step; ``microbatches > 1`` splits the batch on its
     leading dim and accumulates the microbatches' gradients in f32 before
     one optimizer update (the same mean gradient, less activation
-    memory)."""
-    check_trainable(cfg)
+    memory).  ``positions`` split on their axis 1, as the reference's."""
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Tensor]):
         params = state["params"]
         if microbatches <= 1:
             metrics, grads = _grads(params, batch, cfg)
         else:
-            stacked = {k: _split(v, microbatches) for k, v in batch.items()}
+            stacked = {k: _split(v, microbatches, int(k == "positions"))
+                       for k, v in batch.items()}
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
                                                    device=p.device), params)
             metrics = dict.fromkeys(("loss", "ce", "moe_aux"), 0.0)
@@ -230,9 +246,10 @@ def make_federated_train_step(cfg: ModelConfig, ocfg: optim.OptimizerConfig,
     are formed on the device, and one ``fedavg_agg`` launch reduces the
     matrix to the update.  Unselected clients are computed and weighted
     0, as in the reference.  Metrics: ``ce = sum_k ce_k w_k`` and
-    ``n_selected``, with the optimizer's.
+    ``n_selected``, with the optimizer's.  Raises for a configuration
+    the clients cannot be mapped over (:func:`check_federated`).
     """
-    check_trainable(cfg)
+    check_federated(cfg)
 
     def client_loss(params, inputs, labels):
         total, metrics = loss_fn(params, {"inputs": inputs,

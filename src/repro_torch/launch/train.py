@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
         [--reduced] [--steps 50] [--batch 8 --seq 128] [--federated K] \\
-        [--device cpu] [--seed 0]
+        [--num-layers N] [--device cpu] [--seed 0]
 
 Port of ``repro.launch.train``.  Builds the model from the config
 registry, synthetic LM token streams with a learnable bigram rule, and
@@ -12,7 +12,10 @@ draws fading, schedules with DAS (``core.scheduler.schedule``), updates
 the clients' ages and takes one FedAvg-weighted gradient step over the K
 client shards -- the paper's technique as a training feature.
 Checkpoints the parameters every ``--ckpt-every`` steps in the
-reference's msgpack format.
+reference's msgpack format.  Every decoder of the zoo trains, its
+attention layers through the ``flash_attention`` kernel's gradient; the
+encoder-decoder (whisper-small) does not, since the stream, as the
+reference's, makes no encoder inputs.
 
 Runs on the CUDA card unless ``--device cpu``; without a card it raises.
 All randomness comes from ``torch.Generator`` s seeded from ``--seed``
@@ -132,6 +135,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="xlstm-125m")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="train the configuration's first N layers at "
+                         "its widths, where its full depth does not fit "
+                         "the card (0: the configuration's depth)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -177,6 +184,8 @@ def setup(args: argparse.Namespace) -> Run:
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     ocfg = optim.OptimizerConfig(learning_rate=args.lr, warmup_steps=10)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     state = steps_lib.init_train_state(gen, cfg, ocfg)

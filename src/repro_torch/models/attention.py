@@ -14,7 +14,9 @@ Every path computes through the ``flash_attention`` kernel (the
 reference's q-chunked softmax and its masked softmax over the cache are
 the same function): on the card the CUDA kernel, on the CPU its plain
 version.  The kernel maps query heads to KV heads by index, so K/V are
-never repeated.
+never repeated.  Under autograd or ``torch.func.grad`` (training) the
+full-sequence call is differentiable through the kernel's backward, as
+the reference differentiates its plain attention; decode is not.
 
 Decode attends one query token against a (B, S_max, KV, hd) cache and
 writes the new K/V into it **in place** (the reference returns a new

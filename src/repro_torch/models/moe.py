@@ -139,8 +139,7 @@ def dispatch_slots(ids: torch.Tensor, num_experts: int, cap: int
     the same count), and it is kept iff the slot is below ``cap``."""
     n_groups, gs, _ = ids.shape
     per_token = torch.zeros((n_groups, gs, num_experts), dtype=torch.int32,
-                            device=ids.device)
-    per_token.scatter_(2, ids, 1)
+                            device=ids.device).scatter(2, ids, 1)
     earlier = torch.cumsum(per_token, dim=1, dtype=torch.int32) - per_token
     slot = torch.gather(earlier, 2, ids)
     return slot, slot < cap
@@ -148,7 +147,9 @@ def dispatch_slots(ids: torch.Tensor, num_experts: int, cap: int
 
 def moe_apply_dense_grouped(p: Params, x2d: torch.Tensor, cfg: ModelConfig
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Capacity dispatch within token groups, by index."""
+    """Capacity dispatch within token groups, by index.  Out of place
+    throughout, so that ``torch.func.vmap`` maps it (the federated
+    step)."""
     t, d = x2d.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     gs = group_size(t, cfg)
@@ -157,23 +158,30 @@ def moe_apply_dense_grouped(p: Params, x2d: torch.Tensor, cfg: ModelConfig
     ids, gate, aux = route(p, x2d, cfg)
     slot, keep = dispatch_slots(ids.view(n_groups, gs, k), e, cap)
     # Row of each assignment in the (E, groups * cap) buffers.  A dropped
-    # one is written to a spare last row and read from row 0 with weight
-    # 0, so no step depends on how many were dropped (no host sync).
+    # one goes to a spare last row and is read from row 0 with weight 0,
+    # so no step depends on how many were dropped (no host sync).
     grp = torch.arange(n_groups, device=x2d.device)[:, None, None]
     row = (ids.view(n_groups, gs, k) * n_groups + grp) * cap + slot
     rows = e * n_groups * cap
     keep = keep.reshape(t, k)
     row = row.reshape(t, k)
-    xe = x2d.new_zeros((rows + 1, d))
-    for j in range(k):
-        xe[torch.where(keep[:, j], row[:, j], rows)] = x2d
-    ye = _experts(p, xe[:rows].view(e, n_groups * cap, d), cfg).view(rows, d)
+    # The buffer is gathered, not scattered into: ``fill`` names the token
+    # of each row, t (a zero row) where none comes, so x is read once and
+    # the buffer written once, out of place (vmap maps it).
+    tok = torch.arange(t, device=x2d.device).repeat_interleave(k)
+    fill = torch.full((rows + 1,), t, dtype=tok.dtype,
+                      device=x2d.device).index_put(
+        (torch.where(keep, row, rows).reshape(-1),), tok)
+    xe = torch.cat([x2d, x2d.new_zeros((1, d))])[fill[:rows]]
+    ye = _experts(p, xe.view(e, n_groups * cap, d), cfg).view(rows, d)
     # Sum each token's gated outputs in f32 and round once, as the
-    # reference's combine product does.
+    # reference's combine product does.  The sum starts from the first
+    # expert's term, so it is batched under vmap and adds in place.
     w = gate.float() * keep
-    out = torch.zeros((t, d), dtype=torch.float32, device=x2d.device)
-    for j in range(k):
-        out += w[:, j, None] * ye[torch.where(keep[:, j], row[:, j], 0)]
+    src = torch.where(keep, row, 0)
+    out = w[:, 0, None] * ye[src[:, 0]]
+    for j in range(1, k):
+        out += w[:, j, None] * ye[src[:, j]]
     return out.to(x2d.dtype), aux
 
 

@@ -473,17 +473,6 @@ def test_resumes_reference_train_state_mid_run():
     assert int(tend["opt"]["count"]) == 2
 
 
-@pytest.mark.parametrize("make", ["plain", "federated"])
-def test_attention_configs_raise(make):
-    cfg = tconfigs.get("codeqwen1_5_7b").reduced()
-    ocfg = toptim.OptimizerConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17j"):
-        if make == "plain":
-            tsteps.make_train_step(cfg, ocfg)
-        else:
-            tsteps.make_federated_train_step(cfg, ocfg, num_clients=2)
-
-
 # ---------------------------------------------------------------------------
 # The driver
 # ---------------------------------------------------------------------------

@@ -7,6 +7,7 @@ synthetic bigram stream, print the reference driver's lines and write
 checkpoints the reference's ``load_flat`` reads.
 """
 
+import dataclasses
 import re
 
 import pytest
@@ -14,8 +15,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.checkpoint import msgpack_ckpt as jckpt  # noqa: E402
+from repro_torch import configs  # noqa: E402
 from repro_torch.checkpoint import msgpack_ckpt as tckpt  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 from test_torch_transformer import one_thread  # noqa: E402,F401
 
 # The last printed ce at least this far below the first (the reference's
@@ -50,3 +54,18 @@ def test_cli_needs_a_card_unless_asked_for_cpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.main(["--reduced", "--steps", "1"])
+
+
+@pytest.mark.parametrize("layers", [2, 3])
+def test_num_layers_trains_the_first_layers_at_the_widths(one_thread,
+                                                          layers):
+    """``--num-layers N``: the configuration at its widths with N layers,
+    its parameters all in the train state."""
+    run = ttrain.setup(ttrain.parse_args(
+        ["--device", "cpu", "--reduced", "--arch", "h2o-danube-3-4b",
+         "--num-layers", str(layers)]))
+    want = dataclasses.replace(configs.get("h2o-danube-3-4b").reduced(),
+                               num_layers=layers)
+    assert run.cfg == want
+    assert sum(t.numel() for t in tree_leaves(run.state["params"])) \
+        == transformer.param_count(want)

@@ -155,7 +155,8 @@ def test_card_matches_cpu_on_card(cuda_device, no_tf32, arch):
     # cross each) and 3 steps of self + cross; qwen2-vl's 1 layer.
     steps = inputs["toks"].shape[1]
     if cfg.is_encdec:
-        want = dict(prefill_tc=0, prefill_f32=10, decode=2 * steps)
+        want = dict(prefill_tc=0, prefill_f32=10, decode=2 * steps,
+                    backward=0)
     else:
-        want = dict(prefill_tc=0, prefill_f32=2, decode=steps)
+        want = dict(prefill_tc=0, prefill_f32=2, decode=steps, backward=0)
     assert routed == want
