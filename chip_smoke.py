@@ -192,8 +192,8 @@ each phase failing the script on error:
     --clients-per-pass 2`` sets it up: bf16 compute, f32 parameters,
     AdamW (lr 3e-4, warmup 10), DAS, a global batch of 16 x 1024 tokens,
     3 steps (cold, warm, profiled): its parameter count, step walls,
-    tokens/s, peak memory, flash launches by route (a forward on the
-    tensor cores and a backward for every layer and pass, checked) and
+    tokens/s, peak memory, flash launches by route (a forward and a
+    backward on the tensor cores for every layer and pass, checked) and
     one ``fedavg_agg`` a step, the profiled step's device time, idle
     share and the backward kernel's share of the device time; then
     danube at ``reduced(num_layers=2)`` card against CPU in f32 with
@@ -234,16 +234,22 @@ version at the prefill (one KV group), decode and edge-case shapes, in
 bf16 and f32, each launch after every SM's shared memory is filled with
 NaN and with the keys past ``kv_len`` set to NaN, and times it beside
 SDPA.  For training, the forward that writes each row's log-sum-exp
-and the backward (``csrc/flash_attention_bwd.cu``) are held in f32 and
-bf16 at path 20's shape and at four more (``FLASH_BWD_SHAPES``), each
-launch after a NaN fill of shared memory with the keys and values past
-``kv_len`` NaN: the output against ``flash_attention_plain`` (as the
-serving rows), the lse within 1e-4, and the gradients from the kernels'
-output and lse against ``flash_attention_bwd_plain`` from the plain
-ones, within 1e-4 (f32) and 2e-2 (bf16) of each gradient's largest
-magnitude; at path 20's shape
-it is timed by host loop and by graph beside SDPA's forward + backward
-(the ``flash_attention_bwd`` row, with path 20's backward launches).  The kernels line has two rows for ``flash_attention`` (the bf16
+and the backward are held in f32 and bf16 at path 20's shape and at
+five more (``FLASH_BWD_SHAPES``), each launch after a NaN fill of
+shared memory with the keys and values past ``kv_len`` NaN, through the
+backward's route (``bwd_route``: ``backward_tc``,
+``csrc/flash_attention_bwd_tc.cu``, for bf16 up to hd 128; ``backward``,
+``csrc/flash_attention_bwd.cu``, else): the output against
+``flash_attention_plain`` (as the serving rows), the lse within 1e-4,
+and the gradients from the kernels' output and lse against
+``flash_attention_bwd_plain`` from the plain ones, within 1e-4 (f32) and
+2e-2 (bf16) of each gradient's largest magnitude; both routes' shared
+memory against their mirrors at every width they serve.  At path 20's
+shape the backward is timed by host loop and by graph beside SDPA's
+backward alone (on a retained forward) and its forward + backward, with
+the tensor-core route's three kernels' device time from the profiler
+(the ``flash_attention_bwd`` row, with path 20's backward launches), and
+at stablelm-12b's hd 160 (the CUDA-core route) the same way.  The kernels line has two rows for ``flash_attention`` (the bf16
 prefill on the tensor cores, and ``flash_attention_decode``, the decode
 kernel, each with its route's launches on path 6) and two for
 ``compress_update`` (its quant launches on path 3, and
@@ -2839,7 +2845,8 @@ def phase_serve(torch, dev) -> dict:
     want["flash_attention"] = cfg.num_layers * (1 + n_gen)
     # Every prefill layer on the tensor cores, every step on decode.
     want_routes = dict(prefill_tc=cfg.num_layers, prefill_f32=0,
-                       decode=cfg.num_layers * n_gen, backward=0)
+                       decode=cfg.num_layers * n_gen, backward=0,
+                       backward_tc=0)
     print(f"[path 6] flash_attention launches by route {routes}", flush=True)
     if routes != want_routes:
         raise AssertionError(f"path 6 flash routes {routes}, expected "
@@ -3856,7 +3863,7 @@ def phase_moe_serve(torch, dev, path: int) -> dict:
     want = dict.fromkeys(_counters(), 0)
     want["flash_attention"] = attn * (1 + n_gen)
     want_routes = dict(prefill_tc=attn, prefill_f32=0, decode=attn * n_gen,
-                       backward=0)
+                       backward=0, backward_tc=0)
     if routes != want_routes or counts != want:
         raise AssertionError(f"path {path}: flash routes {routes}, launches "
                              f"{counts}; expected {want_routes}, {want}")
@@ -4207,7 +4214,7 @@ def phase_media_serve(torch, dev, path: int) -> dict:
     want = dict.fromkeys(_counters(), 0)
     want["flash_attention"] = n_pre + n_dec
     want_routes = dict(prefill_tc=n_pre, prefill_f32=0, decode=n_dec,
-                       backward=0)
+                       backward=0, backward_tc=0)
     print(f"[path {path}] B={b} prompt {s}"
           f"{f', {frames} encoder frames' if frames else ''}, cache "
           f"{pad_to}: prefill cold {cold:.3f}s; decode {n_gen} greedy "
@@ -4352,7 +4359,7 @@ def phase_media_card_vs_cpu(torch, dev) -> None:
         want = dict(prefill_tc=0, prefill_f32=2 * per_pass + (
             cfg.encoder_layers if cfg.is_encdec else 0),
             decode=steps * cfg.num_layers * (2 if cfg.is_encdec else 1),
-            backward=0)
+            backward=0, backward_tc=0)
         print(f"[card-vs-cpu] {cfg.name} reduced f32 "
               f"({'encode, ' if enc is not None else ''}forward"
               f"{'' if enc is not None else ' over grid positions'}, "
@@ -4681,8 +4688,9 @@ FLASH_LSE_TOL = 1e-4
 # path 20's (one pass: two clients' 4 sequences of 1024 tokens, danube's
 # heads; its 4096 window does not bind at 1024), a binding window of 64,
 # G = 8 at hd 128, whisper's cross-attention (G = 1, hd 64, 64 rows
-# against 1500 frames, non-causal) and stablelm's hd 160 with kv_len <
-# Skv.
+# against 1500 frames, non-causal), stablelm's hd 160 with kv_len < Skv
+# (the CUDA-core route) and danube's heads with a ragged last packed tile
+# (Sq 300, 16 positions a tile) and kv_len < Skv on the tensor-core route.
 FLASH_BWD_SHAPES = [
     ("path 20", (DANUBE_PASS_B, DANUBE_SEQ, DANUBE_SEQ, 32, 8, 120),
      dict(causal=True, window=4096)),
@@ -4692,7 +4700,12 @@ FLASH_BWD_SHAPES = [
      dict(causal=False, window=0)),
     ("hd 160", (2, 300, 300, 32, 8, 160),
      dict(causal=True, window=0, kv_len=280)),
+    ("ragged, hd 120", (2, 300, 300, 32, 8, 120),
+     dict(causal=True, window=0, kv_len=280)),
 ]
+# stablelm-12b's attention (32 / 8 heads of 160, causal) at path 20's
+# tokens a pass: the backward past hd 128, on the CUDA-core route.
+STABLELM_BWD_SHAPE = (DANUBE_PASS_B, DANUBE_SEQ, DANUBE_SEQ, 32, 8, 160)
 
 
 def flash_bwd_inputs(torch, fa, gen, shape, dtype, kw):
@@ -4720,7 +4733,8 @@ def flash_bwd_check(torch, fa, gen, shape, dtype, kw, label: str
     (FLASH_BWD_TOL), so no kernel's output is its own reference.  The
     kernels get the keys and values past ``kv_len`` NaN and every SM's
     shared memory NaN before each launch; each launch must go through
-    its route once.  Returns the largest abs error over dq, dk, dv."""
+    its route once (the backward's ``bwd_route``).  Returns the largest
+    abs error over dq, dk, dv."""
     from repro_torch.kernels import _check
     b, sq, skv, h, kvh, hd = shape
     kv_len = kw.get("kv_len", skv)
@@ -4743,11 +4757,12 @@ def flash_bwd_check(torch, fa, gen, shape, dtype, kw, label: str
                                  f"{routed}, expected one through {route}")
         return out
     fwd_route = fa.route(dtype, sq, True)
+    bwd_route = fa.bwd_route(dtype, hd)
     o, lse = launched(lambda: fa._forward(q, kn, vn, kw["causal"],
                                           kw["window"], kv_len, True),
                       fwd_route)
     got = launched(lambda: fa.flash_attention_bwd(q, kn, vn, o, lse, do,
-                                                  **kw), "backward")
+                                                  **kw), bwd_route)
     del kn, vn
     want_o, want_lse = fa.flash_attention_plain(q.float(), k.float(),
                                                 v.float(), with_lse=True,
@@ -4779,7 +4794,8 @@ def flash_bwd_check(torch, fa, gen, shape, dtype, kw, label: str
     print(f"[kernel] flash_attention_bwd {label} {tuple(q.shape)} x "
           f"{tuple(k.shape)} {dtype} {kw}: forward ({fwd_route}, with the "
           f"lse) o max abs err {o_err:.3g} {o_read}, lse max abs err "
-          f"{lse_err:.3g} (limit {FLASH_LSE_TOL:g}); backward from the "
+          f"{lse_err:.3g} (limit {FLASH_LSE_TOL:g}); backward ({bwd_route}) "
+          f"from the "
           f"kernels' o and lse against the plain backward from the plain "
           f"o and lse: max abs err dq/dk/dv {[f'{e:.3g}' for e in errs]}, "
           f"of each gradient's largest {[f'{r:.3g}' for r in rels]} (limit "
@@ -4805,17 +4821,21 @@ def flash_bwd_bound(q, k, pairs: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_bwd_timed(torch, fa, gen, shape, kw) -> dict:
-    """The backward at ``shape`` in bf16 (inputs cycled past L2): ``ms``
-    by host loop, printed beside its graph replay, the plain version's
-    ms, and SDPA's forward + backward (``enable_gqa``, ``is_causal``:
-    the window does not bind at this length) as ``library_ms``, SDPA's
-    forward alone printed beside it; also the forward with the lse
-    against the serving forward on the same inputs."""
+def flash_bwd_timed(torch, fa, gen, label: str, shape, kw) -> dict:
+    """The backward at ``shape`` in bf16 (inputs cycled past L2), through
+    its ``bwd_route``: ``ms`` by host loop, printed beside its graph
+    replay, the plain version's ms, and SDPA's backward alone
+    (``enable_gqa``, ``is_causal``: the window does not bind at this
+    length; timed on one retained forward graph) as ``library_ms``, with
+    SDPA's forward + backward and its forward alone printed beside it;
+    on the tensor-core route each of its three kernels' device time a
+    call from the profiler (the D pre-pass apart); also the forward with
+    the lse against the serving forward on the same inputs."""
     import torch.nn.functional as F
     b, sq, skv, h, kv, hd = shape
     if kw["window"] and kw["window"] < sq:
         raise AssertionError("SDPA's yardstick assumes no binding window")
+    which = fa.bwd_route(torch.bfloat16, hd)
     n = cycling(2 * b * (4 * sq * h + 4 * skv * kv) * hd)
     sets = [flash_bwd_inputs(torch, fa, gen, shape, torch.bfloat16, kw)
             for _ in range(n)]
@@ -4826,6 +4846,20 @@ def flash_bwd_timed(torch, fa, gen, shape, kw) -> dict:
         return fa.flash_attention_bwd(*sets[next(it) % n], **kw)
     ms = time_ms(kernel, calls)
     graph = graph_ms(torch, kernel, calls)
+    split = ""
+    if which == "backward_tc":
+        names = ("flash_attention_bwd_tc_delta", "flash_attention_bwd_tc_dkdv",
+                 "flash_attention_bwd_tc_dq")
+
+        def run():
+            for _ in range(calls):
+                kernel()
+        us = profile_scopes(torch, run, (), kernels=names)["kernel_us"]
+        total = sum(us.values())
+        split = ("; profiler device ms a call: " + ", ".join(
+            f"{name.split('_')[-1]} {us[name] / calls / 1e3:.5f}"
+            for name in names) + f" (D pre-pass "
+            f"{us[names[0]] / total:.3f} of the three)")
     q, k, v, o, lse, do = sets[0]
     plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, o, lse, do, **kw), 2, warmup=1)
@@ -4846,36 +4880,49 @@ def flash_bwd_timed(torch, fa, gen, shape, kw) -> dict:
         return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
     with torch.no_grad():
         sdpa_f = time_ms(sdpa_fwd, calls)
-    library_ms = time_ms(sdpa_fwd_bwd, calls)
+    sdpa_fb = time_ms(sdpa_fwd_bwd, calls)
+    retained = sdpa_fwd()
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        retained, (qt, kt, vt), dot, retain_graph=True), calls)
+    del retained
     sd = sdpa_fwd_bwd()
     sdpa_err = max(float((a.transpose(1, 2).float() - g.float()).abs().max())
                    for a, g in zip(sd, kernel()))
     pairs = fa.visible_pairs(sq, causal=kw["causal"], window=kw["window"],
                              kv_len=kv_len)
     b_ms, b_by = flash_bwd_bound(q, k, pairs)
-    print(f"[kernel] flash_attention_bwd (b) path 20 shape {tuple(q.shape)} x"
-          f" {tuple(k.shape)} bf16 {kw}: ms={ms:.5f} (graph {graph:.5f}) "
-          f"plain_ms={plain_ms:.3f} library_ms(sdpa forward + backward)="
-          f"{library_ms:.5f} (sdpa forward alone {sdpa_f:.5f}; sdpa vs "
-          f"kernel gradients max diff {sdpa_err:.3g}) bound_ms={b_ms:.5f} "
+    print(f"[kernel] flash_attention_bwd (b) {label} shape {tuple(q.shape)} "
+          f"x {tuple(k.shape)} bf16 {kw} ({which}): ms={ms:.5f} (graph "
+          f"{graph:.5f}) plain_ms={plain_ms:.3f} library_ms(sdpa backward "
+          f"alone, on a retained forward)={library_ms:.5f} (sdpa forward + "
+          f"backward {sdpa_fb:.5f}, forward alone {sdpa_f:.5f}; sdpa vs "
+          f"kernel gradients max diff {sdpa_err:.3g}; kernel by graph / "
+          f"sdpa backward {graph / library_ms:.3f}) bound_ms={b_ms:.5f} "
           f"({b_by}; {pairs} visible pairs per head; {b_ms / ms:.3f} of it "
-          f"by the host loop, {b_ms / graph:.3f} by the graph); forward "
-          f"with lse {fwd_lse:.5f} ms against the serving forward "
+          f"by the host loop, {b_ms / graph:.3f} by the graph){split}; "
+          f"forward with lse {fwd_lse:.5f} ms against the serving forward "
           f"{fwd:.5f} ms on the same inputs", flush=True)
+    del sets, sd
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms)
 
 
 def phase_flash_bwd(torch, dev) -> dict:
-    """The backward kernel against its plain version at FLASH_BWD_SHAPES
-    in f32 and bf16, and timed at path 20's shape.  Returns the kernels
-    line's ``flash_attention_bwd`` row (path 20's shape, bf16)."""
+    """The backward kernels against their plain version at
+    FLASH_BWD_SHAPES in f32 and bf16, timed at path 20's shape (the
+    tensor-core route) and at stablelm's hd 160 (the CUDA-core route).
+    Returns the kernels line's ``flash_attention_bwd`` row (path 20's
+    shape, bf16)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     lib = _build.library()
     for hd in range(8, fa.MAX_HEAD_DIM + 1, 8):
         if lib.flash_attention_bwd_smem(hd) != fa.bwd_smem_bytes(hd):
             raise AssertionError(f"backward smem mirror at hd {hd}")
+        if fa.bwd_route(torch.bfloat16, hd) == "backward_tc" and \
+                lib.flash_attention_bwd_tc_smem(hd) != fa.bwd_tc_smem_bytes(hd):
+            raise AssertionError(f"tensor-core backward smem mirror at hd "
+                                 f"{hd}")
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -4884,7 +4931,10 @@ def phase_flash_bwd(torch, dev) -> dict:
                                                  dtype, kw, f"(a) {label}")
             torch.cuda.empty_cache()
     _, shape, kw = FLASH_BWD_SHAPES[0]
-    row = flash_bwd_timed(torch, fa, gen, shape, kw)
+    row = flash_bwd_timed(torch, fa, gen, "path 20", shape, kw)
+    torch.cuda.empty_cache()
+    flash_bwd_timed(torch, fa, gen, "stablelm-12b hd 160", STABLELM_BWD_SHAPE,
+                    dict(causal=True, window=0))
     torch.cuda.empty_cache()
     return dict(row, max_abs_err=errs["path 20", torch.bfloat16])
 
@@ -4965,7 +5015,7 @@ def phase_danube_train(torch, dev, smi: str) -> dict:
     want = dict(dict.fromkeys(_counters(), 0), fedavg_agg=DANUBE_STEPS,
                 flash_attention=2 * layer_passes)
     want_routes = dict(prefill_tc=layer_passes, prefill_f32=0, decode=0,
-                       backward=layer_passes)
+                       backward=0, backward_tc=layer_passes)
     print(f"[path 20] launches {counts}; flash_attention by route {routes}; "
           f"fedavg_agg by route {dict(fk.fedavg_agg.route_launches)}",
           flush=True)
@@ -4994,7 +5044,7 @@ def phase_danube_train(torch, dev, smi: str) -> dict:
           flush=True)
     del out
     torch.cuda.empty_cache()
-    return dict(counts, flash_attention_bwd=routes["backward"])
+    return dict(counts, flash_attention_bwd=routes["backward_tc"])
 
 
 def phase_danube_card_vs_cpu(torch, dev) -> None:
@@ -5032,7 +5082,7 @@ def phase_danube_card_vs_cpu(torch, dev) -> None:
     (p_c, ce_c, _), (p_g, ce_g, routed) = out.values()
     err = max(float((c - g).abs().max()) for c, g in zip(p_c, p_g))
     want = dict(prefill_tc=0, prefill_f32=cfg.num_layers, decode=0,
-                backward=cfg.num_layers)
+                backward=cfg.num_layers, backward_tc=0)
     print(f"[card-vs-cpu] {cfg.name} reduced(num_layers=2) f32: federated "
           f"step (K=4, 2 x 160 tokens a client, window "
           f"{cfg.sliding_window}) parameters max abs err {err:.3g} (limit "
@@ -5072,9 +5122,10 @@ KERNELS.update({f"{name}_batch": KERNELS[name] for name in (
     "fedavg_agg_masked", "compress_update", "fedavg_agg_stale")})
 KERNELS["fedavg_agg_train"] = KERNELS["fedavg_agg"]
 # The backward has no TPU kernel to replace: the reference differentiates
-# its plain attention (``attend_full``).
+# its plain attention (``attend_full``).  The row is path 20's bf16
+# backward, on the tensor-core route.
 KERNELS["flash_attention_bwd"] = (
-    "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "src/repro_torch/csrc/flash_attention_bwd_tc.cu",
     "src/repro/models/attention.py:142")
 # Paths 15-19's flash rows (PATH_FLASH): the prefill at each MoE path's
 # query group, jamba's decode, whisper's encoder prefill and its

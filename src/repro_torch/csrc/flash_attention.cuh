@@ -1,8 +1,8 @@
 // Helpers shared by the flash attention kernels (flash_attention.cu: the
 // f32 prefill on the CUDA cores and the decode; flash_attention_tc.cu:
-// the bf16 prefill on the tensor cores; flash_attention_bwd.cu: the
-// backward): masks, staging into shared memory, mbarriers, TMA loads and
-// tensor maps.
+// the bf16 prefill on the tensor cores; flash_attention_bwd.cu and
+// flash_attention_bwd_tc.cu: the backward): masks, staging into shared
+// memory, mbarriers, TMA loads and tensor maps.
 
 #pragma once
 
@@ -136,6 +136,20 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A 5-D TMA box into shared memory (the tensor-core kernels' packed q
+// tiles: hd, G, KV, Sq, B), counted on the mbarrier `bar`.
+__device__ __forceinline__ void tma_load_5d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3), "r"(c4)
       : "memory");
 }
 

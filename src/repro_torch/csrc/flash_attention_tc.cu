@@ -83,52 +83,6 @@ struct TcCfg {
       1024 + Q_BYTES + STAGES * STAGE_BYTES + 8 * (1 + 2 * STAGES);
 };
 
-__device__ __forceinline__ void tma_load_5d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3), "r"(c4)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of the accumulators
-// across the asynchronous wgmma.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle.  K-major operands:
-// sbo = 1024 (8 rows of 128 B), lbo unused (16).  MN-major: lbo is the
-// stride between 64-element atoms along N, sbo between 8-row groups
-// along K.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 // LSE: write each row's log-sum-exp (training); serving compiles without.
 template <int NCH, bool LSE>
 __global__ void __launch_bounds__(TC_THREADS, 1)
@@ -260,7 +214,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         }
       }
       wgmma_commit();
-      wgmma_wait0();
+      wgmma_wait<0>();
       fence_regs(sacc);
 
       const bool edge = k0 + KT > kv_len || (causal && k0 + KT - 1 > qa) ||
@@ -317,7 +271,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         wgmma_rs_tn<64 * NCH>(acc, pa[kk],
                               desc_sw128(vaddr + kk * 2048, BOX_BYTES, 1024));
       wgmma_commit();
-      wgmma_wait0();
+      wgmma_wait<0>();
       fence_regs(acc);
     }
     __syncwarp();

@@ -1,9 +1,12 @@
-// wgmma.mma_async wrappers for the tensor-core prefill kernel
-// (flash_attention_tc.cu), one per shape, every accumulator register
-// spelled out as PTX requires.
+// wgmma.mma_async wrappers for the tensor-core kernels (the prefill,
+// flash_attention_tc.cu, and the backward, flash_attention_bwd_tc.cu),
+// one per shape, every accumulator register spelled out as PTX requires,
+// and what they need around them: fences, commit and wait, descriptors,
+// bf16 packing and setmaxnreg.
 //
 // * wgmma_ss_n64: S(64 x 64, f32) = or += A(smem) . B(smem)^T, both
-//   operands K-major bf16 with a 128-byte swizzle (descriptors).
+//   operands K-major bf16 with a 128-byte swizzle (descriptors);
+//   wgmma_ss_n64_zero: the same, = only, its accumulator write-only.
 // * wgmma_rs_tn<N>: O(64 x N, f32) += A(registers, bf16) . B(smem),
 //   B MN-major (the transpose bit set): V as keys x hd, hd contiguous.
 //
@@ -12,7 +15,55 @@
 // 8j + 2 (l % 4) + e % 2.
 
 #pragma once
+#include <cuda_bf16.h>
 #include <stdint.h>
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of the accumulators
+// across the asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle.  K-major operands:
+// sbo = 1024 (8 rows of 128 B), lbo unused (16).  MN-major: lbo is the
+// stride between 64-element atoms along N, sbo between 8-row groups
+// along K.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Registers a thread of this warpgroup may hold from here on (sm_90a):
+// a producer gives its share back, the consumers take it.
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
 
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int scale_d) {
@@ -33,6 +84,33 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The first k-step of a product: d = A . B^T, d written and not read
+// ("=f"), so the registers' earlier values are dead before it and no
+// other instruction is tied to them (ptxas serializes every wgmma of a
+// kernel in which a non-wgmma instruction defines an accumulator register
+// while a wgmma is in flight, C7515).
+__device__ __forceinline__ void wgmma_ss_n64_zero(float (&d)[32],
+                                                  uint64_t da,
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
 }
 
 template <int N>

@@ -61,6 +61,8 @@ SIGNATURES = {
                                _I, _I, _I, _F, _P],
     "flash_attention_bwd": [_P] * 10 + [_I] * 10 + [_F, _P],
     "flash_attention_bwd_smem": [_I],
+    "flash_attention_bwd_tc": [_P] * 10 + [_I] * 9 + [_F, _P],
+    "flash_attention_bwd_tc_smem": [_I],
     "flash_attention_tc_smem": [_I],
     "flash_attention_decode_smem": [_I, _I, _I],
     "flash_attention_decode_clusters": [_I, _I, _I, _I],

@@ -32,10 +32,21 @@ The gradient (training): with grad enabled and q, k or v requiring it,
 :func:`flash_attention` goes through ``_FlashAttention``, a
 ``torch.autograd.Function`` whose forward is the prefill route of its
 type with each row's log-sum-exp written beside the output, and whose
-backward is ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`,
-route ``backward``; on the CUDA cores, bound by operations).  The
-reference has no backward kernel: it differentiates its plain attention,
-which the CPU route here does in :func:`flash_attention_bwd_plain`.  Both
+backward is :func:`flash_attention_bwd`, on one of two routes
+(:func:`bwd_route`), both bound by operations:
+
+* ``backward_tc`` — bf16 with ``hd <= 128``:
+  ``csrc/flash_attention_bwd_tc.cu``, every product on the tensor cores
+  (``wgmma``), q / dO and K / V tiles by TMA, dS rounded to bf16 as a
+  product's operand.
+* ``backward`` — f32, and bf16 past hd 128 (the dK and dV accumulators
+  of a 64-key warpgroup and its two score tiles would exceed 255
+  registers a thread): ``csrc/flash_attention_bwd.cu``, on the CUDA
+  cores in f32.
+
+The reference has no backward kernel: it differentiates its plain
+attention, which the CPU route here does in
+:func:`flash_attention_bwd_plain`.  Both
 Functions carry a ``vmap`` rule that folds the mapped axis into B, so the
 federated step's ``torch.func.vmap(torch.func.grad(...))`` launches each
 kernel once for all its clients.
@@ -56,6 +67,8 @@ DECODE_BLOCK_K = 32     # keys per decode tile
 MAX_HEAD_DIM = 256
 # The tensor-core prefill packs (q position, head) pairs into 64 rows.
 MAX_TC_GROUP = 64
+# The widest head the tensor-core backward serves.
+MAX_TC_BWD_HEAD_DIM = 128
 # Shared memory a block may ask for on the H100 (227 KB).
 SMEM_LIMIT = 232448
 # The decode kernel's most splits of one (batch, KV head): they form one
@@ -75,6 +88,14 @@ def route(dtype: torch.dtype, sq: int, with_lse: bool = False) -> str:
     if sq == 1 and not with_lse:
         return "decode"
     return "prefill_tc" if dtype == torch.bfloat16 else "prefill_f32"
+
+
+def bwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The backward kernel that serves a call on the card:
+    ``backward_tc`` for bf16 up to hd 128, else ``backward``."""
+    if dtype == torch.bfloat16 and hd <= MAX_TC_BWD_HEAD_DIM:
+        return "backward_tc"
+    return "backward"
 
 
 def tc_smem_bytes(hd: int) -> int:
@@ -97,6 +118,24 @@ def bwd_smem_bytes(hd: int) -> int:
     rows = 64 if hd <= 128 else 32
     return 4 * ((2 * rows + 2 * BLOCK_K) * (hd + 4)
                 + 2 * rows * (BLOCK_K + 4) + 2 * BLOCK_K)
+
+
+def bwd_tc_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of the tensor-core backward's dK / dV kernel,
+    the larger of its two (its ``BwdCfg::SMEM_KV``): 1024 bytes of
+    alignment slack, the K and V tiles of two warpgroups, a ring of q + dO
+    stages (4 at one box of 64 columns, 3 at two) with 512 bytes of
+    (lse, D) pairs each, in boxes of 64 rows x 128 bytes per 64 columns
+    of hd, and the mbarriers.  Raises past hd 128, which that route does
+    not serve."""
+    if hd > MAX_TC_BWD_HEAD_DIM:
+        raise ValueError(f"the tensor-core backward serves hd up to "
+                         f"{MAX_TC_BWD_HEAD_DIM}, not {hd}")
+    boxes = -(-hd // 64)
+    stages = 4 if boxes == 1 else 3
+    box = 64 * 128
+    return 1024 + 4 * boxes * box + stages * (2 * boxes * box + 512) \
+        + 8 * (1 + 2 * stages)
 
 
 def decode_rows(group: int) -> int:
@@ -401,10 +440,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of :func:`flash_attention` at (q, k, v) with output
     ``o``, its rows' log-sum-exp ``lse`` (B, H, Sq) f32 and the output's
     gradient ``do``.  CPU tensors take :func:`flash_attention_bwd_plain`;
-    CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (the checks of
+    CUDA tensors launch the kernel of :func:`bwd_route` (the checks of
     the forward; o and do as q, contiguous) or raise.  One launch on the
-    card is counted in ``flash_attention.launches`` and its route
-    ``backward``."""
+    card is counted in ``flash_attention.launches`` and under its
+    route."""
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
@@ -412,21 +451,45 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_shapes(q, k, kv_len)
     _check_operands({"q": q, "k": k, "v": v, "o": o, "do": do}, q, k)
     b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    grp = h // kvh
     _check.cuda_operand("lse", lse, torch.float32, (b, h, sq), q.device)
-    check_smem(bwd_smem_bytes(hd), "backward")
+    which = bwd_route(q.dtype, hd)
+    if which == "backward_tc":
+        if grp > MAX_TC_GROUP:
+            raise ValueError(f"{grp} query heads per KV head exceed the "
+                             f"tensor-core backward's {MAX_TC_GROUP}")
+        tma_strides((hd, grp, kvh, sq, b), q.element_size())
+        tma_strides((hd, kvh, skv, b), k.element_size())
+        check_smem(bwd_tc_smem_bytes(hd), which)
+    else:
+        check_smem(bwd_smem_bytes(hd), which)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    err = _build.library().flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), _DTYPE_CODE[q.dtype], b, sq, k.shape[1], h,
-        k.shape[2], hd, kv_len, int(causal), int(window), hd ** -0.5,
-        _check.stream_handle(q.device))
-    _build.check(err, "flash_attention (backward)")
+    lib = _build.library()
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr())
+    outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    masks = (kv_len, int(causal), int(window), hd ** -0.5,
+             _check.stream_handle(q.device))
+    if which == "backward_tc":
+        # (lse log2 e, D) of each packed row: 64 rows a tile of 64 // grp
+        # positions x the grp heads of a KV head.
+        tiles = -(-sq // (64 // grp))
+        scratch = torch.empty((b, kvh, tiles, 64, 2), dtype=torch.float32,
+                              device=q.device)
+        err = lib.flash_attention_bwd_tc(*pointers, scratch.data_ptr(),
+                                         *outs, b, sq, skv, h, kvh, hd,
+                                         *masks)
+    else:
+        delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        err = lib.flash_attention_bwd(*pointers, delta.data_ptr(), *outs,
+                                      _DTYPE_CODE[q.dtype], b, sq, skv, h,
+                                      kvh, hd, *masks)
+    _build.check(err, f"flash_attention ({which})")
     flash_attention.launches += 1
-    flash_attention.route_launches["backward"] += 1
+    flash_attention.route_launches[which] += 1
     return dq, dk, dv
 
 
@@ -506,4 +569,4 @@ class _FlashAttentionBwd(torch.autograd.Function):
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(
-    ("prefill_tc", "prefill_f32", "decode", "backward"), 0)
+    ("prefill_tc", "prefill_f32", "decode", "backward", "backward_tc"), 0)

@@ -1,0 +1,85 @@
+"""The flash backward's two routes, on the CPU (no JAX).
+
+``flash_attention.bwd_route`` names the kernel that serves a backward on
+the card: ``backward_tc`` (``csrc/flash_attention_bwd_tc.cu``, the tensor
+cores) for bf16 up to hd 128, ``backward`` (``csrc/flash_attention_bwd.cu``,
+the CUDA cores) for f32 and for wider heads.  The tensor-core kernel's
+shared memory (``bwd_tc_smem_bytes``, the mirror of the C entry
+``flash_attention_bwd_tc_smem``) fits the H100 at every width it serves,
+and each route has its launch count.  CPU tensors take the plain
+backward whatever the route; the kernels themselves are held against it
+on the card (``tests/test_torch_flash_grad_card.py``).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+
+HEAD_DIMS = (64, 120, 128, 136, 160, 256)
+
+
+@pytest.fixture
+def one_thread():
+    """Tiny shapes: one intra-op thread, so the test workers that share
+    the machine do not oversubscribe its cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_route_by_dtype_and_width(one_thread, dtype, hd):
+    want = "backward_tc" if dtype == torch.bfloat16 and hd <= 128 \
+        else "backward"
+    assert tfa.bwd_route(dtype, hd) == want
+
+
+def test_bwd_tc_smem_fits_every_width_it_serves(one_thread):
+    served = [hd for hd in range(8, tfa.MAX_HEAD_DIM + 1, 8)
+              if tfa.bwd_route(torch.bfloat16, hd) == "backward_tc"]
+    assert served == list(range(8, 129, 8))
+    for hd in served:
+        assert 0 < tfa.bwd_tc_smem_bytes(hd) <= tfa.SMEM_LIMIT, hd
+    # One box of 64 columns: 4 stages; two boxes: 3.
+    assert tfa.bwd_tc_smem_bytes(64) == 101448
+    assert tfa.bwd_tc_smem_bytes(120) == tfa.bwd_tc_smem_bytes(128) == 166456
+    with pytest.raises(ValueError, match="up to 128"):
+        tfa.bwd_tc_smem_bytes(136)
+
+
+def test_route_launches_count_both_backward_routes(one_thread):
+    routes = tfa.flash_attention.route_launches
+    assert {"backward", "backward_tc"} <= set(routes)
+    assert set(routes) == {"prefill_tc", "prefill_f32", "decode", "backward",
+                           "backward_tc"}
+
+
+@pytest.mark.parametrize("hd", [64, 120, 160])
+def test_cpu_backward_is_the_plain_version_on_either_route(one_thread, hd):
+    """A CPU call launches nothing and gives the plain backward, in bf16
+    at a width the card serves on the tensor cores and at one it serves
+    on the CUDA cores."""
+    rng = np.random.default_rng(hd)
+    b, sq, h, kvh = 2, 37, 8, 2
+    q, do = (torch.from_numpy(rng.standard_normal((b, sq, h, hd),
+                                                  dtype=np.float32))
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((b, sq, kvh, hd),
+                                                 dtype=np.float32))
+            .to(torch.bfloat16) for _ in range(2))
+    kw = dict(causal=True, window=0, kv_len=30)
+    o, lse = tfa.flash_attention_plain(q, k, v, with_lse=True, **kw)
+    before = dict(tfa.flash_attention.route_launches)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    assert tfa.flash_attention.route_launches == before
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, w)
+    # Keys past kv_len get no gradient.
+    assert not bool(got[1][:, 30:].any()) and not bool(got[2][:, 30:].any())

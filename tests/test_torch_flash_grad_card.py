@@ -3,14 +3,19 @@
 Every test needs a CUDA device and skips without one; the file imports
 no JAX (``pytest tests/test_torch_flash_grad_card.py -k on_card``):
 
-* the backward kernel (``csrc/flash_attention_bwd.cu``) against
-  ``flash_attention_bwd_plain`` on the same q, k, v, o, lse and dO, in
-  f32 and bf16, at the training shapes of the zoo: danube's (G = 4, hd
-  120, causal, a window that binds), G = 8 at hd 128, whisper's
-  cross-attention (G = 1, hd 64, Sq 64 != Skv 1500, non-causal), hd 160
-  and 256, ``kv_len < Skv``, Sq below a tile and not a multiple of one,
-  one query row (the prefill kernels, which write the lse, at any Sq)
-  against G = 16 and G = 5.  The keys and values past ``kv_len`` are NaN
+* the backward kernels against ``flash_attention_bwd_plain`` on the
+  same q, k, v, o, lse and dO, in f32 and bf16, at the training shapes
+  of the zoo: danube's (G = 4, hd 120, causal, a window that binds), G =
+  8 at hd 128, whisper's cross-attention (G = 1, hd 64, Sq 64 != Skv
+  1500, non-causal), hd 160 and 256, ``kv_len < Skv``, Sq below a tile
+  and not a multiple of one, one query row (the prefill kernels, which
+  write the lse, at any Sq) against G = 16 and G = 5, a ragged last
+  packed tile at hd 120 (Sq 300, G = 4: 16 positions a tile) with
+  ``kv_len`` 280, and G = 64 at hd 64 (one position a packed tile).
+  Each call launches once, through its ``bwd_route``: the tensor-core
+  kernel (``csrc/flash_attention_bwd_tc.cu``, route ``backward_tc``) for
+  bf16 up to hd 128, the CUDA-core kernel (``csrc/flash_attention_bwd.cu``,
+  route ``backward``) for f32 and for hd 160 and 256.  The keys and values past ``kv_len`` are NaN
   for the kernels' forward (its output must stay finite) and backward,
   each launched after a NaN fill of shared memory (the plain version
   gets them zeroed: its products would carry the NaN through their zero
@@ -49,6 +54,8 @@ SHAPES = [
     ((1, 100, 100, 4, 4, 128), dict(causal=True, window=33)),
     ((2, 1, 50, 16, 1, 128), dict(causal=False, window=0)),
     ((3, 65, 65, 5, 1, 160), dict(causal=True, window=50)),
+    ((2, 300, 300, 16, 4, 120), dict(causal=True, window=0, kv_len=280)),
+    ((1, 70, 70, 64, 1, 64), dict(causal=True, window=0)),
 ]
 
 
@@ -86,11 +93,16 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, case):
     _check.fill_shared_memory(cuda_device)
     o, lse = tfa._forward(q, k, v, kw["causal"], kw["window"], kv_len, True)
     assert bool(o.isfinite().all()) and not bool(lse.isnan().any())
-    before = tfa.flash_attention.route_launches["backward"]
+    route = tfa.bwd_route(dtype, shape[-1])
+    assert route == ("backward_tc" if dtype == torch.bfloat16
+                     and shape[-1] <= 128 else "backward")
+    routes = tfa.flash_attention.route_launches
+    before = dict(routes)
     _check.fill_shared_memory(cuda_device)
     got = tfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
-    assert tfa.flash_attention.route_launches["backward"] == before + 1
+    assert {r: n - before[r] for r, n in routes.items()} == \
+        {r: int(r == route) for r in routes}
     k0[:, kv_len:] = 0
     v0[:, kv_len:] = 0
     want = tfa.flash_attention_bwd_plain(q, k0, v0, o, lse, do, **kw)

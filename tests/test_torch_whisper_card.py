@@ -156,7 +156,8 @@ def test_card_matches_cpu_on_card(cuda_device, no_tf32, arch):
     steps = inputs["toks"].shape[1]
     if cfg.is_encdec:
         want = dict(prefill_tc=0, prefill_f32=10, decode=2 * steps,
-                    backward=0)
+                    backward=0, backward_tc=0)
     else:
-        want = dict(prefill_tc=0, prefill_f32=2, decode=steps, backward=0)
+        want = dict(prefill_tc=0, prefill_f32=2, decode=steps, backward=0,
+                    backward_tc=0)
     assert routed == want
