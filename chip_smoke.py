@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --moe-prefill   # paths 15-17's prefill alone
+    python3 chip_smoke.py --flash-bwd     # the flash backward and path 21
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc/`` and runs,
 each phase failing the script on error:
@@ -198,7 +199,18 @@ each phase failing the script on error:
     share and the backward kernel's share of the device time; then
     danube at ``reduced(num_layers=2)`` card against CPU in f32 with
     TF32 off: one federated step (K = 4, 160 tokens a sequence, past the
-    window of 128), parameters within 1e-4.
+    window of 128), parameters within 1e-4;
+18. path 21, the plain trainer on stablelm-12b at its published widths
+    (hd 160, 25% partial rotary), cut to 2 of 40 layers
+    (``STABLELM_LAYERS``), as ``launch.train --arch stablelm-12b
+    --num-layers 2 --batch 8 --seq 1024`` sets it up: bf16 compute, f32
+    parameters, AdamW, 3 steps (cold, warm, profiled): its step walls,
+    tokens/s, peak memory, flash launches by route (every layer's forward
+    ``prefill_tc`` and backward ``backward_tc``, none ``backward``,
+    checked), the profiled step's idle share and the backward kernels'
+    share of the device time; then stablelm at ``reduced(num_layers=2,
+    head_dim=160)`` card against CPU in bf16 compute: one plain step's
+    gradients within 3e-2 of each leaf's largest.
 
 The kernel phase first prints, from ``cuobjdump -sass``, the size and
 the atomic instructions of the ``stream_update``, ``diversity`` and
@@ -234,24 +246,26 @@ version at the prefill (one KV group), decode and edge-case shapes, in
 bf16 and f32, each launch after every SM's shared memory is filled with
 NaN and with the keys past ``kv_len`` set to NaN, and times it beside
 SDPA.  For training, the forward that writes each row's log-sum-exp
-and the backward are held in f32 and bf16 at path 20's shape and at
-five more (``FLASH_BWD_SHAPES``), each launch after a NaN fill of
-shared memory with the keys and values past ``kv_len`` NaN, through the
-backward's route (``bwd_route``: ``backward_tc``,
-``csrc/flash_attention_bwd_tc.cu``, for bf16 up to hd 128; ``backward``,
-``csrc/flash_attention_bwd.cu``, else): the output against
-``flash_attention_plain`` (as the serving rows), the lse within 1e-4,
-and the gradients from the kernels' output and lse against
-``flash_attention_bwd_plain`` from the plain ones, within 1e-4 (f32) and
-2e-2 (bf16) of each gradient's largest magnitude; both routes' shared
-memory against their mirrors at every width they serve.  At path 20's
-shape the backward is timed by host loop and by graph beside SDPA's
-backward alone (on a retained forward) and its forward + backward, with
-the tensor-core route's three kernels' device time from the profiler
-(the ``flash_attention_bwd`` row, with path 20's backward launches), and
-at stablelm-12b's hd 160 (the CUDA-core route) the same way.  The kernels line has two rows for ``flash_attention`` (the bf16
-prefill on the tensor cores, and ``flash_attention_decode``, the decode
-kernel, each with its route's launches on path 6) and two for
+and the backward are held in f32 and bf16 at path 20's shape and at ten
+more (``FLASH_BWD_SHAPES``: path 21's, and hd 136, 192, 256 and G = 5
+at hd 160 among them), each launch after a NaN fill of shared memory
+with the keys and values past ``kv_len`` NaN, through the backward's
+route (``bwd_route``: ``backward_tc``, ``csrc/flash_attention_bwd_tc.cu``,
+for bf16 at every width; ``backward``, ``csrc/flash_attention_bwd.cu``,
+for f32): the output against ``flash_attention_plain`` (as the serving
+rows), the lse within 1e-4, and the gradients from the kernels' output
+and lse against ``flash_attention_bwd_plain`` from the plain ones,
+within 1e-4 (f32) and 2e-2 (bf16) of each gradient's largest magnitude;
+both routes' shared memory against their mirrors at every width.  At
+path 20's and path 21's shapes (the ``flash_attention_bwd`` and
+``flash_attention_bwd_hd160`` rows, with those paths' backward
+launches) and at hd 256 the bf16 backward is timed by host loop and by
+graph beside SDPA's backward alone (on a retained forward) and its
+forward + backward, with the tensor-core kernels' device times from the
+profiler, and the f32 backward at path 20's shape the same way.  The
+kernels line has two rows for ``flash_attention`` (the bf16 prefill on
+the tensor cores, and ``flash_attention_decode``, the decode kernel,
+each with its route's launches on path 6) and two for
 ``compress_update`` (its quant launches on path 3, and
 ``compress_update_topk``, path 3's topk round), six for flash at paths
 15-19's shapes (``PATH_FLASH``: ``flash_attention_g6``, ``_g16``,
@@ -4674,6 +4688,16 @@ DANUBE_LAYERS = 6
 DANUBE_K, DANUBE_BATCH, DANUBE_SEQ = 4, 16, 1024
 DANUBE_PER_PASS, DANUBE_STEPS = 2, 3
 DANUBE_PASS_B = DANUBE_BATCH // DANUBE_K * DANUBE_PER_PASS
+# Path 21: stablelm-12b trained plainly (``launch.train --arch stablelm-12b
+# --num-layers 2 --batch 8 --seq 1024``) at its published widths (d_model
+# 5120, 32 / 8 heads of 160 with 25% partial rotary, d_ff 13824, vocab
+# 100,352 untied), random weights from a seed: bf16 compute, f32
+# parameters, AdamW; a cold step and two warm ones, the second profiled.
+# Depth is cut to 2 of 40 layers: 2 layers and the embeddings are ~1.58B
+# parameters, ~25 GB at 16 bytes a parameter (f32 parameters, AdamW's two
+# moments, a gradient); 40 would need ~190 GB.  No --federated, so no DAS
+# host time: the step is the attention backward's path on the card.
+STABLELM_LAYERS, STABLELM_BATCH, STABLELM_SEQ, STABLELM_STEPS = 2, 8, 1024, 3
 # Card against CPU at danube's reduced(num_layers=2), f32 with TF32 off:
 # sums in another order.
 DANUBE_CARD_CPU_TOL = 1e-4
@@ -4684,13 +4708,28 @@ FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # The training forward's row log-sum-exp against its plain version, abs:
 # f32 from the kernels' online max and sum.
 FLASH_LSE_TOL = 1e-4
+# Card against CPU on stablelm-12b's reduced(num_layers=2, head_dim=160)
+# in bf16 compute, of each gradient leaf's largest magnitude: every
+# matmul rounds to bf16 in another order on each side, and the card's
+# backward rounds dS to bf16 (readings on an H100: 1.1e-2 median, 1.6e-2
+# the worst leaf, a LayerNorm's; the limit about twice that).
+STABLELM_CARD_CPU_TOL = 3e-2
+# The timed backward past hd 128, at path 20's tokens a pass: stablelm-
+# 12b's attention (32 / 8 heads of 160, causal; path 21's pass) and the
+# widest head the kernels serve.
+STABLELM_BWD_SHAPE = (STABLELM_BATCH, STABLELM_SEQ, STABLELM_SEQ, 32, 8, 160)
+HD256_BWD_SHAPE = (DANUBE_PASS_B, DANUBE_SEQ, DANUBE_SEQ, 32, 8, 256)
 # The backward's check shapes, (label, (B, Sq, Skv, H, KV, hd), masks):
 # path 20's (one pass: two clients' 4 sequences of 1024 tokens, danube's
 # heads; its 4096 window does not bind at 1024), a binding window of 64,
 # G = 8 at hd 128, whisper's cross-attention (G = 1, hd 64, 64 rows
-# against 1500 frames, non-causal), stablelm's hd 160 with kv_len < Skv
-# (the CUDA-core route) and danube's heads with a ragged last packed tile
-# (Sq 300, 16 positions a tile) and kv_len < Skv on the tensor-core route.
+# against 1500 frames, non-causal), stablelm's hd 160 with kv_len < Skv,
+# danube's heads with a ragged last packed tile (Sq 300, 16 positions a
+# tile) and kv_len < Skv, and the tensor-core route past hd 128: path
+# 21's pass (stablelm-12b's 32 / 8 heads of 160, 8 x 1024 tokens), hd
+# 136 (the first width past 128), hd 192 with a binding window, hd 256
+# with kv_len < Skv, and hd 160 at G = 5 (a packed tile of 12 positions
+# x 5 heads).
 FLASH_BWD_SHAPES = [
     ("path 20", (DANUBE_PASS_B, DANUBE_SEQ, DANUBE_SEQ, 32, 8, 120),
      dict(causal=True, window=4096)),
@@ -4702,10 +4741,15 @@ FLASH_BWD_SHAPES = [
      dict(causal=True, window=0, kv_len=280)),
     ("ragged, hd 120", (2, 300, 300, 32, 8, 120),
      dict(causal=True, window=0, kv_len=280)),
+    ("path 21", STABLELM_BWD_SHAPE, dict(causal=True, window=0)),
+    ("hd 136", (2, 256, 256, 16, 4, 136), dict(causal=True, window=0)),
+    ("window 100, hd 192", (2, 384, 384, 16, 4, 192),
+     dict(causal=True, window=100)),
+    ("hd 256", (2, 300, 320, 16, 8, 256),
+     dict(causal=True, window=0, kv_len=290)),
+    ("G 5, hd 160", (2, 200, 200, 20, 4, 160),
+     dict(causal=True, window=0, kv_len=190)),
 ]
-# stablelm-12b's attention (32 / 8 heads of 160, causal) at path 20's
-# tokens a pass: the backward past hd 128, on the CUDA-core route.
-STABLELM_BWD_SHAPE = (DANUBE_PASS_B, DANUBE_SEQ, DANUBE_SEQ, 32, 8, 160)
 
 
 def flash_bwd_inputs(torch, fa, gen, shape, dtype, kw):
@@ -4821,23 +4865,36 @@ def flash_bwd_bound(q, k, pairs: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_bwd_timed(torch, fa, gen, label: str, shape, kw) -> dict:
-    """The backward at ``shape`` in bf16 (inputs cycled past L2), through
-    its ``bwd_route``: ``ms`` by host loop, printed beside its graph
-    replay, the plain version's ms, and SDPA's backward alone
-    (``enable_gqa``, ``is_causal``: the window does not bind at this
-    length; timed on one retained forward graph) as ``library_ms``, with
-    SDPA's forward + backward and its forward alone printed beside it;
-    on the tensor-core route each of its three kernels' device time a
-    call from the profiler (the D pre-pass apart); also the forward with
-    the lse against the serving forward on the same inputs."""
+# The tensor-core backward's kernels, as the profiler names them: the D
+# pre-pass, dK and dV together (hd <= 128) or apart, and dQ.
+BWD_TC_KERNELS = ("flash_attention_bwd_tc_delta",
+                  "flash_attention_bwd_tc_dkdv",
+                  "flash_attention_bwd_tc_dv_kernel",
+                  "flash_attention_bwd_tc_dk_kernel",
+                  "flash_attention_bwd_tc_dq")
+
+
+def flash_bwd_timed(torch, fa, gen, label: str, shape, kw,
+                    dtype=None) -> dict:
+    """The backward at ``shape`` in ``dtype`` (bf16 unless given; inputs
+    cycled past L2), through its ``bwd_route``: ``ms`` by host loop,
+    printed beside its graph replay, the plain version's ms, and SDPA's
+    backward alone in the same type (``enable_gqa``, ``is_causal``: the
+    window does not bind at this length; timed on one retained forward
+    graph) as ``library_ms``, with SDPA's forward + backward and its
+    forward alone printed beside it; on the tensor-core route each of its
+    kernels' device time a call from the profiler (the D pre-pass apart);
+    also the forward with the lse against the serving forward on the same
+    inputs."""
     import torch.nn.functional as F
+    dtype = dtype or torch.bfloat16
     b, sq, skv, h, kv, hd = shape
     if kw["window"] and kw["window"] < sq:
         raise AssertionError("SDPA's yardstick assumes no binding window")
-    which = fa.bwd_route(torch.bfloat16, hd)
-    n = cycling(2 * b * (4 * sq * h + 4 * skv * kv) * hd)
-    sets = [flash_bwd_inputs(torch, fa, gen, shape, torch.bfloat16, kw)
+    which = fa.bwd_route(dtype, hd)
+    size = torch.tensor([], dtype=dtype).element_size()
+    n = cycling(size * b * (4 * sq * h + 4 * skv * kv) * hd)
+    sets = [flash_bwd_inputs(torch, fa, gen, shape, dtype, kw)
             for _ in range(n)]
     it = iter(range(10 ** 9))
     calls = 10
@@ -4848,18 +4905,18 @@ def flash_bwd_timed(torch, fa, gen, label: str, shape, kw) -> dict:
     graph = graph_ms(torch, kernel, calls)
     split = ""
     if which == "backward_tc":
-        names = ("flash_attention_bwd_tc_delta", "flash_attention_bwd_tc_dkdv",
-                 "flash_attention_bwd_tc_dq")
-
         def run():
             for _ in range(calls):
                 kernel()
-        us = profile_scopes(torch, run, (), kernels=names)["kernel_us"]
+        us = profile_scopes(torch, run, (),
+                            kernels=BWD_TC_KERNELS)["kernel_us"]
+        us = {name: t for name, t in us.items() if t > 0}
         total = sum(us.values())
         split = ("; profiler device ms a call: " + ", ".join(
-            f"{name.split('_')[-1]} {us[name] / calls / 1e3:.5f}"
-            for name in names) + f" (D pre-pass "
-            f"{us[names[0]] / total:.3f} of the three)")
+            f"{name.split('_tc_')[1].split('_')[0]} "
+            f"{t / calls / 1e3:.5f}" for name, t in us.items())
+            + f" (D pre-pass {us[BWD_TC_KERNELS[0]] / total:.3f} of the "
+            f"{len(us)})")
     q, k, v, o, lse, do = sets[0]
     plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, o, lse, do, **kw), 2, warmup=1)
@@ -4892,7 +4949,7 @@ def flash_bwd_timed(torch, fa, gen, label: str, shape, kw) -> dict:
                              kv_len=kv_len)
     b_ms, b_by = flash_bwd_bound(q, k, pairs)
     print(f"[kernel] flash_attention_bwd (b) {label} shape {tuple(q.shape)} "
-          f"x {tuple(k.shape)} bf16 {kw} ({which}): ms={ms:.5f} (graph "
+          f"x {tuple(k.shape)} {dtype} {kw} ({which}): ms={ms:.5f} (graph "
           f"{graph:.5f}) plain_ms={plain_ms:.3f} library_ms(sdpa backward "
           f"alone, on a retained forward)={library_ms:.5f} (sdpa forward + "
           f"backward {sdpa_fb:.5f}, forward alone {sdpa_f:.5f}; sdpa vs "
@@ -4909,18 +4966,18 @@ def flash_bwd_timed(torch, fa, gen, label: str, shape, kw) -> dict:
 
 def phase_flash_bwd(torch, dev) -> dict:
     """The backward kernels against their plain version at
-    FLASH_BWD_SHAPES in f32 and bf16, timed at path 20's shape (the
-    tensor-core route) and at stablelm's hd 160 (the CUDA-core route).
-    Returns the kernels line's ``flash_attention_bwd`` row (path 20's
-    shape, bf16)."""
+    FLASH_BWD_SHAPES in f32 and bf16; timed in bf16 (the tensor-core
+    route) at path 20's shape, at path 21's (stablelm-12b's hd 160) and
+    at hd 256, and in f32 (the CUDA-core route) at path 20's shape.
+    Returns the kernels line's ``flash_attention_bwd`` (path 20's shape)
+    and ``flash_attention_bwd_hd160`` (path 21's) rows, bf16."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     lib = _build.library()
     for hd in range(8, fa.MAX_HEAD_DIM + 1, 8):
         if lib.flash_attention_bwd_smem(hd) != fa.bwd_smem_bytes(hd):
             raise AssertionError(f"backward smem mirror at hd {hd}")
-        if fa.bwd_route(torch.bfloat16, hd) == "backward_tc" and \
-                lib.flash_attention_bwd_tc_smem(hd) != fa.bwd_tc_smem_bytes(hd):
+        if lib.flash_attention_bwd_tc_smem(hd) != fa.bwd_tc_smem_bytes(hd):
             raise AssertionError(f"tensor-core backward smem mirror at hd "
                                  f"{hd}")
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
@@ -4930,13 +4987,22 @@ def phase_flash_bwd(torch, dev) -> dict:
             errs[label, dtype] = flash_bwd_check(torch, fa, gen, shape,
                                                  dtype, kw, f"(a) {label}")
             torch.cuda.empty_cache()
-    _, shape, kw = FLASH_BWD_SHAPES[0]
-    row = flash_bwd_timed(torch, fa, gen, "path 20", shape, kw)
-    torch.cuda.empty_cache()
-    flash_bwd_timed(torch, fa, gen, "stablelm-12b hd 160", STABLELM_BWD_SHAPE,
+    rows = {}
+    for name, label, shape, kw in (
+            ("flash_attention_bwd", "path 20", FLASH_BWD_SHAPES[0][1],
+             FLASH_BWD_SHAPES[0][2]),
+            ("flash_attention_bwd_hd160", "path 21", STABLELM_BWD_SHAPE,
+             dict(causal=True, window=0))):
+        rows[name] = dict(flash_bwd_timed(torch, fa, gen, label, shape, kw),
+                          max_abs_err=errs[label, torch.bfloat16])
+        torch.cuda.empty_cache()
+    flash_bwd_timed(torch, fa, gen, "hd 256", HD256_BWD_SHAPE,
                     dict(causal=True, window=0))
     torch.cuda.empty_cache()
-    return dict(row, max_abs_err=errs["path 20", torch.bfloat16])
+    flash_bwd_timed(torch, fa, gen, "path 20, f32", FLASH_BWD_SHAPES[0][1],
+                    FLASH_BWD_SHAPES[0][2], torch.float32)
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_danube_train(torch, dev, smi: str) -> dict:
@@ -5092,6 +5158,146 @@ def phase_danube_card_vs_cpu(torch, dev) -> None:
         raise AssertionError(f"danube card vs CPU: {err}, routes {routed}")
 
 
+def phase_stablelm_train(torch, dev, smi: str) -> dict:
+    """Path 21: the plain trainer on stablelm-12b at its published widths,
+    STABLELM_LAYERS layers (``launch.train``'s own setup and batch), every
+    layer's attention backward through the tensor-core route at hd 160.
+    Returns the launch counts of its STABLELM_STEPS steps, with the
+    kernels line's ``flash_attention_bwd_hd160`` count."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.setup(train.parse_args([
+        "--arch", "stablelm-12b", "--num-layers", str(STABLELM_LAYERS),
+        "--batch", str(STABLELM_BATCH), "--seq", str(STABLELM_SEQ),
+        "--seed", str(SEED + 22)]))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg, ocfg, gen, step = run.cfg, run.ocfg, run.gen, run.step
+    state = [run.state]
+    del run
+    print(f"[path 21] {cfg.name} plain training on {dev}: {STABLELM_LAYERS} "
+          f"of 40 layers at published widths (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} / {cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, rotary on {cfg.rope_fraction:g} of "
+          f"each, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), param_count "
+          f"{transformer.param_count(cfg)}, {cfg.dtype_compute} compute, "
+          f"{cfg.dtype_params} parameters, {ocfg.name} lr "
+          f"{ocfg.learning_rate} warmup {ocfg.warmup_steps}; batch "
+          f"{STABLELM_BATCH} x {STABLELM_SEQ} tokens; set up in "
+          f"{setup_s:.2f}s", flush=True)
+
+    def iteration() -> tuple:
+        t0 = time.perf_counter()
+        batch = train.driver_batch(gen, STABLELM_BATCH, STABLELM_SEQ,
+                                   cfg.vocab_size)
+        state[0], metrics = step(state[0], batch)
+        ce = float(metrics["ce"])
+        return time.perf_counter() - t0, ce
+
+    reset_counts()
+    walls = []
+    for i in range(STABLELM_STEPS):
+        how = ("cold" if i == 0 else "profiled" if i == STABLELM_STEPS - 1
+               else "warm")
+        if how == "profiled":
+            got = []
+            prof = profile_scopes(torch, lambda: got.append(iteration()),
+                                  ("train/batch",),
+                                  kernels=("flash_attention_bwd",
+                                           "flash_attention_tc"))
+            wall, ce = got[0]
+        else:
+            wall, ce = iteration()
+        walls.append(wall)
+        if not math.isfinite(ce):
+            raise AssertionError(f"path 21 step {i}: ce {ce}")
+        print(f"[path 21] step {i} ({how}): wall {wall:.3f}s; ce {ce:.4f}",
+              flush=True)
+    counts = read_counts()
+    routes = dict(fa.flash_attention.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    layer_steps = STABLELM_STEPS * STABLELM_LAYERS
+    want = dict(dict.fromkeys(_counters(), 0), flash_attention=2 * layer_steps)
+    want_routes = dict(prefill_tc=layer_steps, prefill_f32=0, decode=0,
+                       backward=0, backward_tc=layer_steps)
+    print(f"[path 21] launches {counts}; flash_attention by route {routes}",
+          flush=True)
+    if counts != want or routes != want_routes:
+        raise AssertionError(f"path 21 launches {counts}, routes {routes}; "
+                             f"expected {want}, {want_routes}")
+    tokens = STABLELM_BATCH * STABLELM_SEQ
+    busy = prof["busy_us"]
+    bwd_us = prof["kernel_us"]["flash_attention_bwd"]
+    fwd_us = prof["kernel_us"]["flash_attention_tc"]
+    print(f"[path 21] cold step {walls[0]:.3f}s, warm step {walls[1]:.3f}s = "
+          f"{tokens / walls[1]:.0f} tokens/s; max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB; profiled step: wall "
+          f"{prof['wall_us'] / 1e6:.3f}s, device busy {busy / 1e6:.3f}s, "
+          f"idle share {1 - busy / prof['wall_us']:.3f} (against the "
+          f"unprofiled warm step: {1 - busy / 1e6 / walls[1]:.3f}); flash "
+          f"backward {bwd_us / 1e3:.2f} ms = {bwd_us / busy:.4f} of device "
+          f"time ({bwd_us / 1e3 / STABLELM_LAYERS:.3f} ms a layer), flash "
+          f"forward {fwd_us / 1e3:.2f} ms = {fwd_us / busy:.4f}; "
+          f"{prof['launches']} launches ({prof['device_ops']} device "
+          f"operations); {smi}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return dict(counts, flash_attention_bwd_hd160=routes["backward_tc"])
+
+
+def phase_stablelm_card_vs_cpu(torch, dev) -> None:
+    """stablelm-12b at ``reduced(num_layers=2, head_dim=160)`` with bf16
+    compute (f32 parameters) on the card and on the CPU from one state:
+    one plain step's gradients (``steps._grads``, 2 x 256 tokens), each
+    leaf within STABLELM_CARD_CPU_TOL of its largest magnitude on the CPU;
+    on the card each layer's attention forward and backward through the
+    tensor-core kernels, on the CPU through the plain versions."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_leaves
+    cfg = configs.get("stablelm_12b").reduced(
+        num_layers=2, head_dim=160, dtype_compute="bfloat16")
+    gen = torch.Generator().manual_seed(SEED + 23)
+    params = transformer.init(gen, cfg)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 256), generator=gen)
+             for k in ("inputs", "labels")}
+    out = []
+    for device in ("cpu", dev):
+        before = dict(fa.flash_attention.route_launches)
+        metrics, grads = steps._grads(_to(params, device),
+                                      {k: v.to(device)
+                                       for k, v in batch.items()}, cfg)
+        routed = {r: n - before[r]
+                  for r, n in fa.flash_attention.route_launches.items()}
+        out.append(([g.float().cpu() for g in tree_leaves(grads)],
+                    float(metrics["ce"]), routed))
+    (g_c, ce_c, _), (g_g, ce_g, routed) = out
+    rels = [float((c - g).abs().max()) / max(float(c.abs().max()), 1e-30)
+            for c, g in zip(g_c, g_g)]
+    worst = max(range(len(rels)), key=rels.__getitem__)
+    finite = all(bool(g.isfinite().all()) for g in g_g)
+    want = dict(prefill_tc=cfg.num_layers, prefill_f32=0, decode=0,
+                backward=0, backward_tc=cfg.num_layers)
+    print(f"[card-vs-cpu] {cfg.name} reduced(num_layers=2, head_dim=160) "
+          f"{cfg.dtype_compute} compute: one plain step's gradients, of each "
+          f"leaf's largest: max {rels[worst]:.3g} (leaf {worst} of "
+          f"{len(rels)}, shape {tuple(g_c[worst].shape)}), median "
+          f"{sorted(rels)[len(rels) // 2]:.3g} (limit "
+          f"{STABLELM_CARD_CPU_TOL:g}); ce card {ce_g:.6f} CPU {ce_c:.6f}; "
+          f"finite {finite}; card flash launches by route {routed}",
+          flush=True)
+    if not (finite and rels[worst] <= STABLELM_CARD_CPU_TOL
+            and routed == want):
+        raise AssertionError(f"stablelm card vs CPU: {rels[worst]}, routes "
+                             f"{routed}")
+
+
 KERNELS = {
     "fedavg_agg": ("src/repro_torch/csrc/fedavg_agg.cu",
                    "src/repro/kernels/fedavg_agg.py:30"),
@@ -5127,6 +5333,8 @@ KERNELS["fedavg_agg_train"] = KERNELS["fedavg_agg"]
 KERNELS["flash_attention_bwd"] = (
     "src/repro_torch/csrc/flash_attention_bwd_tc.cu",
     "src/repro/models/attention.py:142")
+# Path 21's: stablelm-12b's hd 160 on the same route.
+KERNELS["flash_attention_bwd_hd160"] = KERNELS["flash_attention_bwd"]
 # Paths 15-19's flash rows (PATH_FLASH): the prefill at each MoE path's
 # query group, jamba's decode, whisper's encoder prefill and its
 # cross-attention decode.
@@ -5154,6 +5362,11 @@ def main() -> int:
     if sys.argv[1:] == ["--moe-prefill"]:
         moe_prefill_only(torch, dev)
         return 0
+    if sys.argv[1:] == ["--flash-bwd"]:
+        phase_flash_bwd(torch, dev)
+        phase_stablelm_train(torch, dev, smi)
+        phase_stablelm_card_vs_cpu(torch, dev)
+        return 0
 
     compress_smem_mirror()
     sass_sizes(_build.build())
@@ -5174,7 +5387,7 @@ def main() -> int:
         "fedavg_agg_masked": phase_masked(torch, dev, 100, P_CNN),
         "fedavg_agg_stale": phase_stale(torch, dev, 100, P_CNN),
         **phase_flash(torch, dev),
-        "flash_attention_bwd": phase_flash_bwd(torch, dev),
+        **phase_flash_bwd(torch, dev),
         "fedavg_agg_train": phase_fedavg_train(torch, dev, TRAIN_K,
                                                XLSTM_PARAMS),
     }
@@ -5213,7 +5426,7 @@ def main() -> int:
              "fedavg_agg_batch": 7, "stream_update_batch": 8,
              "fedavg_agg_masked_batch": 8, "compress_update_batch": 9,
              "fedavg_agg_stale_batch": 10, "fedavg_agg_train": 13,
-             "flash_attention_bwd": 20,
+             "flash_attention_bwd": 20, "flash_attention_bwd_hd160": 21,
              **{name: path for name, (path, *_) in PATH_FLASH.items()}}
     by_path, recs, walls = {}, {}, {}
     for path in (1, 2, 3):
@@ -5266,6 +5479,8 @@ def main() -> int:
     phase_xlstm_card_vs_cpu(torch, dev)
     by_path[20] = phase_danube_train(torch, dev, smi)
     phase_danube_card_vs_cpu(torch, dev)
+    by_path[21] = phase_stablelm_train(torch, dev, smi)
+    phase_stablelm_card_vs_cpu(torch, dev)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=by_path[owner[name]][re.sub(

@@ -1,6 +1,6 @@
-// Flash attention backward on the CUDA cores: dQ, dK and dV of the
-// forward's masked softmax attention (flash_attention.cu,
-// flash_attention_tc.cu), in f32 or bf16.
+// Flash attention backward on the CUDA cores in f32: dQ, dK and dV of the
+// f32 forward's masked softmax attention (flash_attention.cu).  bf16 goes
+// to the tensor-core kernels of flash_attention_bwd_tc.cu at every width.
 //
 // Replaces no TPU kernel: the reference trains through its plain
 // attention (src/repro/models/attention.py, attend_full) and has no
@@ -10,22 +10,20 @@
 //   P_ij  = exp(scale q_i . k_j - lse_i) where visible, else 0 (lse from
 //           the forward: the row's log-sum-exp of the scaled scores);
 //   D_i   = dO_i . O_i;
-//   dV_j += P'_ij dO_i     (P' = P rounded to bf16 when the inputs are
-//                            bf16: the reference's model path rounds its
-//                            probabilities to v's type before p . v);
+//   dV_j += P_ij dO_i;
 //   dS_ij = P_ij (dO_i . v_j - D_i);
 //   dQ_i  = scale sum_j dS_ij k_j;   dK_j += scale dS_ij q_i.
 // The sums over the G query heads of a KV head fall into dK_g and dV_g.
 // Visible as the forward: k < kv_len, k <= q if causal, k > q - window
 // if window > 0, positions of q and k both from 0 (so Sq != Skv is
-// cross-attention).  Scores, P, dS and every sum are f32; outputs in the
-// input type.  Layout as the forward's: q, o, dO, dq (B, Sq, H, hd); k,
-// v, dk, dv (B, Skv, KV, hd); lse and D (B, H, Sq) f32.  hd a multiple
-// of 8 up to 256.
+// cross-attention).  Everything is f32.  Layout as the forward's: q, o,
+// dO, dq (B, Sq, H, hd); k, v, dk, dv (B, Skv, KV, hd); lse and D (B, H,
+// Sq).  hd a multiple of 8 up to 256.
 //
 // Bound on the H100 by operations: five products over the visible pairs
 // (the two score products recomputed, dV, dK and dQ), 10 hd flops a pair
-// and head.  The design (FlashAttention-2's):
+// and head, at 67 TFLOP/s outside the tensor cores (the 1e-4 limit of
+// the f32 route rules out TF32).  The design (FlashAttention-2's):
 //
 // * flash_attention_bwd_delta_kernel: D, one warp a row.
 // * flash_attention_bwd_dkdv_kernel: one block per (b, KV head, tile of
@@ -44,8 +42,7 @@
 // 64) score tile (rows ty + 16 i, columns tx + 16 j) and RI rows x up to
 // 16 columns of each accumulator (columns 4 tx + 64 jj + e).  R = 64 up
 // to hd 128 and 32 past it, so that two R-row and two 64-row tiles fit
-// the 227 KB of shared memory at hd 256.  Later work: wgmma on the
-// tensor cores, with K / V by TMA.
+// the 227 KB of shared memory at hd 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,11 +56,6 @@ namespace {
 
 constexpr int BWD_THREADS = 256;
 constexpr int LT = 64;   // rows of the tile a block loops over
-
-__device__ __forceinline__ float round_p(float p, const float*) { return p; }
-__device__ __forceinline__ float round_p(float p, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(p));
-}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -290,7 +282,7 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q,
           const bool vis = qpos < Sq &&
                            visible(qpos, kpos, kv_len, causal, window);
           const float p = vis ? expf(s[i][j] - Ls[c]) : 0.f;
-          Ps[(ty + 16 * i) * ldp + c] = round_p(p, q);
+          Ps[(ty + 16 * i) * ldp + c] = p;
           Ss[(ty + 16 * i) * ldp + c] = vis ? p * (dp[i][j] - Ds[c]) : 0.f;
         }
       }
@@ -489,24 +481,19 @@ int bwd_by_width(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// dQ, dK, dV (and D into `delta`, (B, H, Sq) f32 scratch) of the forward
-// with these masks; dtype 0 = f32, 1 = bf16.  Three launches on `stream`;
-// returns the first cudaError, or 0.
+// dQ, dK, dV in f32 (and D into `delta`, (B, H, Sq) f32 scratch) of the
+// forward with these masks.  Three launches on `stream`; returns the
+// first cudaError, or 0.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
                                    void* delta, void* dq, void* dk, void* dv,
-                                   int dtype, int B, int Sq, int Skv, int H,
-                                   int KV, int hd, int kv_len, int causal,
-                                   int window, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return bwd_by_width<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                               Sq, Skv, H, KV, hd, kv_len, causal, window,
-                               scale, s);
-  return bwd_by_width<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk,
-                                     dv, B, Sq, Skv, H, KV, hd, kv_len,
-                                     causal, window, scale, s);
+                                   int B, int Sq, int Skv, int H, int KV,
+                                   int hd, int kv_len, int causal, int window,
+                                   float scale, void* stream) {
+  return bwd_by_width<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq,
+                             Skv, H, KV, hd, kv_len, causal, window, scale,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // The backward's largest dynamic shared memory (its dK / dV kernel's),

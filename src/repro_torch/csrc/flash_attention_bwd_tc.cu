@@ -1,12 +1,13 @@
 // Flash attention backward in bf16 on the Hopper tensor cores: dQ, dK and
-// dV of the forward's masked softmax attention, for head widths up to 128.
+// dV of the forward's masked softmax attention, for every head width the
+// forward serves (multiples of 8 up to 256).
 //
 // Replaces no TPU kernel: the reference trains through its plain
 // attention (src/repro/models/attention.py, attend_full) and has no
 // Pallas backward; its gradient here is written by hand because the
-// forward is.  f32 and widths past 128 keep the CUDA-core kernels of
-// flash_attention_bwd.cu.  Computes, per (batch, q head h, q row i, key
-// j) with g = h / (H / KV) the KV head:
+// forward is.  f32 keeps the CUDA-core kernels of flash_attention_bwd.cu.
+// Computes, per (batch, q head h, q row i, key j) with g = h / (H / KV)
+// the KV head:
 //   P_ij  = exp(scale q_i . k_j - lse_i) where visible, else 0;
 //   D_i   = dO_i . O_i;
 //   dV_j += P'_ij dO_i       (P' = P rounded to bf16, as the reference's
@@ -36,27 +37,40 @@
 //   Each K / V tile then meets all G heads at once (no loop over the
 //   heads, q and dO read once per key block).  Rows past G P are zeroed
 //   once and never stored; rows past Sq come from TMA as zeros.
-// * flash_attention_bwd_tc_dkdv_kernel: one block per (b, KV head, 128
-//   keys), two consumer warpgroups of 64 keys and one producer warpgroup.
-//   K and V arrive once by TMA through 4-D maps that end at kv_len (so
-//   the keys past it are zeros and no weight meets what lies there), and
-//   stay in shared memory with the 128-byte swizzle.  The producer streams
-//   the packed q and dO tiles that can see the block's keys (causal and
-//   window bounds) through a ring of stages with full / empty mbarriers.
-//   Per tile: S^T = K q^T and dP^T = V dO^T by wgmma_ss_n64 (M = keys, N =
-//   packed rows, K-major over hd); P^T and dS^T in f32 registers, the
-//   masks built only on edge tiles and applied by selection; dV += P^T dO
-//   and dK += dS^T q by wgmma_rs_tn with P^T and dS^T as bf16 register A
-//   fragments and dO and q as MN-major B operands (the transpose bit, as V
-//   in the forward's P V).  dP^T lands while P^T is computed, dV runs
-//   while dS^T is.  dK and dV stay in registers for the whole walk: no
-//   atomics.  Key blocks are issued low first (blockIdx.y), the ones that
-//   see the most q tiles under causal masking, to even out the tail.
+// * The key side, one block per (b, KV head, 128 keys), two consumer
+//   warpgroups of 64 keys and one producer warpgroup.  K and V arrive once
+//   by TMA through 4-D maps that end at kv_len (so the keys past it are
+//   zeros and no weight meets what lies there), and stay in shared memory
+//   with the 128-byte swizzle.  The producer streams the packed q and dO
+//   tiles that can see the block's keys (causal and window bounds)
+//   through a ring of stages with full / empty mbarriers.  Per tile: S^T
+//   = K q^T and dP^T = V dO^T by wgmma_ss_n64 (M = keys, N = packed rows,
+//   K-major over hd); P^T and dS^T in f32 registers, the masks built only
+//   on edge tiles and applied by selection; dV += P^T dO and dK += dS^T q
+//   by wgmma_rs_tn with P^T and dS^T as bf16 register A fragments and dO
+//   and q as MN-major B operands (the transpose bit, as V in the
+//   forward's P V).  dP^T lands while P^T is computed, dV runs while dS^T
+//   is.  dK and dV stay in registers for the whole walk: no atomics.  Key
+//   blocks are issued low first (blockIdx.y), the ones that see the most
+//   q tiles under causal masking, to even out the tail.  Up to hd 128 one
+//   kernel (flash_attention_bwd_tc_dkdv_kernel) accumulates both dK and
+//   dV.  Past it a consumer thread would hold dK and dV (2 x hd / 2) and
+//   S^T and dP^T (2 x 32) accumulators, 224 at hd 160 and 320 at hd 256,
+//   beyond the 240 registers setmaxnreg gives: so two kernels split the
+//   work, flash_attention_bwd_tc_dv_kernel (S^T again, P^T, dV: hd / 2 +
+//   32 accumulators) and flash_attention_bwd_tc_dk_kernel (S^T, dP^T,
+//   dS^T, dK: hd / 2 + 64), eight products in all instead of seven.
 // * flash_attention_bwd_tc_dq_kernel: the forward's skeleton, one block
 //   per (b, KV head, 2 x 64 packed rows) with K / V through the ring:
 //   S = q K^T and dP = dO V^T by wgmma_ss_n64, dS to bf16 A fragments,
-//   dQ += dS K with K as an MN-major B operand.  Seven products in all,
-//   deterministic, no f32 scratch.
+//   dQ += dS K with K as an MN-major B operand (hd / 2 + 64
+//   accumulators).  Deterministic, no f32 scratch.
+// * Widths.  Each instantiation covers HDP columns (Width): the score
+//   products run HDP / 16 k-steps and the register-A products N = HDP,
+//   so hd 160 multiplies no padding (N = 160 spans two and a half
+//   64-column swizzle atoms of the MN-major B).  Five instantiations: 64
+//   (hd 8-64), 128 (72-128), 160 (136-160), 192 (168-192), 256
+//   (200-256); columns past hd are TMA's zeros.
 // * Keeping wgmma asynchronous.  ptxas serializes every wgmma of a kernel
 //   (advisories C7515 / C7514 / C7518 under -Xptxas -v; 1.8x slower here)
 //   when a wgmma sits on a branch it must treat as divergent, when a
@@ -69,16 +83,22 @@
 //   ptxas lose track of the groups).  The edge tiles' position of a
 //   packed row is col / G by a float reciprocal: an integer division cost
 //   a fifth of the dK / dV kernel.
-// * Registers: at hd 128 a consumer thread holds dK 64 + dV 64 + S^T 32 +
-//   dP^T 32 accumulators, so the producer warpgroup gives its registers
-//   back (setmaxnreg.dec to 24) and the consumers take them (inc to 240);
-//   ptxas reports 168 a thread at launch and no spills.  Shared memory: at
-//   hd <= 64 (1 box of 64 columns) 101,448 bytes and 4 stages; at hd
-//   72-128 (2 boxes) 166,456 and 3 stages (the dK / dV kernel's; the dQ
-//   kernel's is 512 bytes a stage smaller).  Registers (384 threads) allow
-//   one block per SM.  Past hd 128 the dK and dV accumulators and the two
-//   score tiles exceed 255 registers a thread: those widths stay on
-//   flash_attention_bwd.cu.
+// * Registers: the producer warpgroup gives its registers back
+//   (setmaxnreg.dec to 24) and the consumers take them (inc to 240); the
+//   most accumulators a consumer thread holds is 192 (dK + dV + S^T +
+//   dP^T at hd 128; dK + S^T + dP^T and dQ + S + dP at hd 256).  ptxas
+//   reports 168 a thread at launch (384 threads, one block per SM) and no
+//   spills.
+// * Shared memory (KvCfg, QCfg): 64-row boxes of 128 bytes per 64
+//   columns.  Up to hd 128 the key side holds K and V of both warpgroups
+//   and 4 (hd <= 64, 101,448 bytes) or 3 (166,456) ring stages, the dQ
+//   kernel q and dO and as many stages.  Past hd 128 each kernel takes
+//   the most stages (up to 3) that fit the H100's 232,448 bytes beside
+//   its resident tiles: at hd 136-192 (3 boxes) the dV kernel, resident K
+//   only, 3 (199,224), the dK and dQ kernels 2 (198,696 and 197,672); at
+//   hd 200-256 (4 boxes) the dV kernel 2 (198,696), the dK and dQ kernels
+//   1 (198,168 and 197,656: their copies then wait for the tile before
+//   to be released).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -101,24 +121,63 @@ constexpr int BOX_COLS = 64;                // hd columns per box (128 B)
 constexpr int BOX_BYTES = 64 * 128;         // 64 rows of 128 B
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
-constexpr int MAX_HD = 128;
+constexpr int SMEM_LIMIT = 232448;          // a block's on the H100
 constexpr float LOG2E = 1.4426950408889634f;
 
-// NCH: boxes of 64 columns that cover hd (1 or 2).
-template <int NCH>
-struct BwdCfg {
-  static constexpr int STAGES = NCH == 1 ? 4 : 3;
-  // Resident tiles: K and V of both warpgroups (dK / dV kernel), or q and
-  // dO of both (dQ kernel).
-  static constexpr int FIXED = 2 * WGS * NCH * BOX_BYTES;
-  // A ring stage: a q and a dO tile, or a K and a V tile.
-  static constexpr int STAGE = 2 * NCH * BOX_BYTES;
+// The width an instantiation covers, HDP: hd rounded up to 64, 128, 160,
+// 192 or 256.  NCH boxes of 64 columns hold it; the score products run
+// HDP / 16 k-steps and the register-A products N = HDP columns.
+template <int HDP>
+struct Width {
+  static constexpr int NCH = (HDP + BOX_COLS - 1) / BOX_COLS;
+  static constexpr int KSTEPS = HDP / 16;
+  static constexpr int NACC = HDP / 2;   // a 64 x HDP accumulator
+  static constexpr int STAGE = 2 * NCH * BOX_BYTES;   // two tiles
+};
+
+// What a key-side kernel accumulates: dK and dV together (up to hd 128),
+// or, past hd 128, dV alone and dK alone in two kernels (the two
+// accumulators and the two score tiles would exceed 240 registers).
+enum Part { DKDV, DV, DK };
+
+constexpr int smem_bytes(int fixed, int stage, int stages) {
+  // 1024 of slack to align the tiles for the 128-byte swizzle; the
+  // mbarriers.
+  return 1024 + fixed + stages * stage + 8 * (1 + 2 * stages);
+}
+
+// The most ring stages (up to 3) that fit the H100 beside `fixed`.
+constexpr int stages_that_fit(int fixed, int stage) {
+  int s = 3;
+  while (s > 1 && smem_bytes(fixed, stage, s) > SMEM_LIMIT) --s;
+  return s;
+}
+
+// A key-side kernel: resident K (and V unless DV) of both warpgroups; a
+// ring of q + dO stages, each with 512 bytes of (lse log2 e, D) pairs.
+template <int HDP, int PART>
+struct KvCfg {
+  using W = Width<HDP>;
   static constexpr int LSD = ROWS * 8;        // 64 (lse log2 e, D) pairs
-  static constexpr int BARS = 8 * (1 + 2 * STAGES);
-  // 1024 of slack to align the tiles for the 128-byte swizzle.
-  static constexpr int SMEM_KV =
-      1024 + FIXED + STAGES * STAGE + STAGES * LSD + BARS;
-  static constexpr int SMEM_Q = 1024 + FIXED + STAGES * STAGE + BARS;
+  static constexpr int FIXED =
+      (PART == DV ? 1 : 2) * WGS * W::NCH * BOX_BYTES;
+  static constexpr int STAGES =
+      W::NCH == 1   ? 4
+      : W::NCH == 2 ? 3
+                    : stages_that_fit(FIXED, W::STAGE + LSD);
+  static constexpr int SMEM = smem_bytes(FIXED, W::STAGE + LSD, STAGES);
+};
+
+// The dQ kernel: resident q and dO of both warpgroups, a ring of K + V
+// stages.
+template <int HDP>
+struct QCfg {
+  using W = Width<HDP>;
+  static constexpr int FIXED = 2 * WGS * W::NCH * BOX_BYTES;
+  static constexpr int STAGES = W::NCH <= 2
+                                    ? KvCfg<HDP, DKDV>::STAGES
+                                    : stages_that_fit(FIXED, W::STAGE);
+  static constexpr int SMEM = smem_bytes(FIXED, W::STAGE, STAGES);
 };
 
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
@@ -171,49 +230,49 @@ __device__ __forceinline__ void pack_frags(const float (&x)[32],
   }
 }
 
-// acc (64 x 64) = A . B^T over the 64 NCH columns of the boxes from
-// a_addr and b_addr, both K-major.  Every k-step runs, also past hd (TMA
-// filled those columns with zeros): a run-time bound between the wgmma
-// of one group makes ptxas serialize them (C7515).
-template <int NCH>
+// acc (64 x 64) = A . B^T over the first 16 KSTEPS columns of the boxes
+// from a_addr and b_addr, both K-major.  Every k-step runs, also past hd
+// (TMA filled those columns with zeros): a run-time bound between the
+// wgmma of one group makes ptxas serialize them (C7515).
+template <int KSTEPS>
 __device__ __forceinline__ void product_ss(float (&acc)[32], uint32_t a_addr,
                                            uint32_t b_addr) {
   wgmma_ss_n64_zero(acc, desc_sw128(a_addr, 16, 1024),
                     desc_sw128(b_addr, 16, 1024));
 #pragma unroll
-  for (int kk = 1; kk < 4 * NCH; ++kk) {
+  for (int kk = 1; kk < KSTEPS; ++kk) {
     const uint32_t off = (kk >> 2) * BOX_BYTES + (kk & 3) * 32;
     wgmma_ss_n64(acc, desc_sw128(a_addr + off, 16, 1024),
                  desc_sw128(b_addr + off, 16, 1024), 1);
   }
 }
 
-// acc (64 x 64 NCH) += A (registers, 64 x 64) . B (64 rows x hd boxes
-// from b_addr, MN-major).
-template <int NCH>
-__device__ __forceinline__ void product_rs(float (&acc)[32 * NCH],
+// acc (64 x N) += A (registers, 64 x 64) . B (64 rows x the first N
+// columns of the boxes from b_addr, MN-major).
+template <int N>
+__device__ __forceinline__ void product_rs(float (&acc)[N / 2],
                                            const uint32_t (&a)[4][4],
                                            uint32_t b_addr) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs_tn<64 * NCH>(acc, a[kk],
-                          desc_sw128(b_addr + kk * 2048, BOX_BYTES, 1024));
+    wgmma_rs_tn<N>(acc, a[kk],
+                   desc_sw128(b_addr + kk * 2048, BOX_BYTES, 1024));
 }
 
 // Issue acc = A . B^T and acc2 = A2 . B2^T as two commit groups (the
 // score products of a tile: S and dP, or S^T and dP^T).  The kernels
 // compute P and dS into arrays of their own, never into acc or acc2, for
 // the reason wgmma_ss_n64_zero gives.
-template <int NCH>
+template <int KSTEPS>
 __device__ __forceinline__ void issue_scores(float (&acc)[32],
                                              float (&acc2)[32],
                                              uint32_t a_addr, uint32_t b_addr,
                                              uint32_t a2_addr,
                                              uint32_t b2_addr) {
   wgmma_fence();
-  product_ss<NCH>(acc, a_addr, b_addr);
+  product_ss<KSTEPS>(acc, a_addr, b_addr);
   wgmma_commit();
-  product_ss<NCH>(acc2, a2_addr, b2_addr);
+  product_ss<KSTEPS>(acc2, a2_addr, b2_addr);
   wgmma_commit();
 }
 
@@ -286,29 +345,31 @@ flash_attention_bwd_tc_delta_kernel(const __nv_bfloat16* __restrict__ o,
                            sum);
 }
 
-template <int NCH>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_attention_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
-                                   const __grid_constant__ CUtensorMap omap,
-                                   const __grid_constant__ CUtensorMap kmap,
-                                   const __grid_constant__ CUtensorMap vmap,
-                                   const float2* __restrict__ lsd,
-                                   __nv_bfloat16* __restrict__ dk,
-                                   __nv_bfloat16* __restrict__ dv, int Sq,
-                                   int Skv, int H, int KV, int hd,
-                                   int kv_len, int causal, int window,
-                                   int ntiles, float scale,
-                                   float scale_log2) {
-  using C = BwdCfg<NCH>;
+// The key side: dK and / or dV (PART) of the block's 2 x 64 keys.
+template <int HDP, int PART>
+__device__ __forceinline__ void key_side(const CUtensorMap* qmap,
+                                         const CUtensorMap* omap,
+                                         const CUtensorMap* kmap,
+                                         const CUtensorMap* vmap,
+                                         const float2* __restrict__ lsd,
+                                         __nv_bfloat16* __restrict__ dk,
+                                         __nv_bfloat16* __restrict__ dv,
+                                         int Sq, int Skv, int H, int KV,
+                                         int hd, int kv_len, int causal,
+                                         int window, int ntiles, float scale,
+                                         float scale_log2) {
+  using W = Width<HDP>;
+  using C = KvCfg<HDP, PART>;
+  constexpr int NCH = W::NCH;
   constexpr int STAGES = C::STAGES;
-  constexpr int NACC = 32 * NCH;     // dK, dV: 64 keys x 64 NCH columns
+  constexpr bool WANT_DK = PART != DV, WANT_DV = PART != DK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint8_t* kvs = smem;                 // K [WGS][NCH] boxes, V [WGS][NCH]
   uint8_t* ring = smem + C::FIXED;     // [STAGES][q NCH boxes, dO NCH]
-  float4* lsd_s = reinterpret_cast<float4*>(ring + STAGES * C::STAGE);
+  float4* lsd_s = reinterpret_cast<float4*>(ring + STAGES * W::STAGE);
   uint64_t* bars =
-      reinterpret_cast<uint64_t*>(ring + STAGES * (C::STAGE + C::LSD));
+      reinterpret_cast<uint64_t*>(ring + STAGES * (W::STAGE + C::LSD));
   // bars[0]: K and V landed; bars[1 + s]: stage s full; bars[1 + STAGES +
   // s]: stage s empty (one arrival per consumer warp).
 
@@ -353,21 +414,22 @@ flash_attention_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_expect_tx(kvbar, C::FIXED);
       for (int w = 0; w < WGS; ++w)
         for (int c = 0; c < NCH; ++c) {
-          tma_load_4d(smem_u32(kvs + (w * NCH + c) * BOX_BYTES), &kmap,
+          tma_load_4d(smem_u32(kvs + (w * NCH + c) * BOX_BYTES), kmap,
                       kvbar, c * BOX_COLS, g, k_lo + w * KT, b);
-          tma_load_4d(smem_u32(kvs + ((WGS + w) * NCH + c) * BOX_BYTES),
-                      &vmap, kvbar, c * BOX_COLS, g, k_lo + w * KT, b);
+          if constexpr (WANT_DK)
+            tma_load_4d(smem_u32(kvs + ((WGS + w) * NCH + c) * BOX_BYTES),
+                        vmap, kvbar, c * BOX_COLS, g, k_lo + w * KT, b);
         }
       for (int t = t0, i = 0; t < t1; ++t, ++i) {
         const int s = i % STAGES;
         mbar_wait(smem_u32(&bars[1 + STAGES + s]), ((i / STAGES) & 1) ^ 1);
         const uint32_t full = smem_u32(&bars[1 + s]);
         mbar_expect_tx(full, 2 * NCH * rows_used * 128 + C::LSD);
-        uint8_t* st = ring + s * C::STAGE;
+        uint8_t* st = ring + s * W::STAGE;
         for (int c = 0; c < NCH; ++c) {
-          tma_load_5d(smem_u32(st + c * BOX_BYTES), &qmap, full,
+          tma_load_5d(smem_u32(st + c * BOX_BYTES), qmap, full,
                       c * BOX_COLS, 0, g, t * P, b);
-          tma_load_5d(smem_u32(st + (NCH + c) * BOX_BYTES), &omap, full,
+          tma_load_5d(smem_u32(st + (NCH + c) * BOX_BYTES), omap, full,
                       c * BOX_COLS, 0, g, t * P, b);
         }
         bulk_load(smem_u32(lsd_s + s * (ROWS / 2)),
@@ -386,9 +448,13 @@ flash_attention_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
   const float inv_g = 1.f / G;
   const uint32_t kaddr = smem_u32(kvs + wg * NCH * BOX_BYTES);
   const uint32_t vaddr = smem_u32(kvs + (WGS + wg) * NCH * BOX_BYTES);
-  float dkacc[NACC], dvacc[NACC];
+  // dK, dV: 64 keys x HDP columns (one register where the part has none).
+  float dkacc[WANT_DK ? W::NACC : 1], dvacc[WANT_DV ? W::NACC : 1];
 #pragma unroll
-  for (int i = 0; i < NACC; ++i) dkacc[i] = dvacc[i] = 0.f;
+  for (int i = 0; i < W::NACC; ++i) {
+    if constexpr (WANT_DK) dkacc[i] = 0.f;
+    if constexpr (WANT_DV) dvacc[i] = 0.f;
+  }
   const Ring<STAGES> ring_at{bars + 1, t0};
   // The q tiles that see one of this warpgroup's keys: a run [a0, a1) of
   // the block's [t0, t1) (causal and window bounds).
@@ -407,16 +473,23 @@ flash_attention_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
     ring_at.wait(t);
     ring_at.release(t);
   }
-  // Each tile of the run: the score products, then dV while dS^T is
-  // computed, then dK.  A straight run of commit groups and waits, which
-  // ptxas can follow, so that the wgmma stay asynchronous.
+  // Each tile of the run: the score products (S^T alone for dV), then dV
+  // while dS^T is computed, then dK.  A straight run of commit groups and
+  // waits, which ptxas can follow, so that the wgmma stay asynchronous.
   for (int t = a0; t < a1; ++t) {
-    const uint32_t qaddr = smem_u32(ring + ring_at.stage(t) * C::STAGE);
+    const uint32_t qaddr = smem_u32(ring + ring_at.stage(t) * W::STAGE);
     const uint32_t oaddr = qaddr + NCH * BOX_BYTES;
     ring_at.wait(t);
     float st[32], dpt[32];   // S^T, dP^T
-    issue_scores<NCH>(st, dpt, kaddr, qaddr, vaddr, oaddr);
-    wgmma_wait<1>();   // S^T has landed
+    if constexpr (WANT_DK) {
+      issue_scores<W::KSTEPS>(st, dpt, kaddr, qaddr, vaddr, oaddr);
+      wgmma_wait<1>();   // S^T has landed
+    } else {
+      wgmma_fence();
+      product_ss<W::KSTEPS>(st, kaddr, qaddr);
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
     fence_regs(st);
 
     const int pa = t * P;
@@ -447,35 +520,39 @@ flash_attention_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
         pt[4 * j + e] = p;
       }
     }
-    uint32_t frag[4][4];
-    pack_frags(pt, frag);
-    fence_regs(dvacc);
-    wgmma_fence();
-    product_rs<NCH>(dvacc, frag, oaddr);              // dV += P^T dO
-    wgmma_commit();
-    wgmma_wait<1>();                                  // dP^T has landed
-    fence_regs(dpt);
-    float ds[32];          // dS^T
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float4 l2 = ls[4 * j + (lane & 3)];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float d = (e & 1) ? l2.w : l2.y;
-        ds[4 * j + e] = (hidden >> (4 * j + e)) & 1
-                            ? 0.f
-                            : pt[4 * j + e] * (dpt[4 * j + e] - d);
-      }
+    if constexpr (WANT_DV) {
+      uint32_t frag[4][4];
+      pack_frags(pt, frag);
+      fence_regs(dvacc);
+      wgmma_fence();
+      product_rs<HDP>(dvacc, frag, oaddr);           // dV += P^T dO
+      wgmma_commit();
     }
-    uint32_t dfrag[4][4];
-    pack_frags(ds, dfrag);
-    fence_regs(dkacc);
-    wgmma_fence();
-    product_rs<NCH>(dkacc, dfrag, qaddr);             // dK += dS^T q
-    wgmma_commit();
+    if constexpr (WANT_DK) {
+      wgmma_wait<WANT_DV ? 1 : 0>();                 // dP^T has landed
+      fence_regs(dpt);
+      float ds[32];          // dS^T
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 l2 = ls[4 * j + (lane & 3)];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float d = (e & 1) ? l2.w : l2.y;
+          ds[4 * j + e] = (hidden >> (4 * j + e)) & 1
+                              ? 0.f
+                              : pt[4 * j + e] * (dpt[4 * j + e] - d);
+        }
+      }
+      uint32_t dfrag[4][4];
+      pack_frags(ds, dfrag);
+      fence_regs(dkacc);
+      wgmma_fence();
+      product_rs<HDP>(dkacc, dfrag, qaddr);          // dK += dS^T q
+      wgmma_commit();
+    }
     wgmma_wait<0>();
-    fence_regs(dvacc);
-    fence_regs(dkacc);
+    if constexpr (WANT_DV) fence_regs(dvacc);
+    if constexpr (WANT_DK) fence_regs(dkacc);
     ring_at.release(t);
   }
   for (int t = a1; t < t1; ++t) {
@@ -490,21 +567,56 @@ flash_attention_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
     if (key >= Skv) continue;
     const int64_t at = (((int64_t)b * Skv + key) * KV + g) * hd;
 #pragma unroll
-    for (int j = 0; j < 8 * NCH; ++j) {
+    for (int j = 0; j < HDP / 8; ++j) {
       const int col = 8 * j + 2 * (lane & 3);
       if (col < hd) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + at + col) =
-            __floats2bfloat162_rn(dkacc[4 * j + 2 * h] * scale,
-                                  dkacc[4 * j + 2 * h + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + at + col) =
-            __floats2bfloat162_rn(dvacc[4 * j + 2 * h],
-                                  dvacc[4 * j + 2 * h + 1]);
+        if constexpr (WANT_DK)
+          *reinterpret_cast<__nv_bfloat162*>(dk + at + col) =
+              __floats2bfloat162_rn(dkacc[4 * j + 2 * h] * scale,
+                                    dkacc[4 * j + 2 * h + 1] * scale);
+        if constexpr (WANT_DV)
+          *reinterpret_cast<__nv_bfloat162*>(dv + at + col) =
+              __floats2bfloat162_rn(dvacc[4 * j + 2 * h],
+                                    dvacc[4 * j + 2 * h + 1]);
       }
     }
   }
 }
 
-template <int NCH>
+// The key-side kernels: one block per (b, KV head, 128 keys).  dK and dV
+// together up to hd 128; past it dV and dK apart.
+#define KEY_SIDE_PARAMS                                                     \
+  const __grid_constant__ CUtensorMap qmap,                                 \
+      const __grid_constant__ CUtensorMap omap,                             \
+      const __grid_constant__ CUtensorMap kmap,                             \
+      const __grid_constant__ CUtensorMap vmap,                             \
+      const float2* __restrict__ lsd, __nv_bfloat16* __restrict__ dk,       \
+      __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H, int KV,       \
+      int hd, int kv_len, int causal, int window, int ntiles, float scale,  \
+      float scale_log2
+#define KEY_SIDE_ARGS                                                       \
+  &qmap, &omap, &kmap, &vmap, lsd, dk, dv, Sq, Skv, H, KV, hd, kv_len,      \
+      causal, window, ntiles, scale, scale_log2
+
+template <int HDP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_bwd_tc_dkdv_kernel(KEY_SIDE_PARAMS) {
+  key_side<HDP, DKDV>(KEY_SIDE_ARGS);
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_bwd_tc_dv_kernel(KEY_SIDE_PARAMS) {
+  key_side<HDP, DV>(KEY_SIDE_ARGS);
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_bwd_tc_dk_kernel(KEY_SIDE_PARAMS) {
+  key_side<HDP, DK>(KEY_SIDE_ARGS);
+}
+
+template <int HDP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                                  const __grid_constant__ CUtensorMap omap,
@@ -515,14 +627,16 @@ flash_attention_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                                  int H, int KV, int hd, int kv_len,
                                  int causal, int window, int ntiles,
                                  float scale, float scale_log2) {
-  using C = BwdCfg<NCH>;
+  using W = Width<HDP>;
+  using C = QCfg<HDP>;
+  constexpr int NCH = W::NCH;
   constexpr int STAGES = C::STAGES;
-  constexpr int NACC = 32 * NCH;     // dQ: 64 rows x 64 NCH columns
+  constexpr int NACC = W::NACC;      // dQ: 64 rows x HDP columns
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint8_t* qs = smem;                  // q [WGS][NCH] boxes, dO [WGS][NCH]
   uint8_t* ring = smem + C::FIXED;     // [STAGES][K NCH boxes, V NCH]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + STAGES * C::STAGE);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + STAGES * W::STAGE);
 
   const int G = H / KV;
   const int P = ROWS / G;
@@ -574,8 +688,8 @@ flash_attention_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap qmap,
         const int s = i % STAGES;
         mbar_wait(smem_u32(&bars[1 + STAGES + s]), ((i / STAGES) & 1) ^ 1);
         const uint32_t full = smem_u32(&bars[1 + s]);
-        mbar_expect_tx(full, C::STAGE);
-        uint8_t* st = ring + s * C::STAGE;
+        mbar_expect_tx(full, W::STAGE);
+        uint8_t* st = ring + s * W::STAGE;
         for (int c = 0; c < NCH; ++c) {
           tma_load_4d(smem_u32(st + c * BOX_BYTES), &kmap, full,
                       c * BOX_COLS, g, t * KT, b);
@@ -635,11 +749,11 @@ flash_attention_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   // Each tile of the run: the score products, P while dP lands, dS, dQ.
   for (int t = a0; t < a1; ++t) {
     const int k0 = t * KT;
-    const uint32_t kaddr = smem_u32(ring + ring_at.stage(t) * C::STAGE);
+    const uint32_t kaddr = smem_u32(ring + ring_at.stage(t) * W::STAGE);
     const uint32_t vaddr = kaddr + NCH * BOX_BYTES;
     ring_at.wait(t);
     float sacc[32], dpacc[32];   // S, dP
-    issue_scores<NCH>(sacc, dpacc, qaddr, kaddr, oaddr, vaddr);
+    issue_scores<W::KSTEPS>(sacc, dpacc, qaddr, kaddr, oaddr, vaddr);
     wgmma_wait<1>();   // S has landed
     fence_regs(sacc);
 
@@ -674,7 +788,7 @@ flash_attention_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     pack_frags(ds, dfrag);
     fence_regs(acc);
     wgmma_fence();
-    product_rs<NCH>(acc, dfrag, kaddr);               // dQ += dS K
+    product_rs<HDP>(acc, dfrag, kaddr);               // dQ += dS K
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -691,7 +805,7 @@ flash_attention_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     __nv_bfloat16* row =
         dq + (((int64_t)b * Sq + qpos[h]) * H + head[h]) * hd;
 #pragma unroll
-    for (int j = 0; j < 8 * NCH; ++j) {
+    for (int j = 0; j < HDP / 8; ++j) {
       const int col = 8 * j + 2 * (lane & 3);
       if (col < hd)
         *reinterpret_cast<__nv_bfloat162*>(row + col) =
@@ -701,13 +815,23 @@ flash_attention_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int NCH>
+// Set a key-side or dQ kernel's shared memory and launch it on `grid`.
+template <typename Kernel, typename... Args>
+int launch_kernel(Kernel kernel, dim3 grid, int smem, cudaStream_t stream,
+                  Args... args) {
+  cudaError_t cerr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (cerr != cudaSuccess) return (int)cerr;
+  kernel<<<grid, THREADS, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <int HDP>
 int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o,
                   const void* dout, const float* lse, float2* lsd, void* dq,
                   void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
                   int hd, int kv_len, int causal, int window, float scale,
                   cudaStream_t stream) {
-  using C = BwdCfg<NCH>;
   const int G = H / KV;
   const int P = ROWS / G;
   const int ntiles = (Sq + P - 1) / P;
@@ -734,42 +858,51 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o,
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), lse, lsd, rows, Sq, H, KV,
       hd, ntiles);
-  cudaError_t cerr = cudaGetLastError();
-  if (cerr != cudaSuccess) return (int)cerr;
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
 
   const float scale_log2 = scale * LOG2E;
-  cerr = cudaFuncSetAttribute(flash_attention_bwd_tc_dkdv_kernel<NCH>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              C::SMEM_KV);
-  if (cerr != cudaSuccess) return (int)cerr;
-  dim3 grid_kv(B * KV, (Skv + WGS * KT - 1) / (WGS * KT));
-  flash_attention_bwd_tc_dkdv_kernel<NCH>
-      <<<grid_kv, THREADS, C::SMEM_KV, stream>>>(
-          qmap, omap, kmap, vmap, lsd, static_cast<__nv_bfloat16*>(dk),
-          static_cast<__nv_bfloat16*>(dv), Sq, Skv, H, KV, hd, kv_len,
-          causal, window, ntiles, scale, scale_log2);
-  cerr = cudaGetLastError();
-  if (cerr != cudaSuccess) return (int)cerr;
+  __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(dk);
+  __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(dv);
+  const dim3 grid_kv(B * KV, (Skv + WGS * KT - 1) / (WGS * KT));
+#define KEY_SIDE_LAUNCH(kernel, part)                                     \
+  launch_kernel(kernel<HDP>, grid_kv, KvCfg<HDP, part>::SMEM, stream, qmap, \
+                omap, kmap, vmap, (const float2*)lsd, dkp, dvp, Sq, Skv, H, \
+                KV, hd, kv_len, causal, window, ntiles, scale, scale_log2)
+  if constexpr (Width<HDP>::NCH <= 2) {
+    err = KEY_SIDE_LAUNCH(flash_attention_bwd_tc_dkdv_kernel, DKDV);
+  } else {
+    err = KEY_SIDE_LAUNCH(flash_attention_bwd_tc_dv_kernel, DV);
+    if (err == 0) err = KEY_SIDE_LAUNCH(flash_attention_bwd_tc_dk_kernel, DK);
+  }
+#undef KEY_SIDE_LAUNCH
+  if (err != 0) return err;
+  const dim3 grid_q(B * KV, (Sq + WGS * P - 1) / (WGS * P));
+  return launch_kernel(flash_attention_bwd_tc_dq_kernel<HDP>, grid_q,
+                       QCfg<HDP>::SMEM, stream, qmap, omap, kmap, vmap,
+                       (const float2*)lsd, static_cast<__nv_bfloat16*>(dq),
+                       Sq, H, KV, hd, kv_len, causal, window, ntiles, scale,
+                       scale_log2);
+}
 
-  cerr = cudaFuncSetAttribute(flash_attention_bwd_tc_dq_kernel<NCH>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              C::SMEM_Q);
-  if (cerr != cudaSuccess) return (int)cerr;
-  dim3 grid_q(B * KV, (Sq + WGS * P - 1) / (WGS * P));
-  flash_attention_bwd_tc_dq_kernel<NCH>
-      <<<grid_q, THREADS, C::SMEM_Q, stream>>>(
-          qmap, omap, kmap, vmap, lsd, static_cast<__nv_bfloat16*>(dq), Sq,
-          H, KV, hd, kv_len, causal, window, ntiles, scale, scale_log2);
-  return (int)cudaGetLastError();
+// The largest dynamic shared memory of the kernels of one width.
+template <int HDP>
+constexpr int smem_of() {
+  const int kv = Width<HDP>::NCH <= 2
+                     ? KvCfg<HDP, DKDV>::SMEM
+                     : (KvCfg<HDP, DV>::SMEM > KvCfg<HDP, DK>::SMEM
+                            ? KvCfg<HDP, DV>::SMEM
+                            : KvCfg<HDP, DK>::SMEM);
+  return kv > QCfg<HDP>::SMEM ? kv : QCfg<HDP>::SMEM;
 }
 
 }  // namespace
 
-// dQ, dK, dV in bf16 (hd a multiple of 8 up to 128, H / KV <= 64) of the
+// dQ, dK, dV in bf16 (hd a multiple of 8 up to 256, H / KV <= 64) of the
 // forward with these masks.  `scratch`: (B, KV, ceil(Sq / P), 64, 2) f32,
 // P = 64 / (H / KV), for the packed rows' (lse log2 e, D).  Three
-// launches on `stream`; returns the first cudaError, -(CUresult) if a
-// tensor map could not be encoded, or 0.
+// launches on `stream` (four past hd 128); returns the first cudaError,
+// -(CUresult) if a tensor map could not be encoded, or 0.
 extern "C" int flash_attention_bwd_tc(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
@@ -781,17 +914,23 @@ extern "C" int flash_attention_bwd_tc(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float2* lsd = static_cast<float2*>(scratch);
-  if (hd <= BOX_COLS)
-    return launch_bwd_tc<1>(q, k, v, o, dout, l, lsd, dq, dk, dv, B, Sq, Skv,
-                            H, KV, hd, kv_len, causal, window, scale, s);
-  return launch_bwd_tc<2>(q, k, v, o, dout, l, lsd, dq, dk, dv, B, Sq, Skv,
-                          H, KV, hd, kv_len, causal, window, scale, s);
+#define LAUNCH_WIDTH(HDP)                                                   \
+  launch_bwd_tc<HDP>(q, k, v, o, dout, l, lsd, dq, dk, dv, B, Sq, Skv, H,   \
+                     KV, hd, kv_len, causal, window, scale, s)
+  if (hd <= 64) return LAUNCH_WIDTH(64);
+  if (hd <= 128) return LAUNCH_WIDTH(128);
+  if (hd <= 160) return LAUNCH_WIDTH(160);
+  if (hd <= 192) return LAUNCH_WIDTH(192);
+  return LAUNCH_WIDTH(256);
+#undef LAUNCH_WIDTH
 }
 
-// The largest dynamic shared memory of the two kernels (the dK / dV
-// kernel's) at this hd, mirrored by flash_attention.bwd_tc_smem_bytes in
-// Python; -1 past hd 128, which this route does not serve.
+// The largest dynamic shared memory of the kernels at this hd, mirrored
+// by flash_attention.bwd_tc_smem_bytes in Python; -1 past hd 256.
 extern "C" int flash_attention_bwd_tc_smem(int hd) {
-  if (hd > MAX_HD) return -1;
-  return hd <= BOX_COLS ? BwdCfg<1>::SMEM_KV : BwdCfg<2>::SMEM_KV;
+  if (hd <= 64) return smem_of<64>();
+  if (hd <= 128) return smem_of<128>();
+  if (hd <= 160) return smem_of<160>();
+  if (hd <= 192) return smem_of<192>();
+  return hd <= 256 ? smem_of<256>() : -1;
 }

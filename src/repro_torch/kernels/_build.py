@@ -59,7 +59,7 @@ SIGNATURES = {
                                 _I, _I, _I, _F, _P],
     "flash_attention_fwd_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _F, _P],
-    "flash_attention_bwd": [_P] * 10 + [_I] * 10 + [_F, _P],
+    "flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_F, _P],
     "flash_attention_bwd_smem": [_I],
     "flash_attention_bwd_tc": [_P] * 10 + [_I] * 9 + [_F, _P],
     "flash_attention_bwd_tc_smem": [_I],

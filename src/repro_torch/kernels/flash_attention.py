@@ -35,14 +35,14 @@ type with each row's log-sum-exp written beside the output, and whose
 backward is :func:`flash_attention_bwd`, on one of two routes
 (:func:`bwd_route`), both bound by operations:
 
-* ``backward_tc`` — bf16 with ``hd <= 128``:
+* ``backward_tc`` — bf16, every width the forward serves:
   ``csrc/flash_attention_bwd_tc.cu``, every product on the tensor cores
   (``wgmma``), q / dO and K / V tiles by TMA, dS rounded to bf16 as a
-  product's operand.
-* ``backward`` — f32, and bf16 past hd 128 (the dK and dV accumulators
-  of a 64-key warpgroup and its two score tiles would exceed 255
-  registers a thread): ``csrc/flash_attention_bwd.cu``, on the CUDA
-  cores in f32.
+  product's operand.  Past hd 128 dV and dK come from two kernels (a
+  64-key warpgroup's two accumulators and two score tiles would exceed
+  its 240 registers).
+* ``backward`` — f32: ``csrc/flash_attention_bwd.cu``, on the CUDA cores
+  in f32.
 
 The reference has no backward kernel: it differentiates its plain
 attention, which the CPU route here does in
@@ -67,8 +67,6 @@ DECODE_BLOCK_K = 32     # keys per decode tile
 MAX_HEAD_DIM = 256
 # The tensor-core prefill packs (q position, head) pairs into 64 rows.
 MAX_TC_GROUP = 64
-# The widest head the tensor-core backward serves.
-MAX_TC_BWD_HEAD_DIM = 128
 # Shared memory a block may ask for on the H100 (227 KB).
 SMEM_LIMIT = 232448
 # The decode kernel's most splits of one (batch, KV head): they form one
@@ -91,11 +89,10 @@ def route(dtype: torch.dtype, sq: int, with_lse: bool = False) -> str:
 
 
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
-    """The backward kernel that serves a call on the card:
-    ``backward_tc`` for bf16 up to hd 128, else ``backward``."""
-    if dtype == torch.bfloat16 and hd <= MAX_TC_BWD_HEAD_DIM:
-        return "backward_tc"
-    return "backward"
+    """The backward kernel that serves a call on the card at any width
+    ``hd`` the forward serves: ``backward_tc`` for bf16, ``backward`` for
+    f32."""
+    return "backward_tc" if dtype == torch.bfloat16 else "backward"
 
 
 def tc_smem_bytes(hd: int) -> int:
@@ -120,22 +117,43 @@ def bwd_smem_bytes(hd: int) -> int:
                 + 2 * rows * (BLOCK_K + 4) + 2 * BLOCK_K)
 
 
-def bwd_tc_smem_bytes(hd: int) -> int:
-    """Dynamic shared memory of the tensor-core backward's dK / dV kernel,
-    the larger of its two (its ``BwdCfg::SMEM_KV``): 1024 bytes of
-    alignment slack, the K and V tiles of two warpgroups, a ring of q + dO
-    stages (4 at one box of 64 columns, 3 at two) with 512 bytes of
-    (lse, D) pairs each, in boxes of 64 rows x 128 bytes per 64 columns
-    of hd, and the mbarriers.  Raises past hd 128, which that route does
-    not serve."""
-    if hd > MAX_TC_BWD_HEAD_DIM:
+def bwd_tc_width(hd: int) -> int:
+    """The width the tensor-core backward's instantiation for ``hd``
+    covers (its ``Width``): 64, 128, 160, 192 or 256."""
+    if not 0 < hd <= MAX_HEAD_DIM:
         raise ValueError(f"the tensor-core backward serves hd up to "
-                         f"{MAX_TC_BWD_HEAD_DIM}, not {hd}")
-    boxes = -(-hd // 64)
-    stages = 4 if boxes == 1 else 3
-    box = 64 * 128
-    return 1024 + 4 * boxes * box + stages * (2 * boxes * box + 512) \
-        + 8 * (1 + 2 * stages)
+                         f"{MAX_HEAD_DIM}, not {hd}")
+    return next(w for w in (64, 128, 160, 192, 256) if hd <= w)
+
+
+def bwd_tc_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of the tensor-core backward, the largest of
+    its kernels at ``hd`` (the C entry ``flash_attention_bwd_tc_smem``):
+    1024 bytes of alignment slack, resident tiles, a ring of stages and
+    the mbarriers, in boxes of 64 rows x 128 bytes per 64 columns of
+    :func:`bwd_tc_width`.  Up to hd 128 the dK / dV kernel (K and V of two
+    warpgroups, 4 or 3 q + dO stages with 512 bytes of (lse, D) pairs
+    each) and the dQ kernel (q and dO, as many K + V stages); past it the
+    dV kernel (K only), the dK kernel (K and V) and the dQ kernel, each
+    with the most stages, up to 3, that fit :data:`SMEM_LIMIT`."""
+    boxes = -(-bwd_tc_width(hd) // 64)
+    box, lsd = 64 * 128, 512
+    stage = 2 * boxes * box
+
+    def smem(fixed: int, per: int, stages: int) -> int:
+        return 1024 + fixed + stages * per + 8 * (1 + 2 * stages)
+
+    if boxes <= 2:
+        return smem(4 * boxes * box, stage + lsd, 4 if boxes == 1 else 3)
+    sizes = []
+    for fixed, per in ((2 * boxes * box, stage + lsd),   # dV
+                       (4 * boxes * box, stage + lsd),   # dK
+                       (4 * boxes * box, stage)):        # dQ
+        stages = 3
+        while stages > 1 and smem(fixed, per, stages) > SMEM_LIMIT:
+            stages -= 1
+        sizes.append(smem(fixed, per, stages))
+    return max(sizes)
 
 
 def decode_rows(group: int) -> int:
@@ -485,8 +503,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
         err = lib.flash_attention_bwd(*pointers, delta.data_ptr(), *outs,
-                                      _DTYPE_CODE[q.dtype], b, sq, skv, h,
-                                      kvh, hd, *masks)
+                                      b, sq, skv, h, kvh, hd, *masks)
     _build.check(err, f"flash_attention ({which})")
     flash_attention.launches += 1
     flash_attention.route_launches[which] += 1

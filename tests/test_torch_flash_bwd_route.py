@@ -2,13 +2,13 @@
 
 ``flash_attention.bwd_route`` names the kernel that serves a backward on
 the card: ``backward_tc`` (``csrc/flash_attention_bwd_tc.cu``, the tensor
-cores) for bf16 up to hd 128, ``backward`` (``csrc/flash_attention_bwd.cu``,
-the CUDA cores) for f32 and for wider heads.  The tensor-core kernel's
-shared memory (``bwd_tc_smem_bytes``, the mirror of the C entry
-``flash_attention_bwd_tc_smem``) fits the H100 at every width it serves,
-and each route has its launch count.  CPU tensors take the plain
-backward whatever the route; the kernels themselves are held against it
-on the card (``tests/test_torch_flash_grad_card.py``).
+cores) for bf16 at every width the forward serves (multiples of 8 up to
+256), ``backward`` (``csrc/flash_attention_bwd.cu``, the CUDA cores) for
+f32.  The tensor-core kernels' shared memory (``bwd_tc_smem_bytes``, the
+mirror of the C entry ``flash_attention_bwd_tc_smem``) fits the H100 at
+every width, and each route has its launch count.  CPU tensors take the
+plain backward whatever the route; the kernels themselves are held
+against it on the card (``tests/test_torch_flash_grad_card.py``).
 """
 
 import numpy as np
@@ -18,7 +18,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 
-HEAD_DIMS = (64, 120, 128, 136, 160, 256)
+# Every width the forward serves.
+HEAD_DIMS = tuple(range(8, 257, 8))
 
 
 @pytest.fixture
@@ -34,22 +35,34 @@ def one_thread():
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_route_by_dtype_and_width(one_thread, dtype, hd):
-    want = "backward_tc" if dtype == torch.bfloat16 and hd <= 128 \
-        else "backward"
+    want = "backward_tc" if dtype == torch.bfloat16 else "backward"
     assert tfa.bwd_route(dtype, hd) == want
 
 
 def test_bwd_tc_smem_fits_every_width_it_serves(one_thread):
     served = [hd for hd in range(8, tfa.MAX_HEAD_DIM + 1, 8)
               if tfa.bwd_route(torch.bfloat16, hd) == "backward_tc"]
-    assert served == list(range(8, 129, 8))
+    assert served == list(HEAD_DIMS)
     for hd in served:
         assert 0 < tfa.bwd_tc_smem_bytes(hd) <= tfa.SMEM_LIMIT, hd
-    # One box of 64 columns: 4 stages; two boxes: 3.
+    # One box of 64 columns: 4 stages; two boxes: 3 (one dK / dV kernel).
     assert tfa.bwd_tc_smem_bytes(64) == 101448
     assert tfa.bwd_tc_smem_bytes(120) == tfa.bwd_tc_smem_bytes(128) == 166456
-    with pytest.raises(ValueError, match="up to 128"):
-        tfa.bwd_tc_smem_bytes(136)
+    # Past two boxes the largest is the dV kernel's (K of two warpgroups):
+    # 3 stages at three boxes, 2 at four.
+    assert tfa.bwd_tc_smem_bytes(160) == 199224
+    assert tfa.bwd_tc_smem_bytes(256) == 198696
+    with pytest.raises(ValueError, match="up to 256"):
+        tfa.bwd_tc_smem_bytes(264)
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_bwd_tc_width_covers_hd(one_thread, hd):
+    """Each width runs the instantiation of the next of 64, 128, 160, 192
+    and 256 at or above it (columns past hd are zeros)."""
+    width = tfa.bwd_tc_width(hd)
+    assert width in (64, 128, 160, 192, 256) and width >= hd
+    assert not [w for w in (64, 128, 160, 192, 256) if hd <= w < width]
 
 
 def test_route_launches_count_both_backward_routes(one_thread):
@@ -59,11 +72,11 @@ def test_route_launches_count_both_backward_routes(one_thread):
                            "backward_tc"}
 
 
-@pytest.mark.parametrize("hd", [64, 120, 160])
+@pytest.mark.parametrize("hd", [64, 120, 160, 256])
 def test_cpu_backward_is_the_plain_version_on_either_route(one_thread, hd):
     """A CPU call launches nothing and gives the plain backward, in bf16
-    at a width the card serves on the tensor cores and at one it serves
-    on the CUDA cores."""
+    at widths the card serves with dK and dV in one kernel (64, 120) and
+    in two (160, 256)."""
     rng = np.random.default_rng(hd)
     b, sq, h, kvh = 2, 37, 8, 2
     q, do = (torch.from_numpy(rng.standard_normal((b, sq, h, hd),

@@ -11,7 +11,9 @@ kernels.  Held here:
   Skv) / ``kv_len`` masks, G in {1, 2, 4} and hd in {64, 120}: f32 within
   1e-6 of each gradient's largest (the same f32 formulas, another order);
 * the port's attention gradient against ``jax.grad`` of the reference's
-  ``attend_full`` (q chunked by ``attn_chunk``): f32 within 1e-5 of the
+  ``attend_full`` (q chunked by ``attn_chunk``) at hd 64 and at
+  stablelm-12b's hd 160 (the widths whose bf16 backward the card serves
+  with dK and dV in one kernel and in two): f32 within 1e-5 of the
   largest; bf16 at the reference's kernel-test limit (rtol = atol =
   2e-2), P rounded to bf16 for ``p . v`` on both sides;
 * the Functions' ``vmap`` rules: ``vmap(grad)`` over a client axis equals
@@ -20,8 +22,10 @@ kernels.  Held here:
   reference's ``loss_fn`` at ``reduced(num_layers=2)``: h2o-danube-3-4b
   at 256 positions (its window of 128 binds), qwen3-14b (qk_norm),
   mixtral-8x22b (MoE and a window), qwen2-vl-72b (M-RoPE positions of an
-  image grid) and whisper-small (``encoder_inputs``: the encoder's
-  non-causal attention and cross-attention); rtol 1e-4 with a floor of
+  image grid), whisper-small (``encoder_inputs``: the encoder's
+  non-causal attention and cross-attention) and stablelm-12b at its hd
+  160 (``head_dim=160``: partial rotary over 40 of them, LayerNorm);
+  rtol 1e-4 with a floor of
   1e-4 of each leaf's largest (``test_torch_xlstm.py``'s limit), of the
   model's largest for a key bias (its gradient is 0: softmax ignores a
   constant added to a row);
@@ -132,14 +136,16 @@ def _jax_attn_grads(q, k, v, do, kw, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("mask", ["causal", "window", "cross"])
+@pytest.mark.parametrize("mask", ["causal", "window", "cross", "causal-hd160",
+                                  "cross-hd160"])
 def test_attention_gradient_matches_jax(one_thread, mask, dtype):
-    """q (B, Sq, 8, 64), k / v (B, Skv, 2, 64): the reference's
-    ``attend_full`` (its KV repeated, q in chunks of 16) under
-    ``jax.grad`` against the port's ``flash_attention`` under autograd,
-    on the same inputs and output cotangent."""
+    """q (B, Sq, 8, hd), k / v (B, Skv, 2, hd), hd 64 or (``-hd160``)
+    160: the reference's ``attend_full`` (its KV repeated, q in chunks of
+    16) under ``jax.grad`` against the port's ``flash_attention`` under
+    autograd, on the same inputs and output cotangent."""
+    mask, _, width = mask.partition("-hd")
     sq, skv, kw = MASKS[mask]
-    q, k, v, do = _qkv(sq, skv, 8, 2, 64, 3)
+    q, k, v, do = _qkv(sq, skv, 8, 2, int(width or 64), 3)
     if dtype == "bfloat16":
         q, k, v = (x.astype(ml_dtypes.bfloat16).astype(np.float32)
                    for x in (q, k, v))
@@ -229,7 +235,11 @@ STEP_CASES = {
     "mixtral_8x22b": (2, 32, ()),
     "qwen2_vl_72b": (2, 32, ("positions",)),
     "whisper_small": (2, 32, ("encoder_inputs",)),
+    "stablelm_12b": (2, 32, ()),
 }
+# ``reduced`` overrides past ``num_layers=2``: stablelm-12b keeps its
+# published head width (reduced() would cut it to 64).
+STEP_WIDTHS = {"stablelm_12b": dict(head_dim=160)}
 
 
 def _step_batch(jcfg, b, s, extras, seed):
@@ -265,7 +275,8 @@ def _by_path(jtree, ttree):
 @pytest.mark.parametrize("arch", sorted(STEP_CASES))
 def test_train_step_gradients_match_jax(one_thread, arch):
     b, s, extras = STEP_CASES[arch]
-    jcfg = jconfigs.get(arch).reduced(num_layers=2)
+    jcfg = jconfigs.get(arch).reduced(num_layers=2,
+                                      **STEP_WIDTHS.get(arch, {}))
     params, tp, tcfg = _pair(jcfg, seed=1)
     batch = _step_batch(jcfg, b, s, extras, seed=2)
     if arch == "h2o_danube_3_4b":

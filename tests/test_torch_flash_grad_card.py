@@ -11,15 +11,18 @@ no JAX (``pytest tests/test_torch_flash_grad_card.py -k on_card``):
   and not a multiple of one, one query row (the prefill kernels, which
   write the lse, at any Sq) against G = 16 and G = 5, a ragged last
   packed tile at hd 120 (Sq 300, G = 4: 16 positions a tile) with
-  ``kv_len`` 280, and G = 64 at hd 64 (one position a packed tile).
-  Each call launches once, through its ``bwd_route``: the tensor-core
-  kernel (``csrc/flash_attention_bwd_tc.cu``, route ``backward_tc``) for
-  bf16 up to hd 128, the CUDA-core kernel (``csrc/flash_attention_bwd.cu``,
-  route ``backward``) for f32 and for hd 160 and 256.  The keys and values past ``kv_len`` are NaN
-  for the kernels' forward (its output must stay finite) and backward,
-  each launched after a NaN fill of shared memory (the plain version
-  gets them zeroed: its products would carry the NaN through their zero
-  weights).  f32 within 1e-4 and bf16 within 2e-2 of each
+  ``kv_len`` 280, G = 64 at hd 64 (one position a packed tile), and the
+  widths past 128 whose dK and dV come from two kernels: hd 136 (G = 5,
+  a window, ``kv_len < Skv``), 192 (``kv_len < Skv``, Sq != Skv) and 256
+  (G = 5, a window).  Each call launches once, through its
+  ``bwd_route``: the tensor-core kernels
+  (``csrc/flash_attention_bwd_tc.cu``, route ``backward_tc``) for bf16 at
+  every width, the CUDA-core kernel (``csrc/flash_attention_bwd.cu``,
+  route ``backward``) for f32.  The keys and values past ``kv_len`` are
+  NaN for the kernels' forward (its output must stay finite) and
+  backward, each launched after a NaN fill of shared memory (the plain
+  version gets them zeroed: its products would carry the NaN through
+  their zero weights).  f32 within 1e-4 and bf16 within 2e-2 of each
   gradient's largest magnitude;
 * the forward's row log-sum-exp (both prefill kernels) against
   ``flash_attention_plain(..., with_lse=True)``, and +inf on rows that
@@ -56,6 +59,9 @@ SHAPES = [
     ((3, 65, 65, 5, 1, 160), dict(causal=True, window=50)),
     ((2, 300, 300, 16, 4, 120), dict(causal=True, window=0, kv_len=280)),
     ((1, 70, 70, 64, 1, 64), dict(causal=True, window=0)),
+    ((1, 150, 150, 10, 2, 136), dict(causal=True, window=40, kv_len=140)),
+    ((2, 130, 140, 8, 2, 192), dict(causal=True, window=0, kv_len=120)),
+    ((1, 200, 200, 10, 2, 256), dict(causal=True, window=64)),
 ]
 
 
@@ -95,7 +101,7 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, case):
     assert bool(o.isfinite().all()) and not bool(lse.isnan().any())
     route = tfa.bwd_route(dtype, shape[-1])
     assert route == ("backward_tc" if dtype == torch.bfloat16
-                     and shape[-1] <= 128 else "backward")
+                     else "backward")
     routes = tfa.flash_attention.route_launches
     before = dict(routes)
     _check.fill_shared_memory(cuda_device)
