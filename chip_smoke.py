@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --moe-prefill   # paths 15-17's prefill alone
     python3 chip_smoke.py --flash-bwd     # the flash backward and path 21
+    python3 chip_smoke.py --launch        # path 21, paths 22-23, path 12's
+                                          # scenario-mesh walks
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc/`` and runs,
 each phase failing the script on error:
@@ -122,7 +124,13 @@ each phase failing the script on error:
     just before it, the chunk walk's) and stops a runner after one chunk
     (``max_chunks=1``, checkpoint under ``build/sweep/``) and resumes it
     with a new engine: summaries bit for bit the uninterrupted run's,
-    the JSONL one line a chunk, cursors 1-4;
+    the JSONL one line a chunk, cursors 1-4.  Then the sweep through the
+    engine's own chunks on two scenario meshes (``launch.mesh``): the
+    card's one-device mesh, whose summaries equal the unsharded walk's
+    bit for bit (the same call), and two entries over the same card,
+    each chunk of 8 run as 4 + 4, held at the limits above (the counts
+    equal, the objective within rel 1e-3, accuracy within 5e-3); the
+    wall of each walk is printed;
 13. path 14, xlstm-125m served at its published width and depth (12
     layers alternating sLSTM / mLSTM, d_model 768, 162,317,616
     parameters, seeded random bf16 weights): B = 4, a 2048-token prompt
@@ -210,7 +218,20 @@ each phase failing the script on error:
     checked), the profiled step's idle share and the backward kernels'
     share of the device time; then stablelm at ``reduced(num_layers=2,
     head_dim=160)`` card against CPU in bf16 compute: one plain step's
-    gradients within 3e-2 of each leaf's largest.
+    gradients within 3e-2 of each leaf's largest;
+19. path 22, the quickstart (``examples/quickstart_torch.py``) on the
+    card, in a process of its own: exit code 0, and its diversity index
+    within 1e-6 of the same script's on the CPU (``--device cpu``, run
+    beside it);
+20. path 23, the dry-run planner (``repro_torch.launch.dryrun``)
+    against the card: ``lower_one`` of path 21's own configuration on a
+    1x1 mesh (stablelm-12b, 2 layers, 8 x 1024 int64 tokens, AdamW, bf16
+    compute) must count as argument bytes exactly the bytes that path
+    21's live parameters, optimizer state and batch hold on the card; its
+    FLOPs over path 21's warm step are printed as TFLOP/s.  Then one
+    production record, qwen3-14b x train_4k at 16x16 and at 2x16x16
+    (abstract meshes, nothing allocated): per-device argument bytes,
+    FLOPs, the planned collectives and the wall.
 
 The kernel phase first prints, from ``cuobjdump -sass``, the size and
 the atomic instructions of the ``stream_update``, ``diversity`` and
@@ -3434,7 +3455,8 @@ def phase_sweep(torch, dev, data, wcfg, path7_round: float,
     os.makedirs(os.path.join(ROOT, "build", "sweep"), exist_ok=True)
     t_phase = time.perf_counter()
     spec, model = sweep_setup(torch, wcfg)
-    eng = engine_lib.SweepEngine(spec, model=model, data=data, device=dev)
+    eng = engine_lib.SweepEngine(spec, model=model, data=data,
+                                 use_sharding=False, device=dev)
     rounds = spec.fl.num_rounds
     sweep_walk(torch, eng, model, "first")
     aggs, rows = sweep_walk(torch, eng, model, "warm")
@@ -3475,8 +3497,70 @@ def phase_sweep(torch, dev, data, wcfg, path7_round: float,
         want.update(r["counts"])
     sweep_kill_resume(torch, eng, model,
                       {name: want[name] for name in rows[0]["counts"]})
+    sweep_mesh_walks(torch, dev, data, spec, model, summaries,
+                     sum(r["wall"] for r in rows), smi)
     print(f"[path 12] phase wall {time.perf_counter() - t_phase:.1f}s",
           flush=True)
+
+
+# The summaries' statistics held between the sweep's walks: the counts
+# exactly, round time and energy relative, accuracy absolute.
+SWEEP_LIMITS = {"round.accuracy": SWEEP_ACC_TOL,
+                "scalar.final_accuracy": SWEEP_ACC_TOL,
+                "round.round_time": SWEEP_OBJ_RTOL,
+                "round.energy_total": SWEEP_OBJ_RTOL,
+                **{f"round.{n}": 0.0 for n in SWEEP_COUNTS}}
+
+
+def sweep_mesh_walks(torch, dev, data, spec, model, want: dict,
+                     unsharded_wall: float, smi: str) -> None:
+    """Path 12 through ``SweepEngine.run_point`` (its chunks split over a
+    scenario mesh) on the card's one-device mesh, bit for bit the
+    unsharded walk's summaries ``want`` (the same call), and on two
+    entries over the same card (each chunk of 8 as 4 + 4), at
+    SWEEP_LIMITS; the wall and launches of each walk."""
+    import numpy as np
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sweep import engine as engine_lib
+    for label, mesh in (("one-device", mesh_lib.make_scenario_mesh()),
+                        ("two-entry", mesh_lib.Mesh(("scenario",), (2,),
+                                                    (dev, dev)))):
+        eng = engine_lib.SweepEngine(spec, model=model, data=data,
+                                     mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = {p.index: engine_lib.aggregate_summary(eng.run_point(p))
+               for p in eng.points}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        worst, exact = {}, True
+        for p, names in want.items():
+            for name, fields in names.items():
+                for field, value in fields.items():
+                    g = np.asarray(got[p][name][field], np.float64)
+                    w = np.asarray(value, np.float64)
+                    exact &= bool(np.array_equal(g, w, equal_nan=True))
+                    if name in SWEEP_LIMITS and field in ("mean", "min",
+                                                          "max"):
+                        diff = np.abs(g - w)
+                        if name.endswith(("round_time", "energy_total")):
+                            diff = diff / np.maximum(np.abs(w), 1e-30)
+                        worst[name] = max(worst.get(name, 0.0),
+                                          float(np.nanmax(diff)))
+        split = [n for _, n, _ in eng.groups(SWEEP_CHUNK)]
+        gaps = ", ".join(f"{n} {v:.3g}" for n, v in worst.items())
+        print(f"[path 12] scenario mesh {label} {mesh.shape} on {dev}: "
+              f"chunks of {SWEEP_CHUNK} as {split}; walk {wall:.3f}s "
+              f"against the unsharded warm walk's {unsharded_wall:.3f}s; "
+              f"launches {counts}; summaries bit for bit the unsharded "
+              f"walk's: {exact}; largest difference by metric {gaps}; "
+              f"{smi}", flush=True)
+        over = {n: v for n, v in worst.items() if not v <= SWEEP_LIMITS[n]}
+        if (label == "one-device" and not exact) or over:
+            raise AssertionError(f"path 12 {label} scenario mesh: bit for "
+                                 f"bit {exact}, over the limits {over}")
 
 
 # Paths 13-14: xlstm-125m (arXiv 2405.04517 as the registry builds it: 12
@@ -5158,12 +5242,16 @@ def phase_danube_card_vs_cpu(torch, dev) -> None:
         raise AssertionError(f"danube card vs CPU: {err}, routes {routed}")
 
 
-def phase_stablelm_train(torch, dev, smi: str) -> dict:
+def phase_stablelm_train(torch, dev, smi: str,
+                         keep: dict | None = None) -> dict:
     """Path 21: the plain trainer on stablelm-12b at its published widths,
     STABLELM_LAYERS layers (``launch.train``'s own setup and batch), every
     layer's attention backward through the tensor-core route at hd 160.
     Returns the launch counts of its STABLELM_STEPS steps, with the
-    kernels line's ``flash_attention_bwd_hd160`` count."""
+    kernels line's ``flash_attention_bwd_hd160`` count.  ``keep`` gets
+    what path 23 plans against: the configurations, the warm step's wall
+    and the bytes the live parameters, optimizer state and last batch
+    hold on the card."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train
     from repro_torch.models import transformer
@@ -5190,10 +5278,13 @@ def phase_stablelm_train(torch, dev, smi: str) -> dict:
           f"{STABLELM_BATCH} x {STABLELM_SEQ} tokens; set up in "
           f"{setup_s:.2f}s", flush=True)
 
+    batches = []
+
     def iteration() -> tuple:
         t0 = time.perf_counter()
         batch = train.driver_batch(gen, STABLELM_BATCH, STABLELM_SEQ,
                                    cfg.vocab_size)
+        batches[:] = [batch]
         state[0], metrics = step(state[0], batch)
         ce = float(metrics["ce"])
         return time.perf_counter() - t0, ce
@@ -5244,7 +5335,12 @@ def phase_stablelm_train(torch, dev, smi: str) -> dict:
           f"forward {fwd_us / 1e3:.2f} ms = {fwd_us / busy:.4f}; "
           f"{prof['launches']} launches ({prof['device_ops']} device "
           f"operations); {smi}", flush=True)
-    del state
+    if keep is not None:
+        from repro_torch.tree import tree_leaves
+        keep.update(cfg=cfg, ocfg=ocfg, warm=walls[1], live_bytes=sum(
+            t.nbytes for t in tree_leaves(state[0]) + tree_leaves(
+                batches[0])))
+    del state, batches
     torch.cuda.empty_cache()
     return dict(counts, flash_attention_bwd_hd160=routes["backward_tc"])
 
@@ -5296,6 +5392,113 @@ def phase_stablelm_card_vs_cpu(torch, dev) -> None:
             and routed == want):
         raise AssertionError(f"stablelm card vs CPU: {rels[worst]}, routes "
                              f"{routed}")
+
+
+# Path 22: the quickstart's diversity index on the card against the same
+# script's on the CPU.
+QUICKSTART_INDEX_TOL = 1e-6
+
+
+def quickstart_index(out: str) -> list:
+    """The diversity index the quickstart prints."""
+    for line in out.splitlines():
+        if line.startswith("diversity index:"):
+            return [float(v) for v in line.split(":", 1)[1].split()]
+    raise AssertionError(f"path 22: no diversity index in {out!r}")
+
+
+def phase_quickstart(torch) -> None:
+    """Path 22: ``examples/quickstart_torch.py`` on the card, a process of
+    its own, beside the same script with ``--device cpu``: both exit 0,
+    the two indices within QUICKSTART_INDEX_TOL."""
+    script = os.path.join(ROOT, "examples", "quickstart_torch.py")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = {where: subprocess.Popen(
+        [sys.executable, script] + args, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for where, args in (("card", []), ("cpu", ["--device", "cpu"]))}
+    outs = {}
+    for where, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode:
+            raise AssertionError(f"path 22 ({where}) exited "
+                                 f"{proc.returncode}: {err[-2000:]}")
+        outs[where] = out
+    wall = time.perf_counter() - t0
+    card, cpu = (quickstart_index(outs[w]) for w in ("card", "cpu"))
+    gap = max(abs(a - b) for a, b in zip(card, cpu))
+    rounds = [ln for ln in outs["card"].splitlines()
+              if ln.startswith(("selected", "round"))]
+    print(f"[path 22] quickstart on the card and on the CPU in {wall:.2f}s "
+          f"(two processes side by side): index of {len(card)} devices, "
+          f"largest card-CPU gap {gap:.3g} (limit {QUICKSTART_INDEX_TOL:g}); "
+          f"card: {'; '.join(rounds)}", flush=True)
+    if len(card) != 16 or len(cpu) != 16 or not gap <= QUICKSTART_INDEX_TOL:
+        raise AssertionError(f"path 22: card index {card}, CPU {cpu}")
+
+
+def phase_dryrun(torch, dev, path21: dict, smi: str) -> None:
+    """Path 23: ``launch.dryrun.lower_one`` of path 21's configuration on
+    a 1x1 mesh of the card, its argument bytes exactly the bytes of path
+    21's live state and batch, and its FLOPs over path 21's warm step;
+    then qwen3-14b x train_4k on both production meshes."""
+    from repro_torch import configs
+    from repro_torch.configs import shapes
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+    mesh = mesh_lib.Mesh(("data", "model"), (1, 1), (dev,))
+    shape = shapes.InputShape("path21", STABLELM_SEQ, STABLELM_BATCH,
+                              "train")
+    rec = dryrun.lower_one(path21["cfg"], shape, mesh, ocfg=path21["ocfg"],
+                           verbose=False, token_dtype=torch.int64)
+    args = rec["memory"]["argument_size_in_bytes"]
+    flops = rec["cost"]["flops"]
+    print(f"[path 23] lower_one({path21['cfg'].name}, {STABLELM_LAYERS} "
+          f"layers, {STABLELM_BATCH} x {STABLELM_SEQ} int64 tokens, 1x1 "
+          f"mesh): argument bytes {args:.0f} against path 21's live state "
+          f"and batch {path21['live_bytes']} (equal: "
+          f"{args == path21['live_bytes']}); {flops:.4e} FLOPs over the "
+          f"warm step's {path21['warm']:.3f}s = "
+          f"{flops / path21['warm'] / 1e12:.1f} TFLOP/s; plan "
+          f"{rec['lower_s'] + rec['compile_s']:.2f}s; {smi}", flush=True)
+    if args != path21["live_bytes"]:
+        raise AssertionError(f"path 23: argument bytes {args}, live "
+                             f"{path21['live_bytes']}")
+    cfg = configs.get("qwen3_14b")
+    for multi_pod in (False, True):
+        t0 = time.perf_counter()
+        rec = dryrun.lower_one(cfg, shapes.get_shape("train_4k"),
+                               mesh_lib.make_production_mesh(
+                                   multi_pod=multi_pod), verbose=False)
+        coll = rec["collectives"]
+        print(f"[path 23] {cfg.name} x train_4k x {rec['mesh']}: argument "
+              f"{rec['memory']['argument_size_in_bytes']:.0f} bytes a "
+              f"device, {rec['cost']['flops']:.4e} FLOPs a device, "
+              f"microbatches {rec['microbatches']}, planned collectives "
+              f"{coll['total_bytes'] / 1e9:.3f} GB {coll['counts']}; wall "
+              f"{time.perf_counter() - t0:.2f}s", flush=True)
+        if not (rec["memory"]["argument_size_in_bytes"] > 0
+                and math.isfinite(rec["cost"]["flops"])
+                and rec["cost"]["flops"] > 0):
+            raise AssertionError(f"path 23: record {rec}")
+
+
+def phase_launch(torch, dev, data, wcfg, smi: str, path21: dict) -> None:
+    """Paths 22 and 23 (after path 21, whose ``keep`` is ``path21``), and
+    path 12's scenario-mesh walks against one unsharded walk where path
+    12 did not run."""
+    phase_dryrun(torch, dev, path21, smi)
+    phase_quickstart(torch)
+    if data is not None:
+        from repro_torch.sweep import engine as engine_lib
+        spec, model = sweep_setup(torch, wcfg)
+        eng = engine_lib.SweepEngine(spec, model=model, data=data,
+                                     use_sharding=False, device=dev)
+        aggs, rows = sweep_walk(torch, eng, model, "unsharded")
+        sweep_mesh_walks(torch, dev, data, spec, model,
+                         {p: engine_lib.aggregate_summary(a)
+                          for p, a in aggs.items()},
+                         sum(r["wall"] for r in rows), smi)
 
 
 KERNELS = {
@@ -5366,6 +5569,14 @@ def main() -> int:
         phase_flash_bwd(torch, dev)
         phase_stablelm_train(torch, dev, smi)
         phase_stablelm_card_vs_cpu(torch, dev)
+        return 0
+    if sys.argv[1:] == ["--launch"]:
+        path21 = {}
+        phase_stablelm_train(torch, dev, smi, path21)
+        data, _, wcfg = full_width_world(torch, dev)
+        phase_launch(torch, dev, data, wcfg, smi, path21)
+        print(f"[time] chip_smoke --launch ran "
+              f"{time.perf_counter() - t_start:.1f}s", flush=True)
         return 0
 
     compress_smem_mirror()
@@ -5479,8 +5690,10 @@ def main() -> int:
     phase_xlstm_card_vs_cpu(torch, dev)
     by_path[20] = phase_danube_train(torch, dev, smi)
     phase_danube_card_vs_cpu(torch, dev)
-    by_path[21] = phase_stablelm_train(torch, dev, smi)
+    path21 = {}
+    by_path[21] = phase_stablelm_train(torch, dev, smi, path21)
     phase_stablelm_card_vs_cpu(torch, dev)
+    phase_launch(torch, dev, None, wcfg, smi, path21)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=by_path[owner[name]][re.sub(

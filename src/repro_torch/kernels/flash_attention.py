@@ -61,6 +61,12 @@ import torch
 
 from repro_torch.kernels import _build, _check
 
+# Tensors that take the plain versions: the CPU's, and shape-only
+# ``meta`` ones (the dry-run planner runs a step on them; they hold no
+# data, so nothing is computed and nothing is hidden).  A CUDA tensor
+# launches the kernel or raises.
+PLAIN_DEVICES = ("cpu", "meta")
+
 NEG_INF = -1e30
 BLOCK_K = 64            # keys per prefill tile, as in the CUDA sources
 DECODE_BLOCK_K = 32     # keys per decode tile
@@ -349,7 +355,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Softmax attention with causal / sliding-window / validity masks.
 
     q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), ``H % KV == 0``;
-    ``kv_len`` (default ``Skv``) is a host int.  CPU tensors take
+    ``kv_len`` (default ``Skv``) is a host int.  CPU and meta tensors take
     :func:`flash_attention_plain`; CUDA tensors launch the kernel of
     :func:`route` (f32 or bf16, contiguous, 16-byte aligned, ``hd`` a
     multiple of 8 up to 256) or raise.  With grad enabled and q, k or v
@@ -400,7 +406,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     card one launch of :func:`route`'s kernel, or with the lse of the
     prefill kernel of the type at any Sq (the decode kernel writes
     none)."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         got = flash_attention_plain(q, k, v, causal=causal, window=window,
                                     kv_len=kv_len, with_lse=with_lse)
         return got if with_lse else (got, None)
@@ -457,13 +463,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention` at (q, k, v) with output
     ``o``, its rows' log-sum-exp ``lse`` (B, H, Sq) f32 and the output's
-    gradient ``do``.  CPU tensors take :func:`flash_attention_bwd_plain`;
-    CUDA tensors launch the kernel of :func:`bwd_route` (the checks of
-    the forward; o and do as q, contiguous) or raise.  One launch on the
+    gradient ``do``.  CPU and meta tensors take
+    :func:`flash_attention_bwd_plain`; CUDA tensors launch the kernel of
+    :func:`bwd_route` (the checks of the forward; o and do as q,
+    contiguous) or raise.  One launch on the
     card is counted in ``flash_attention.launches`` and under its
     route."""
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window, kv_len=kv_len)
     _check_shapes(q, k, kv_len)

@@ -89,7 +89,8 @@ def _chunk_loss(xc: Tensor, lc: Tensor, head: Tensor,
         logits = softcap * torch.tanh(logits / softcap)
     logits = logits.to(F32)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, lc[..., None], dim=-1)[..., 0]
+    # Labels in int64, or the reference's int32 as the dry run feeds them.
+    gold = torch.take_along_dim(logits, lc.long()[..., None], dim=-1)[..., 0]
     return torch.sum(lse - gold)
 
 
@@ -141,11 +142,14 @@ def init_train_state(gen: torch.Generator, cfg: ModelConfig,
 def _grads(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig
            ) -> Tuple[Dict[str, Tensor], Params]:
     """``loss_fn``'s metrics and gradient at ``params`` (autograd, the
-    chunks rematerialized)."""
+    chunks rematerialized); a leaf the loss does not read (the token
+    table of a model fed embeddings) gets a zero gradient, as
+    ``jax.grad`` gives it."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
         total, metrics = loss_fn(tree_unflatten(params, leaves), batch, cfg)
-        grads = torch.autograd.grad(total, leaves)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True,
+                                    materialize_grads=True)
     return ({k: v.detach() for k, v in metrics.items()},
             tree_unflatten(params, grads))
 
@@ -192,7 +196,9 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.OptimizerConfig,
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     def prefill_step(params: Params, batch: Dict[str, Tensor]):
-        return transformer.prefill(params, batch["inputs"], cfg)
+        return transformer.prefill(
+            params, batch["inputs"], cfg,
+            encoder_inputs=batch.get("encoder_inputs"))
 
     return prefill_step
 

@@ -20,8 +20,9 @@ reference's, makes no encoder inputs.
 Runs on the CUDA card unless ``--device cpu``; without a card it raises.
 All randomness comes from ``torch.Generator`` s seeded from ``--seed``
 (the reference draws from JAX keys, so the numbers differ).  The
-reference's host mesh line is the device's name here: ``sharding/`` is
-not ported yet (ROADMAP item 17i).
+reference's host mesh line is the device's name here: the trainer runs
+on one device (``launch.mesh`` and ``sharding`` plan placements over
+several; the model itself has no path over several devices yet).
 """
 
 from __future__ import annotations

@@ -102,7 +102,14 @@ def route(p: Params, x2d: torch.Tensor, cfg: ModelConfig
     # Switch load-balance loss: E * sum_e fraction_e * mean_prob_e, the
     # fraction over each token's top-1 expert.
     e = cfg.num_experts
-    frac = torch.bincount(ids[:, 0], minlength=e).float() / x2d.shape[0]
+    # Counted by a scatter-add of ones (exact below 2^24 tokens), which
+    # also runs on shape-only ``meta`` tensors, unlike ``bincount``; out
+    # of place, so that ``vmap`` over clients maps it.
+    top1 = ids[:, 0]
+    counts = torch.zeros(e, dtype=torch.float32, device=ids.device
+                         ).scatter_add(0, top1, torch.ones(
+                             top1.shape, device=ids.device))
+    frac = counts / x2d.shape[0]
     aux = e * torch.sum(frac * probs.mean(dim=0))
     return ids, gate.to(x2d.dtype), aux
 

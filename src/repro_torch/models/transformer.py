@@ -120,12 +120,17 @@ def _block_init(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
     return p
 
 
-def param_count(cfg: ModelConfig) -> int:
-    """From shape-only ``meta`` tensors (a CPU generator draws nothing
-    into them); an encoder-decoder's encoder included."""
+def init_shapes(cfg: ModelConfig) -> Params:
+    """The parameter tree as shape-only ``meta`` tensors, with
+    :func:`init`'s shapes and dtypes and no storage (a CPU generator
+    draws nothing into them): the dry-run path."""
     with torch.device("meta"):
-        return sum(t.numel()
-                   for t in tree_leaves(_init(torch.Generator(), cfg)))
+        return _init(torch.Generator(), cfg)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """From :func:`init_shapes`; an encoder-decoder's encoder included."""
+    return sum(t.numel() for t in tree_leaves(init_shapes(cfg)))
 
 
 def active_param_count(cfg: ModelConfig) -> int:
@@ -137,8 +142,7 @@ def active_param_count(cfg: ModelConfig) -> int:
     if not cfg.is_moe:
         return total
     frac = (cfg.num_experts - cfg.num_experts_per_tok) / cfg.num_experts
-    with torch.device("meta"):
-        layers = _init(torch.Generator(), cfg)["layers"]
+    layers = init_shapes(cfg)["layers"]
     inactive = sum(int(ffn[name].numel() * frac)
                    for ffn in (pos.get("ffn", {}) for pos in layers.values())
                    for name in ("wi", "wg", "wo") if name in ffn)

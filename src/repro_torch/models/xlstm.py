@@ -274,9 +274,15 @@ def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
              torch.full((bsz, d), M_START, dtype=torch.float32,
                         device=x.device))
     hs = []
-    for t in range(s):
+    # On shape-only ``meta`` tensors (the dry run) every step has the
+    # same shapes and no data: one step stands for all of them, and
+    # ``launch.dryrun`` counts the other steps' products.
+    meta = x.device.type == "meta"
+    for t in range(min(s, 1) if meta else s):
         carry = _slstm_step(p, cfg, carry, gx[:, t])
         hs.append(carry[2])
+    if meta:
+        hs = hs * s
     out = _slstm_out(p, torch.stack(hs, dim=1).to(x.dtype), cfg)
     if not return_state:
         return out, None

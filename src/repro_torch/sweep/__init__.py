@@ -2,7 +2,8 @@
 
 ``grid``   — declarative scenario grids (SweepSpec / Axis / GridPoint),
              each scenario seeded by its global index, chunk-invariant.
-``engine`` — chunks through ``run_federated_batch`` on one device and
+``engine`` — chunks through ``run_federated_batch``, split over a
+             scenario mesh (``launch.mesh``) where it divides them, and
              the online Welford fold (O(R) state per grid point).
 ``runner`` — resumable execution: the Welford carry and the grid cursor
              checkpointed through ``checkpoint.msgpack_ckpt``.

@@ -18,12 +18,19 @@ reference's.  It runs on the carry's device with no host sync; only
 :func:`aggregate_summary` and :func:`aggregate_to_tree` bring the carry
 to the host, each in one copy.
 
-The reference shards a chunk's scenario axis over a ``scenario`` mesh
-with ``shard_map``; here the chunk is the batch driver's leading S axis
-on one card, so the engine has no ``mesh``, ``use_sharding`` or
-``donate_params`` argument (the batch driver always tiles fresh
-parameters).  A split of the scenarios over several cards waits for the
-port of ``sharding/``.
+A chunk is the batch driver's leading S axis.  As the reference shards
+it over a ``scenario`` mesh with ``shard_map``, the engine splits it over
+a ``launch.mesh`` scenario mesh (``use_sharding``, by default every card
+present): a chunk whose size the mesh's entry count divides runs as
+contiguous equal groups of scenarios, one ``run_federated_batch`` call
+an entry on that entry's device, their metrics (and frames) put back in
+scenario order and folded once; a chunk it does not divide runs whole on
+the engine's device, as the reference's ``_sim_for`` falls back.  The
+groups run one after another from this process; on distinct cards they
+overlap as far as their launches do not wait on the host.  With one
+entry the split chunk is the unsplit call.  The reference's
+``donate_params`` stays out: it donates XLA buffers, and the batch
+driver always tiles fresh parameters.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from torch import nn
 from repro_torch.core import federated, wireless
 from repro_torch.data import partition as partition_lib
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.sweep import grid as grid_lib
 from repro_torch.telemetry import sinks
 
@@ -297,14 +305,21 @@ def point_converged(agg: Aggregate, ci_target: float) -> bool:
 # ---------------------------------------------------------------------------
 
 class SweepEngine:
-    """Runs a :class:`SweepSpec` chunk by chunk on one device.
+    """Runs a :class:`SweepSpec` chunk by chunk.
 
     Owns the problem: the model (its architecture and initial weights;
-    never modified) and one device copy of the dataset, shared by every
-    chunk.  A chunk runs scenarios ``[start, start + size)`` of a grid
-    point as one ``federated.run_federated_batch`` call, its ``size``
-    scenarios the batch's leading axis.  ``device=None`` means the CUDA card and
-    raises without one; pass ``device="cpu"`` for the plain path.
+    never modified) and one copy of the dataset on each device it runs
+    on, shared by every chunk.  A chunk runs scenarios ``[start, start +
+    size)`` of a grid point as ``federated.run_federated_batch`` calls,
+    the scenarios the batch's leading axis: split over the scenario mesh
+    where its entry count divides ``size``, else one call on the
+    engine's device.  ``device=None`` means the CUDA card and raises
+    without one; pass ``device="cpu"`` for the plain path.  ``mesh``
+    (a 1-D ``launch.mesh.Mesh``, its axis the scenarios') defaults, with
+    ``use_sharding``, to ``make_scenario_mesh`` on the engine's device
+    type: every card for ``"cuda"``, the one named for ``"cuda:i"``, one
+    CPU entry for ``"cpu"``; the aggregates are folded on the engine's
+    device.
 
     With ``telemetry_dir`` set, a grid point whose ``FLConfig.telemetry``
     is set writes each scenario's frames to
@@ -317,11 +332,21 @@ class SweepEngine:
                  data: partition_lib.ClientDataset,
                  target_accuracy: float = 0.85,
                  telemetry_dir: Optional[str] = None,
+                 mesh: Optional[mesh_lib.Mesh] = None,
+                 use_sharding: bool = True,
                  device: DeviceLike = None):
         self.spec = spec
         self.dev = resolve_device(device)
+        if mesh is None and use_sharding:
+            mesh = mesh_lib.make_scenario_mesh(
+                device=None if self.dev == torch.device("cuda") else self.dev)
+        if mesh is not None and len(mesh.shape) != 1:
+            raise ValueError(f"the scenario mesh must be 1-D, got axes "
+                             f"{mesh.axis_names}")
+        self.mesh = mesh
         self.model = model
         self.data = data.to(self.dev)
+        self._data = {self.dev: self.data}
         self.target_accuracy = float(target_accuracy)
         self.telemetry_dir = telemetry_dir
         self._manifest_written = False
@@ -330,21 +355,52 @@ class SweepEngine:
 
     # -- execution -------------------------------------------------------
 
+    def groups(self, size: int) -> List[Tuple[int, int, torch.device]]:
+        """A chunk of ``size`` scenarios as ``(offset, count, device)``
+        groups: one a mesh entry where the entry count divides ``size``,
+        else the whole chunk on the engine's device."""
+        if self.mesh is None or self.mesh.devices is None or \
+                size % self.mesh.size:
+            return [(0, size, self.dev)]
+        per = size // self.mesh.size
+        return [(i * per, per, d) for i, d in enumerate(self.mesh.devices)]
+
+    def _run_group(self, point: grid_lib.GridPoint, start: int, size: int,
+                   dev: torch.device) -> tuple:
+        """``run_federated_batch`` over scenarios ``[start, start + size)``
+        on ``dev``: ``(metrics, frames or None)``."""
+        if dev not in self._data:
+            self._data[dev] = self.data.to(dev)
+        data = self._data[dev]
+        nets = wireless.sample_networks_indexed(
+            self._net_base, range(start, start + size), data.num_devices,
+            point.wireless)
+        out = federated.run_federated_batch(
+            model=self.model, data=data, nets=nets, wcfg=point.wireless,
+            scfg=point.sched, fcfg=point.fl,
+            seeds=federated.scenario_seeds(self._sim_base, start, size),
+            eval_every=self.spec.eval_every, device=dev)
+        return out[1], (out[2] if len(out) == 3 else None)
+
     def run_chunk(self, point: grid_lib.GridPoint, global_start: int,
                   size: int, agg: Aggregate) -> Aggregate:
         """Run scenarios ``[global_start, global_start + size)`` of a grid
-        point and fold their metrics into ``agg``."""
-        nets = wireless.sample_networks_indexed(
-            self._net_base, range(global_start, global_start + size),
-            self.data.num_devices, point.wireless)
-        seeds = federated.scenario_seeds(self._sim_base, global_start, size)
-        out = federated.run_federated_batch(
-            model=self.model, data=self.data, nets=nets,
-            wcfg=point.wireless, scfg=point.sched, fcfg=point.fl,
-            seeds=seeds, eval_every=self.spec.eval_every, device=self.dev)
-        metrics = out[1]
-        if len(out) == 3:
-            self._sink_frames(point, global_start, metrics, out[2])
+        point, over the mesh where it divides them, and fold their
+        metrics into ``agg`` once."""
+        outs = [self._run_group(point, global_start + off, n, dev)
+                for off, n, dev in self.groups(size)]
+
+        def cat(ts: List[Tensor]) -> Tensor:
+            ts = [t.to(self.dev) for t in ts]
+            return ts[0] if len(ts) == 1 else torch.cat(ts)
+
+        metrics = federated.RoundMetrics(*(
+            cat([getattr(m, f.name) for m, _ in outs])
+            for f in dataclasses.fields(federated.RoundMetrics)))
+        frames = None if outs[0][1] is None else {
+            n: cat([fr[n] for _, fr in outs]) for n in outs[0][1]}
+        if frames is not None:
+            self._sink_frames(point, global_start, metrics, frames)
         return aggregate_fold(agg, metrics, self.target_accuracy)
 
     def _sink_frames(self, point: grid_lib.GridPoint, global_start: int,

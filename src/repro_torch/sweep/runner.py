@@ -40,6 +40,7 @@ from repro_torch.checkpoint import msgpack_ckpt
 from repro_torch.core import federated
 from repro_torch.data import partition as partition_lib
 from repro_torch.device import DeviceLike
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.sweep import engine as engine_lib
 from repro_torch.sweep import grid as grid_lib
 from repro_torch.telemetry import sinks
@@ -262,15 +263,19 @@ def run_sweep(spec: grid_lib.SweepSpec, *, model: nn.Module,
               jsonl_path: Optional[str] = None,
               telemetry_dir: Optional[str] = None,
               store_path: Optional[str] = None,
+              mesh: Optional[mesh_lib.Mesh] = None,
+              use_sharding: bool = True,
               device: DeviceLike = None) -> Optional[Results]:
     """One-call sweep: build the engine, optionally resume from
     ``ckpt_path``, stream per-chunk aggregates to ``jsonl_path``, write
     per-scenario telemetry under ``telemetry_dir`` and one store record
     per point to ``store_path``; returns per-point summaries.
+    ``mesh`` / ``use_sharding``: the engine's scenario mesh.
     ``device=None`` means the CUDA card."""
     eng = engine_lib.SweepEngine(
         spec, model=model, data=data, target_accuracy=target_accuracy,
-        telemetry_dir=telemetry_dir, device=device)
+        telemetry_dir=telemetry_dir, mesh=mesh, use_sharding=use_sharding,
+        device=device)
     if ckpt_path is None and jsonl_path is None and store_path is None:
         # run_point honours spec.ci_target itself: the runner is needed
         # only for checkpoints, the JSONL stream and the store.
