@@ -331,6 +331,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+# f32-accurate products on the tensor cores: three TF32 products each
+# (the split-precision f32 flash kernels, csrc/flash_tf32.cuh) at the
+# 495 TFLOP/s dense TF32 rate.
+TF32X3_OPS_PER_S = 495e12 / 3
 # f32 operations per device coordinate, per PGD step, per start in the
 # sub2_pgd kernel (transcendentals counted as one): gradient and softmax
 # ~25, step ~5, 32 bisection trips x 4, objective ~12.
@@ -1287,9 +1291,10 @@ def phase_compress_batch(torch, dev, s: int, k: int, p: int) -> dict:
 # to nearest reads about 0, truncation about -1).
 FLASH_TOL = 1e-5
 FLASH_BIAS_LIMIT = 0.25
-# Peak rates for the operations bound: bf16 on the tensor cores (dense),
-# f32 outside them.
-PEAK_OPS = {"float32": F32_OPS_PER_S, "bfloat16": BF16_OPS_PER_S}
+# Peak rates for the flash kernels' operations bound: bf16 on the tensor
+# cores (dense); f32 as split TF32 on the tensor cores (the CUDA cores'
+# 67 TFLOP/s, the f32 rows' bound before, is printed beside it).
+PEAK_OPS = {"float32": TF32X3_OPS_PER_S, "bfloat16": BF16_OPS_PER_S}
 DANUBE_HEADS = dict(h=32, kv=8, hd=120)
 SERVE_B, SERVE_PROMPT, SERVE_GEN, SERVE_WINDOW = 4, 5000, 32, 4096
 # Edge shapes of the flash kernels, (b, sq, skv, h, kv, hd, kwargs): head
@@ -1438,16 +1443,29 @@ def flash_check(torch, fa, q, k, v, label: str, **kw) -> float:
     return err
 
 
-def flash_bound(q, k, pairs: int) -> tuple[float, str]:
+def flash_ops_bound(q, n_bytes: float, n_ops: float
+                    ) -> tuple[float, str, str]:
+    """(ms, what bounds it, a note): the larger of ``n_bytes`` over the
+    HBM rate and ``n_ops`` over PEAK_OPS of q's type; in f32 the note
+    gives the bound at the CUDA cores' 67 TFLOP/s beside it."""
+    dtype = str(q.dtype).split(".")[1]
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS[dtype] * 1e3
+    note = ""
+    if dtype == "float32":
+        note = (f"; at {F32_OPS_PER_S / 1e12:g} TFLOP/s, the CUDA cores' "
+                f"f32 rate, {max(t_bytes, n_ops / F32_OPS_PER_S * 1e3):.5f}")
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", note
+    return t_ops, "operations", note
+
+
+def flash_bound(q, k, pairs: int) -> tuple[float, str, str]:
     """Each input read once and the output written once; 4 hd flops per
     visible pair and head (q.k and p.v)."""
     b, _, h, hd = q.shape
-    size = q.element_size()
-    n_bytes = size * (2 * q.numel() + 2 * k.numel())
-    n_ops = 4 * b * h * pairs * hd
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS[str(q.dtype).split(".")[1]] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    return flash_ops_bound(q, n_bytes, 4 * b * h * pairs * hd)
 
 
 def flash_sdpa(torch, q, k, v, *, causal, window, kv_len):
@@ -1519,18 +1537,23 @@ def host_issue_us(torch, fn, calls: int) -> float:
     return issue / calls * 1e6
 
 
-def flash_timed(torch, fa, sets, label: str, **kw) -> dict:
+def flash_timed(torch, fa, sets, label: str, lse: bool = False,
+                **kw) -> dict:
     """Kernel, plain and SDPA ms of one shape (inputs cycled past L2).
     ``ms`` and ``library_ms`` time a host loop of back-to-back calls, as
     every other kernel's row does; printed beside them, the device times
     of the same calls replayed from a CUDA graph (no host work between
-    launches) and the host's own time per call."""
+    launches) and the host's own time per call.  ``lse``: the training
+    forward, which also writes each row's log-sum-exp."""
     q, k, v = sets[0]
     n = len(sets)
     it = iter(range(10 ** 9))
     calls = 20 if q.shape[1] > 1 else 200
 
     def kernel():
+        if lse:
+            return fa._forward(*sets[next(it) % n], kw["causal"],
+                               kw["window"], kw["kv_len"], True)
         return fa.flash_attention(*sets[next(it) % n], **kw)
     ms = time_ms(kernel, calls)
     graph = graph_ms(torch, kernel, calls)
@@ -1545,16 +1568,16 @@ def flash_timed(torch, fa, sets, label: str, **kw) -> dict:
     library_host_us = host_issue_us(torch, sdpa, calls)
     pairs = fa.visible_pairs(q.shape[1], causal=kw["causal"],
                              window=kw["window"], kv_len=kw["kv_len"])
-    b_ms, b_by = flash_bound(q, k, pairs)
+    b_ms, b_by, b_note = flash_bound(q, k, pairs)
     print(f"[kernel] flash_attention {label} {tuple(q.shape)} x "
           f"{tuple(k.shape)} {q.dtype} route "
-          f"{fa.route(q.dtype, q.shape[1])}: ms={ms:.5f} (graph "
+          f"{fa.route(q.dtype, q.shape[1], lse)}: ms={ms:.5f} (graph "
           f"{graph:.5f}; host {host_us:.2f} us per call) plain_ms="
           f"{plain_ms:.3f} library_ms(sdpa)={library_ms:.5f} (graph "
           f"{library_graph:.5f}; host {library_host_us:.2f} us per call; "
           f"sdpa vs kernel max diff {sdpa_err:.3g}) bound_ms={b_ms:.5f} "
           f"({b_by}; {pairs} visible pairs per head; {b_ms / ms:.3f} of it "
-          f"by the host loop, {b_ms / graph:.3f} by the graph; "
+          f"by the host loop, {b_ms / graph:.3f} by the graph{b_note}; "
           f"{library_ms / ms:.3f}x sdpa's speed by the host loop, "
           f"{library_graph / graph:.3f}x by the graph)", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1566,14 +1589,17 @@ def phase_flash(torch, dev) -> dict:
     group), decode and edge shapes in bf16 and f32; times at the path's
     prefill (B = 4) and decode shapes, and at paths 15-19's
     (``PATH_FLASH``).  Returns the rows of the kernels line: the bf16
-    prefill (``flash_attention``, the tensor-core kernel), the bf16
-    decode (``flash_attention_decode``) and the ``PATH_FLASH`` rows."""
+    prefill (``flash_attention``, the tensor-core kernel), the f32
+    prefill (``flash_attention_f32``, split TF32), the bf16 decode
+    (``flash_attention_decode``) and the ``PATH_FLASH`` rows."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     lib = _build.library()
     for hd in range(8, fa.MAX_HEAD_DIM + 1, 8):
         if lib.flash_attention_tc_smem(hd) != fa.tc_smem_bytes(hd):
             raise AssertionError(f"prefill_tc smem mirror at hd {hd}")
+        if lib.flash_attention_fwd_f32_smem(hd) != fa.f32_smem_bytes(hd):
+            raise AssertionError(f"prefill_f32 smem mirror at hd {hd}")
     # Decode blocks per SM (the occupancy calculator's), which the CPU
     # tests of decode_splits assume; path 6's split gives every SM two.
     per_sm = {(grp, hd): lib.flash_attention_decode_blocks(1, grp, hd)
@@ -1683,6 +1709,9 @@ def phase_flash(torch, dev) -> dict:
     return {
         "flash_attention": dict(rows[("prefill", torch.bfloat16)],
                                 max_abs_err=errs[("prefill", torch.bfloat16)]),
+        "flash_attention_f32": dict(rows[("prefill", torch.float32)],
+                                    max_abs_err=errs[("prefill",
+                                                      torch.float32)]),
         "flash_attention_decode": dict(
             rows[("decode", torch.bfloat16)],
             max_abs_err=errs[("decode", torch.bfloat16)]),
@@ -2977,8 +3006,8 @@ def serve_parity(torch, transformer, params, cfg, prompt, tok, logits,
 def phase_dense_card_vs_cpu(torch, dev) -> None:
     """The four dense configs at ``reduced()``: the same weights and
     tokens on the card and the CPU, prefill of 150 tokens (past danube's
-    reduced 128-slot window) and 3 decode steps; in f32 (TF32 off, the
-    CUDA-core prefill) within 1e-4, and in bf16 from the bf16 serving copy
+    reduced 128-slot window) and 3 decode steps; in f32 (TF32 off; the
+    f32 prefill's own split TF32) within 1e-4, and in bf16 from the bf16 serving copy
     (the tensor-core prefill on the card, the plain version on the CPU)
     within the bf16 serving limit 2e-2."""
     from repro_torch import configs
@@ -4785,6 +4814,8 @@ STABLELM_LAYERS, STABLELM_BATCH, STABLELM_SEQ, STABLELM_STEPS = 2, 8, 1024, 3
 # Card against CPU at danube's reduced(num_layers=2), f32 with TF32 off:
 # sums in another order.
 DANUBE_CARD_CPU_TOL = 1e-4
+# The launch counts of that f32 step, under this key of the paths' counts.
+DANUBE_F32 = "20, f32"
 # The backward kernel against its plain version, of each gradient's
 # largest magnitude: f32 sums in another order; bf16 outputs rounded once
 # (2^-9 of the largest) and P rounded to bf16 for dV.
@@ -4936,17 +4967,14 @@ def flash_bwd_check(torch, fa, gen, shape, dtype, kw, label: str
     return max(errs)
 
 
-def flash_bwd_bound(q, k, pairs: int) -> tuple[float, str]:
+def flash_bwd_bound(q, k, pairs: int) -> tuple[float, str, str]:
     """q, o, dO read and dq written, k and v read and dk, dv written, and
     the lse read, each once; five products (two score products again,
     dV, dK, dQ), 10 hd flops a visible pair and head."""
     b, sq, h, hd = q.shape
     n_bytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) \
         + 4 * b * h * sq
-    n_ops = 10 * b * h * pairs * hd
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS[str(q.dtype).split(".")[1]] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return flash_ops_bound(q, n_bytes, 10 * b * h * pairs * hd)
 
 
 # The tensor-core backward's kernels, as the profiler names them: the D
@@ -4956,6 +4984,10 @@ BWD_TC_KERNELS = ("flash_attention_bwd_tc_delta",
                   "flash_attention_bwd_tc_dv_kernel",
                   "flash_attention_bwd_tc_dk_kernel",
                   "flash_attention_bwd_tc_dq")
+# The f32 backward's: the (lse, D) pre-pass, dK / dV and dQ.
+BWD_F32_KERNELS = ("flash_attention_bwd_lsd",
+                   "flash_attention_bwd_dkdv",
+                   "flash_attention_bwd_dq")
 
 
 def flash_bwd_timed(torch, fa, gen, label: str, shape, kw,
@@ -4987,20 +5019,18 @@ def flash_bwd_timed(torch, fa, gen, label: str, shape, kw,
         return fa.flash_attention_bwd(*sets[next(it) % n], **kw)
     ms = time_ms(kernel, calls)
     graph = graph_ms(torch, kernel, calls)
-    split = ""
-    if which == "backward_tc":
-        def run():
-            for _ in range(calls):
-                kernel()
-        us = profile_scopes(torch, run, (),
-                            kernels=BWD_TC_KERNELS)["kernel_us"]
-        us = {name: t for name, t in us.items() if t > 0}
-        total = sum(us.values())
-        split = ("; profiler device ms a call: " + ", ".join(
-            f"{name.split('_tc_')[1].split('_')[0]} "
-            f"{t / calls / 1e3:.5f}" for name, t in us.items())
-            + f" (D pre-pass {us[BWD_TC_KERNELS[0]] / total:.3f} of the "
-            f"{len(us)})")
+
+    def run():
+        for _ in range(calls):
+            kernel()
+    names = BWD_TC_KERNELS if which == "backward_tc" else BWD_F32_KERNELS
+    us = profile_scopes(torch, run, (), kernels=names)["kernel_us"]
+    us = {name: t for name, t in us.items() if t > 0}
+    total = sum(us.values())
+    split = ("; profiler device ms a call: " + ", ".join(
+        f"{name.replace('_tc_', '_').split('_bwd_')[1].split('_')[0]} "
+        f"{t / calls / 1e3:.5f}" for name, t in us.items())
+        + f" (pre-pass {us[names[0]] / total:.3f} of the {len(us)})")
     q, k, v, o, lse, do = sets[0]
     plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, o, lse, do, **kw), 2, warmup=1)
@@ -5031,7 +5061,7 @@ def flash_bwd_timed(torch, fa, gen, label: str, shape, kw,
                    for a, g in zip(sd, kernel()))
     pairs = fa.visible_pairs(sq, causal=kw["causal"], window=kw["window"],
                              kv_len=kv_len)
-    b_ms, b_by = flash_bwd_bound(q, k, pairs)
+    b_ms, b_by, b_note = flash_bwd_bound(q, k, pairs)
     print(f"[kernel] flash_attention_bwd (b) {label} shape {tuple(q.shape)} "
           f"x {tuple(k.shape)} {dtype} {kw} ({which}): ms={ms:.5f} (graph "
           f"{graph:.5f}) plain_ms={plain_ms:.3f} library_ms(sdpa backward "
@@ -5040,7 +5070,8 @@ def flash_bwd_timed(torch, fa, gen, label: str, shape, kw,
           f"kernel gradients max diff {sdpa_err:.3g}; kernel by graph / "
           f"sdpa backward {graph / library_ms:.3f}) bound_ms={b_ms:.5f} "
           f"({b_by}; {pairs} visible pairs per head; {b_ms / ms:.3f} of it "
-          f"by the host loop, {b_ms / graph:.3f} by the graph){split}; "
+          f"by the host loop, {b_ms / graph:.3f} by the graph{b_note})"
+          f"{split}; "
           f"forward with lse {fwd_lse:.5f} ms against the serving forward "
           f"{fwd:.5f} ms on the same inputs", flush=True)
     del sets, sd
@@ -5050,11 +5081,13 @@ def flash_bwd_timed(torch, fa, gen, label: str, shape, kw,
 
 def phase_flash_bwd(torch, dev) -> dict:
     """The backward kernels against their plain version at
-    FLASH_BWD_SHAPES in f32 and bf16; timed in bf16 (the tensor-core
-    route) at path 20's shape, at path 21's (stablelm-12b's hd 160) and
-    at hd 256, and in f32 (the CUDA-core route) at path 20's shape.
-    Returns the kernels line's ``flash_attention_bwd`` (path 20's shape)
-    and ``flash_attention_bwd_hd160`` (path 21's) rows, bf16."""
+    FLASH_BWD_SHAPES in f32 and bf16; timed in bf16 (the wgmma route) at
+    path 20's shape, at path 21's (stablelm-12b's hd 160) and at hd 256,
+    and in f32 (split TF32) at path 20's shape, with the f32 training
+    forward (the prefill kernel writing the lse) there too.  Returns the
+    kernels line's ``flash_attention_bwd`` (path 20's shape) and
+    ``flash_attention_bwd_hd160`` (path 21's) rows, bf16, and
+    ``flash_attention_bwd_f32`` (path 20's shape)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     lib = _build.library()
@@ -5083,10 +5116,27 @@ def phase_flash_bwd(torch, dev) -> dict:
     flash_bwd_timed(torch, fa, gen, "hd 256", HD256_BWD_SHAPE,
                     dict(causal=True, window=0))
     torch.cuda.empty_cache()
-    flash_bwd_timed(torch, fa, gen, "path 20, f32", FLASH_BWD_SHAPES[0][1],
-                    FLASH_BWD_SHAPES[0][2], torch.float32)
+    label, shape, kw = FLASH_BWD_SHAPES[0]
+    rows["flash_attention_bwd_f32"] = dict(
+        flash_bwd_timed(torch, fa, gen, f"{label}, f32", shape, kw,
+                        torch.float32),
+        max_abs_err=errs[label, torch.float32])
+    torch.cuda.empty_cache()
+    f32_training_forward_timed(torch, fa, gen)
     torch.cuda.empty_cache()
     return rows
+
+
+def f32_training_forward_timed(torch, fa, gen) -> None:
+    """The f32 training forward (the prefill kernel writing the lse) at
+    path 20's pass, timed as the forward rows are (no kernels-line
+    row)."""
+    label, (b, sq, skv, h, kvh, hd), kw = FLASH_BWD_SHAPES[0]
+    n = cycling(4 * b * (2 * sq * h + 2 * skv * kvh) * hd)
+    sets = flash_inputs(torch, gen.device, gen, b, sq, skv, h, kvh, hd,
+                        torch.float32, n)
+    flash_timed(torch, fa, sets, f"(f) training forward with the lse, "
+                f"{label} f32", lse=True, kv_len=skv, **kw)
 
 
 def phase_danube_train(torch, dev, smi: str) -> dict:
@@ -5197,12 +5247,15 @@ def phase_danube_train(torch, dev, smi: str) -> dict:
     return dict(counts, flash_attention_bwd=routes["backward_tc"])
 
 
-def phase_danube_card_vs_cpu(torch, dev) -> None:
+def phase_danube_card_vs_cpu(torch, dev) -> dict:
     """h2o-danube-3-4b at ``reduced(num_layers=2)`` (window 128) on the
     card and on the CPU from one state, f32 with TF32 off: one federated
     step, K = 4 clients of 2 x 160 tokens, clients 0, 2 and 3 selected,
     SGD lr 0.1; parameters within DANUBE_CARD_CPU_TOL, and on the card
-    every layer's attention forward and backward through the kernels."""
+    every layer's attention forward and backward through the kernels.
+    The f32 training step of path 20's model: returns its launches of
+    the f32 flash kernels (the kernels line's ``flash_attention_f32`` and
+    ``flash_attention_bwd_f32``), counted from zero."""
     from repro_torch import configs, optim
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import steps
@@ -5222,6 +5275,8 @@ def phase_danube_card_vs_cpu(torch, dev) -> None:
              "sizes": torch.tensor([100.0, 999.0, 300.0, 40.0])}
     out = {}
     for device in ("cpu", dev):
+        if device == dev:
+            reset_counts()
         before = dict(fa.flash_attention.route_launches)
         new, metrics = steps.make_federated_train_step(cfg, ocfg, 4)(
             _to(state, device), {k: v.to(device) for k, v in batch.items()})
@@ -5240,6 +5295,8 @@ def phase_danube_card_vs_cpu(torch, dev) -> None:
           f"card flash launches by route {routed}", flush=True)
     if not (err <= DANUBE_CARD_CPU_TOL and routed == want):
         raise AssertionError(f"danube card vs CPU: {err}, routes {routed}")
+    return {"flash_attention_f32": routed["prefill_f32"],
+            "flash_attention_bwd_f32": routed["backward"]}
 
 
 def phase_stablelm_train(torch, dev, smi: str,
@@ -5538,6 +5595,13 @@ KERNELS["flash_attention_bwd"] = (
     "src/repro/models/attention.py:142")
 # Path 21's: stablelm-12b's hd 160 on the same route.
 KERNELS["flash_attention_bwd_hd160"] = KERNELS["flash_attention_bwd"]
+# The f32 routes (split TF32 on the tensor cores), timed at path 6's
+# prefill and path 20's pass, launched by danube's f32 training step.
+KERNELS["flash_attention_f32"] = ("src/repro_torch/csrc/flash_attention.cu",
+                                  "src/repro/kernels/flash_attention.py:90")
+KERNELS["flash_attention_bwd_f32"] = (
+    "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "src/repro/models/attention.py:142")
 # Paths 15-19's flash rows (PATH_FLASH): the prefill at each MoE path's
 # query group, jamba's decode, whisper's encoder prefill and its
 # cross-attention decode.
@@ -5638,6 +5702,8 @@ def main() -> int:
              "fedavg_agg_masked_batch": 8, "compress_update_batch": 9,
              "fedavg_agg_stale_batch": 10, "fedavg_agg_train": 13,
              "flash_attention_bwd": 20, "flash_attention_bwd_hd160": 21,
+             "flash_attention_f32": DANUBE_F32,
+             "flash_attention_bwd_f32": DANUBE_F32,
              **{name: path for name, (path, *_) in PATH_FLASH.items()}}
     by_path, recs, walls = {}, {}, {}
     for path in (1, 2, 3):
@@ -5689,7 +5755,7 @@ def main() -> int:
     by_path[13] = phase_train(torch, dev, smi)
     phase_xlstm_card_vs_cpu(torch, dev)
     by_path[20] = phase_danube_train(torch, dev, smi)
-    phase_danube_card_vs_cpu(torch, dev)
+    by_path[DANUBE_F32] = phase_danube_card_vs_cpu(torch, dev)
     path21 = {}
     by_path[21] = phase_stablelm_train(torch, dev, smi, path21)
     phase_stablelm_card_vs_cpu(torch, dev)

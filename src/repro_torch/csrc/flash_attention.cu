@@ -1,15 +1,15 @@
 // Flash attention forward (online softmax) for the model zoo's attention:
-// the f32 prefill on the CUDA cores and the decode (one query row), in
-// f32 or bf16.  The bf16 prefill runs on the tensor cores
-// (flash_attention_tc.cu).
+// the f32 prefill on the tensor cores as split-precision TF32 products
+// (flash_tf32.cuh) and the decode (one query row), in f32 or bf16.  The
+// bf16 prefill runs on wgmma (flash_attention_tc.cu).
 //
 // Replaces the TPU kernel flash_attention_kernel (_flash_kernel) of
 // src/repro/kernels/flash_attention.py.  Computes, per (batch, q head,
-// q row):  s = (q * scale) k^T in f32; visible where k < kv_len, and
-// k <= q if causal, and k > q - window if window > 0 (positions of q and
-// k both start at 0); online max/sum rescaling with p . v accumulated in
-// f32; out = acc / max(l, 1e-30) in the input type.  Masked entries get
-// p = 0, so a row with nothing visible gives 0.  For training the prefill
+// q row):  s = q k^T scale; visible where k < kv_len, and k <= q if
+// causal, and k > q - window if window > 0 (positions of q and k both
+// start at 0); online max/sum rescaling with p . v accumulated in f32;
+// out = acc / max(l, 1e-30) in the input type.  Masked entries get p =
+// 0, so a row with nothing visible gives 0.  For training the prefill
 // also writes each row's log-sum-exp m + log(l) of the scaled scores
 // (+inf for a row with nothing visible), which the backward
 // (flash_attention_bwd.cu) reads; serving passes no lse and writes none.
@@ -20,19 +20,38 @@
 // hd is a multiple of 8, <= 256.
 //
 // Bound on the H100: at prefill by operations (4 hd flops per visible
-// pair), at decode by bytes (the whole K/V cache is read once).
+// pair; in f32 three TF32 products each, 495 / 3 = 165 TFLOP/s), at
+// decode by bytes (the whole K/V cache is read once).
 //
-// * flash_attention_fwd_kernel (f32 prefill): f32 must agree with the
-//   plain version to 1e-5, which TF32 tensor cores cannot, so it stays on
-//   the CUDA cores.  One block per (b, h, 64-row q tile), 256 threads.
-//   The q tile and each 64-row K/V tile are staged in shared memory,
-//   rows padded to hd + 4 floats so that the 16-byte reads of 8
-//   neighbouring threads hit distinct banks.  Each thread owns a 4 x 4
-//   patch of the score tile (rows ty + 16i, keys tx + 16j) and 4 rows x
-//   up to 16 columns of the output accumulator, in registers; row max
-//   and sum reduce over the 16 lanes of a half-warp.  The kv loop runs
-//   only over tiles that hold a visible key: causal and window bounds
-//   clip it, so wholly masked tiles are never loaded.
+// * flash_attention_f32_kernel (f32 prefill).  The f32 route must agree
+//   with the plain version to 1e-5: one TF32 product cannot, split TF32
+//   can (each operand as tf32 hi + tf32 lo, three mma.sync m16n8k8 tf32
+//   products a k-step; flash_tf32.cuh has the arithmetic and the
+//   fragment layouts).  What held the CUDA-core kernel it replaces (0.39
+//   of its 67 TFLOP/s bound) and what this design does about it:
+//   - Shared-memory bandwidth (4 x 4 register patches, a float read per
+//     two FMAs): a warp's m16n8k8 product reads 8 bytes a lane of each
+//     operand for 3 x 1024 multiply-adds, from 128-byte swizzled tiles
+//     without bank conflicts.
+//   - K/V read once per query head: a 64-row q tile packs (position,
+//     head) pairs, P = 64 / G positions x the G heads of one KV head (a
+//     5-D tensor map (hd, G, KV, Sq, B), as the bf16 prefill), so each
+//     K/V tile is loaded once for the whole group.
+//   - No overlap of loads with products: one producer warp streams K/V
+//     tiles by TMA into a ring of stages with full / empty mbarriers;
+//     the maps end at kv_len, so the keys past it come back as zeros and
+//     a zero weight never meets what lies there.
+//   This block over packed q tiles is flash_tf32.cuh's Packed, which the
+//   backward's dQ kernel shares.  Up to hd 128 two 64-row tiles (eight consumer warps, a producer
+//   warpgroup whose registers they take) share each 64-key tile; past it
+//   one tile and 32 keys.  A warp owns 16 rows: S = q K^T into two
+//   accumulator chains, the online softmax in f32 in log2 units, then O
+//   = alpha O + P V with P straight from the score registers and each
+//   box of 32 columns' product in fresh accumulators (the tensor cores
+//   truncate as they accumulate).  One division at the end.  The kv loop
+//   runs only over tiles that hold a visible key (causal and window
+//   bounds), the mask is built only on tiles that straddle an edge, and
+//   blocks of the last positions, which see the most keys, start first.
 // * flash_attention_decode_kernel, for Sq == 1, bound by bytes: one block
 //   per (b, KV head, kv split) holds up to 4 (else 8) of the G = H / KV
 //   query heads that share the KV head, so each K/V tile is read once for
@@ -63,6 +82,7 @@
 
 #include "cluster.cuh"
 #include "flash_attention.cuh"
+#include "flash_tf32.cuh"
 
 using namespace flash;
 using repro::cluster_rank;
@@ -71,183 +91,191 @@ using repro::ld_cluster;
 
 namespace {
 
-constexpr int BQ = 64;      // q rows per prefill block
-constexpr int BK = 64;      // keys per K/V tile
-constexpr int FWD_THREADS = 256;
 constexpr int DEC_BK = 32;  // keys per decode tile: one per lane
 constexpr int DEC_WARPS = 4;                         // consumer warps
 constexpr int DEC_CONSUMERS = 32 * DEC_WARPS;
 constexpr int DEC_THREADS = DEC_CONSUMERS + 32;      // + a producer warp
 
 // ---------------------------------------------------------------------------
-// Prefill / general Sq
+// f32 prefill / general Sq: split TF32 on the tensor cores
 // ---------------------------------------------------------------------------
 
-// NJ4: groups of 4 output columns per thread (hd <= 64 * NJ4).  LSE:
-// write each row's log-sum-exp (training); serving compiles without it.
-template <typename T, int NJ4, bool LSE>
-__global__ void __launch_bounds__(FWD_THREADS)
-flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
-                           float* __restrict__ lse, int Sq, int Skv, int H,
-                           int KV, int hd, int kv_len, int causal,
-                           int window, float scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ld = hd + 4;
-  const int ldp = BK + 4;
-  float* Qs = smem;
-  float* Ks = Qs + BQ * ld;
-  float* Vs = Ks + BK * ld;
-  float* Ps = Vs + BK * ld;
+// Up to hd 128 two 64-row tiles (eight consumer warps) share each K/V
+// tile of 64 keys; past it one tile (four warps) and 32 keys, so that q
+// and two ring stages fit.
+template <int NB>
+using F32Cfg = tf32::PackedCfg<NB, NB <= 4 ? 8 : 4, NB <= 4 ? 64 : 32, 1>;
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int g = h / (H / KV);
-  const int q_lo = blockIdx.x * BQ;
-  const int q_hi = min(q_lo + BQ, Sq) - 1;
+// LSE: write each row's log-sum-exp (training); serving compiles without.
+template <int NB, bool LSE>
+__global__ void __launch_bounds__(F32Cfg<NB>::THREADS, 1)
+flash_attention_f32_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           float* __restrict__ o, float* __restrict__ lse,
+                           int Sq, int H, int KV, int hd, int kv_len,
+                           int causal, int window, float scale_log2) {
+  using C = F32Cfg<NB>;
+  using namespace tf32;
+  constexpr int NJ = C::KT / 8;     // n-blocks of a score tile
+  constexpr int NC = 4 * NB;        // n-blocks of 8 output columns
+  extern __shared__ uint8_t smem_raw[];
+  const Packed<C> blk(smem_raw, Sq, H, KV, hd, kv_len, causal, window);
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;   // rows ty + 16 i
-  const int tx = tid & 15;   // keys tx + 16 j; columns 4 tx + 64 jj + e
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  blk.init(tid);
 
-  const int64_t q_base = ((int64_t)b * Sq * H + h) * hd;
-  const int64_t kv_base = ((int64_t)b * Skv * KV + g) * hd;
-  stage(Qs, ld, q, q_base, (int64_t)H * hd, q_lo, BQ, Sq, hd, scale,
-        FWD_THREADS);
-
-  float m[4], l[4];
-  float acc[4][NJ4 * 4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NJ4 * 4; ++c) acc[i][c] = 0.f;
+  if (warp >= C::WARPS) {
+    // Producer: one lane issues every copy.
+    if constexpr (C::WARPS == 8) regs_release<PRODUCER_REGS>();
+    if (warp == C::WARPS && lane == 0) {
+      const CUtensorMap* const qmaps[1] = {&qmap};
+      blk.produce(qmaps, &kmap, &vmap);
+    }
+    return;
   }
 
-  int lo, hi;
-  kv_range(q_lo, q_hi, kv_len, causal, window, &lo, &hi);
-  const int t0 = lo / BK;
-  const int t1 = (hi + BK - 1) / BK;
-  for (int t = t0; t < t1; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();   // the previous tile's readers are done
-    stage(Ks, ld, k, kv_base, (int64_t)KV * hd, k0, BK, kv_len, hd, 1.f,
-          FWD_THREADS);
-    stage(Vs, ld, v, kv_base, (int64_t)KV * hd, k0, BK, kv_len, hd, 1.f,
-          FWD_THREADS);
-    __syncthreads();
+  if constexpr (C::WARPS == 8) regs_claim<CONSUMER_REGS>();
+  const Lane ln(lane);
+  const PackedRows rw(blk, warp, ln, Sq, kv_len, causal, window);
+  const int m0 = rw.m0;
+  const Tile qt = blk.resident(0, rw.wt);
 
-    float s[4][4];
+  float acc[NC][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < hd; d += 4) {
-      float4 qa[4], ka[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * ld + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ka[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * ld + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i].x, ka[j].x, s[i][j]);
-          s[i][j] = fmaf(qa[i].y, ka[j].y, s[i][j]);
-          s[i][j] = fmaf(qa[i].z, ka[j].z, s[i][j]);
-          s[i][j] = fmaf(qa[i].w, ka[j].w, s[i][j]);
-        }
-    }
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+  blk.wait_resident();
 
-    float alpha[4];
+  for (int t = blk.t0, i = 0; t < blk.t1; ++t, ++i) {
+    const int k0 = t * C::KT;
+    blk.wait_full(i);
+    if (rw.sees(k0, C::KT)) {
+      const Tile kt = blk.k_tile(i);
+      const Tile vt = blk.v_tile(i);
+      // S = q K^T over hd, 3 x TF32 a k-step, in two chains.
+      float sc[NJ][4], scs[NJ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q_lo + ty + 16 * i;
-      bool vis[4];
-      float mx = NEG_INF;
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        vis[j] = visible(qpos, k0 + tx + 16 * j, kv_len, causal, window);
-        if (vis[j]) mx = fmaxf(mx, s[i][j]);
-      }
+        for (int e = 0; e < 4; ++e) sc[j][e] = scs[j][e] = 0.f;
+#pragma unroll 1
+      for (int cb = 0; cb < NB; ++cb) {
+        if (box_live(cb, hd)) {
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      alpha[i] = expf(m[i] - m_new);
-      float sum = 0.f;
+          for (int ks = 4 * cb; ks < 4 * cb + 4; ++ks) {
+            FragA a;
+            qt.load_a(a, ln, ks, m0);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = vis[j] ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty + 16 * i) * ldp + tx + 16 * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = alpha[i] * l[i] + sum;
-      m[i] = m_new;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < NJ4 * 4; ++c) acc[i][c] *= alpha[i];
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 pa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * ldp + kk);
-#pragma unroll
-      for (int jj = 0; jj < NJ4; ++jj) {
-        const int c = 4 * tx + 64 * jj;
-        if (c < hd) {
-          float4 va[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            va[e] = *reinterpret_cast<const float4*>(Vs + (kk + e) * ld + c);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float pe[4] = {pa[i].x, pa[i].y, pa[i].z, pa[i].w};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              acc[i][4 * jj + 0] = fmaf(pe[e], va[e].x, acc[i][4 * jj + 0]);
-              acc[i][4 * jj + 1] = fmaf(pe[e], va[e].y, acc[i][4 * jj + 1]);
-              acc[i][4 * jj + 2] = fmaf(pe[e], va[e].z, acc[i][4 * jj + 2]);
-              acc[i][4 * jj + 3] = fmaf(pe[e], va[e].w, acc[i][4 * jj + 3]);
+            for (int j = 0; j < NJ; ++j) {
+              FragB kb;
+              kt.load_b(kb, ln, ks, 8 * j);
+              mma3_split(sc[j], scs[j], a, kb);
             }
           }
         }
       }
-    }
-  }
-
+      // Online softmax in f32; the mask only on tiles that straddle the
+      // causal, window or kv_len edge (keys past kv_len are TMA's zeros).
+      const bool edge = rw.edge(k0, C::KT, kv_len, causal, window);
+      float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q_lo + ty + 16 * i;
-    if (qpos >= Sq) continue;   // tail rows of the last tile
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    // The row's log-sum-exp of the scaled scores for the backward; +inf
-    // where no key is visible, so that every p of the row is 0 there.
-    if constexpr (LSE) {
-      if (tx == 0)
-        lse[((int64_t)b * H + h) * Sq + qpos] =
-            l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
-    }
-    T* orow = o + q_base + (int64_t)qpos * H * hd;
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int jj = 0; jj < NJ4; ++jj) {
-      const int c = 4 * tx + 64 * jj;
-      if (c < hd) {
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          float x = (sc[j][e] + scs[j][e]) * scale_log2;
+          if (edge && !visible(rw.qpos[h], k0 + 8 * j + 2 * ln.t + (e & 1),
+                               kv_len, causal, window))
+            x = NEG_INF;
+          sc[j][e] = x;
+          mx[h] = fmaxf(mx[h], x);
+        }
+      float alpha[2], m_use[2], rs[2] = {0.f, 0.f};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) store1(orow + c + e, acc[i][4 * jj + e] * inv);
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        alpha[h] = exp2f(m[h] - m_new);
+        m[h] = m_new;
+        // No visible key yet: every x is NEG_INF and must give p = 0.
+        m_use[h] = m_new == NEG_INF ? 0.f : m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(sc[j][e] - m_use[e >> 1]);
+          sc[j][e] = p;
+          rs[e >> 1] += p;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
+      // O = alpha O + P V, P straight from the score registers; a box of
+      // 32 columns at a time (columns past hd are TMA's zeros), its four
+      // n-blocks' products over the tile in fresh accumulators, two
+      // chains each.
+      FragA pa[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc_to_a(pa[j], sc[j]);
+#pragma unroll
+      for (int cb = 0; cb < NB; ++cb) {
+        if (BOX_COLS * cb < hd) {
+          float big[4][4], small[4][4];
+#pragma unroll
+          for (int c4 = 0; c4 < 4; ++c4)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) big[c4][e] = small[c4][e] = 0.f;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int c4 = 0; c4 < 4; ++c4) {
+              FragB vb;
+              vt.load_b_mn(vb, ln, j, 4 * cb + c4);
+              mma3_split(big[c4], small[c4], pa[j], vb);
+            }
+#pragma unroll
+          for (int c4 = 0; c4 < 4; ++c4)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[4 * cb + c4][e] = fmaf(acc[4 * cb + c4][e], alpha[e >> 1],
+                                         big[c4][e] + small[c4][e]);
+        }
       }
     }
+    blk.release(i, lane);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    inv[h] = 1.f / fmaxf(l[h], 1e-30f);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!rw.live[h]) continue;
+    // The row's log-sum-exp of the scaled scores for the backward, from
+    // the log2 units of m and l; +inf where no key is visible, so that
+    // every p of the row is 0 there.
+    if constexpr (LSE) {
+      if (ln.t == 0)
+        lse[((int64_t)blk.b * H + rw.head[h]) * Sq + rw.qpos[h]] =
+            l[h] > 0.f ? (m[h] + log2f(l[h])) * LN2 : INFINITY;
+    }
+    float* orow =
+        o + (((int64_t)blk.b * Sq + rw.qpos[h]) * H + rw.head[h]) * hd;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (8 * c < hd)
+        *reinterpret_cast<float2*>(orow + 8 * c + 2 * ln.t) =
+            make_float2(acc[c][2 * h] * inv[h], acc[c][2 * h + 1] * inv[h]);
   }
 }
 
@@ -727,45 +755,49 @@ flash_attention_decode_kernel(const __grid_constant__ CUtensorMap kmap,
   cluster_sync();   // no block leaves while another reads its memory
 }
 
-size_t fwd_smem_bytes(int hd) {
-  return sizeof(float) * (size_t)(BQ * (hd + 4) * 1 + 2 * BK * (hd + 4) +
-                                  BQ * (BK + 4));
-}
-
-template <typename T, int NJ4>
-int launch_fwd(const void* q, const void* k, const void* v, void* o,
+template <int NB>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int Sq, int Skv, int H, int KV, int hd,
                int kv_len, int causal, int window, float scale,
                cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes(hd);
-  auto kernel = lse != nullptr ? flash_attention_fwd_kernel<T, NJ4, true>
-                               : flash_attention_fwd_kernel<T, NJ4, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  kernel<<<grid, FWD_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Skv, H, KV, hd,
-      kv_len, causal, window, scale);
+  using C = F32Cfg<NB>;
+  CUtensorMap qmap, kmap, vmap;
+  int err = tf32::encode_packed(&qmap, q, B, Sq, H, KV, hd);
+  if (err == 0)
+    err = tf32::encode_keys(&kmap, k, B, Skv, KV, hd, kv_len, C::KT);
+  if (err == 0)
+    err = tf32::encode_keys(&vmap, v, B, Skv, KV, hd, kv_len, C::KT);
+  if (err != 0) return err;
+  auto kernel = lse != nullptr ? flash_attention_f32_kernel<NB, true>
+                               : flash_attention_f32_kernel<NB, false>;
+  cudaError_t cerr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (cerr != cudaSuccess) return (int)cerr;
+  kernel<<<tf32::packed_grid<C>(B, Sq, H, KV), C::THREADS, C::SMEM,
+           stream>>>(
+      qmap, kmap, vmap, static_cast<float*>(o), lse, Sq, H, KV, hd, kv_len,
+      causal, window, scale * tf32::LOG2E);
   return (int)cudaGetLastError();
 }
 
-int fwd_by_width(const void* q, const void* k, const void* v, void* o,
+int f32_by_width(const void* q, const void* k, const void* v, void* o,
                  float* lse, int B, int Sq, int Skv, int H, int KV, int hd,
                  int kv_len, int causal, int window, float scale,
-                 cudaStream_t stream) {
-  if (hd <= 64)
-    return launch_fwd<float, 1>(q, k, v, o, lse, B, Sq, Skv, H, KV,
-                                hd, kv_len, causal, window, scale, stream);
-  if (hd <= 128)
-    return launch_fwd<float, 2>(q, k, v, o, lse, B, Sq, Skv, H, KV,
-                                hd, kv_len, causal, window, scale, stream);
-  if (hd <= 192)
-    return launch_fwd<float, 3>(q, k, v, o, lse, B, Sq, Skv, H, KV,
-                                hd, kv_len, causal, window, scale, stream);
-  return launch_fwd<float, 4>(q, k, v, o, lse, B, Sq, Skv, H, KV,
-                              hd, kv_len, causal, window, scale, stream);
+                 cudaStream_t s) {
+  switch (tf32::boxes(hd)) {
+    case 2:
+      return launch_f32<2>(q, k, v, o, lse, B, Sq, Skv, H, KV, hd, kv_len,
+                           causal, window, scale, s);
+    case 4:
+      return launch_f32<4>(q, k, v, o, lse, B, Sq, Skv, H, KV, hd, kv_len,
+                           causal, window, scale, s);
+    case 6:
+      return launch_f32<6>(q, k, v, o, lse, B, Sq, Skv, H, KV, hd, kv_len,
+                           causal, window, scale, s);
+    default:
+      return launch_f32<8>(q, k, v, o, lse, B, Sq, Skv, H, KV, hd, kv_len,
+                           causal, window, scale, s);
+  }
 }
 
 // What launch_decode does: launch, or ask the occupancy calculator.
@@ -851,17 +883,30 @@ int decode_variant(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// f32 prefill (any Sq).  lse: null, or (B, H, Sq) f32 for each row's
-// log-sum-exp (training).  Returns cudaGetLastError() after the launch.
+// f32 prefill (any Sq).  H / KV <= 64, hd a multiple of 8 up to 256.
+// lse: null, or (B, H, Sq) f32 for each row's log-sum-exp (training).
+// Returns cudaGetLastError() after the launch, or -(CUresult) if a tensor
+// map could not be encoded.
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int B, int Sq, int Skv, int H, int KV,
                                        int hd, int kv_len, int causal,
                                        int window, float scale,
                                        void* stream) {
-  return fwd_by_width(q, k, v, o, static_cast<float*>(lse), B, Sq, Skv, H,
+  return f32_by_width(q, k, v, o, static_cast<float*>(lse), B, Sq, Skv, H,
                       KV, hd, kv_len, causal, window, scale,
                       static_cast<cudaStream_t>(stream));
+}
+
+// The f32 prefill's dynamic shared memory at this hd (mirrored by
+// flash_attention.f32_smem_bytes in Python).
+extern "C" int flash_attention_fwd_f32_smem(int hd) {
+  switch (tf32::boxes(hd)) {
+    case 2: return F32Cfg<2>::SMEM;
+    case 4: return F32Cfg<4>::SMEM;
+    case 6: return F32Cfg<6>::SMEM;
+    default: return F32Cfg<8>::SMEM;
+  }
 }
 
 // Sq == 1.  Returns cudaGetLastError() after the launch, or -(CUresult)

@@ -1,5 +1,5 @@
 // Helpers shared by the flash attention kernels (flash_attention.cu: the
-// f32 prefill on the CUDA cores and the decode; flash_attention_tc.cu:
+// f32 prefill in split TF32 and the decode; flash_attention_tc.cu:
 // the bf16 prefill on the tensor cores; flash_attention_bwd.cu and
 // flash_attention_bwd_tc.cu: the backward): masks, staging into shared
 // memory, mbarriers, TMA loads and tensor maps.

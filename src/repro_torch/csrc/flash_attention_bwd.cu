@@ -1,6 +1,7 @@
-// Flash attention backward on the CUDA cores in f32: dQ, dK and dV of the
-// f32 forward's masked softmax attention (flash_attention.cu).  bf16 goes
-// to the tensor-core kernels of flash_attention_bwd_tc.cu at every width.
+// Flash attention backward in f32 on the Hopper tensor cores, as split
+// TF32 products (flash_tf32.cuh): dQ, dK and dV of the f32 forward's
+// masked softmax attention (flash_attention.cu).  bf16 goes to the
+// wgmma kernels of flash_attention_bwd_tc.cu at every width.
 //
 // Replaces no TPU kernel: the reference trains through its plain
 // attention (src/repro/models/attention.py, attend_full) and has no
@@ -16,474 +17,585 @@
 // The sums over the G query heads of a KV head fall into dK_g and dV_g.
 // Visible as the forward: k < kv_len, k <= q if causal, k > q - window
 // if window > 0, positions of q and k both from 0 (so Sq != Skv is
-// cross-attention).  Everything is f32.  Layout as the forward's: q, o,
-// dO, dq (B, Sq, H, hd); k, v, dk, dv (B, Skv, KV, hd); lse and D (B, H,
-// Sq).  hd a multiple of 8 up to 256.
+// cross-attention).  Inputs, outputs, P, dS, D, the exponentials and
+// every sum are f32; the seven products (S^T, dP^T, dV, dK; S, dP, dQ)
+// take f32 operands split into two TF32 halves each, three tensor-core
+// products a k-step, which keeps the route's 1e-4 limit (one TF32
+// product would not).  Layout as the forward's: q, o, dO, dq (B, Sq, H,
+// hd); k, v, dk, dv (B, Skv, KV, hd); lse (B, H, Sq).  hd a multiple of
+// 8 up to 256.
 //
 // Bound on the H100 by operations: five products over the visible pairs
-// (the two score products recomputed, dV, dK and dQ), 10 hd flops a pair
-// and head, at 67 TFLOP/s outside the tensor cores (the 1e-4 limit of
-// the f32 route rules out TF32).  The design (FlashAttention-2's):
+// (the two score products again, dV, dK, dQ), 10 hd flops a pair and
+// head.  f32-accurate products cost three TF32 products, so the least
+// time is at 495 / 3 = 165 TFLOP/s.  What held the CUDA-core kernels
+// this replaces (about 0.22 of the old 67 TFLOP/s bound) and what this
+// design does about it:
+//   - Shared-memory bandwidth: 4 x 4 register patches read a float per
+//     two FMAs.  Here a warp's m16n8k8 product reads 8 bytes a lane of
+//     each operand for 3 x 1024 multiply-adds.
+//   - No overlap of loads with products: tiles were staged by plain loads
+//     between barriers.  Here one producer warp streams the tiles by TMA
+//     into a ring of stages with full / empty mbarriers, so the next tile
+//     lands while this one is multiplied.
 //
-// * flash_attention_bwd_delta_kernel: D, one warp a row.
+// * flash_attention_bwd_lsd_kernel, a pre-pass bound by bytes (a read of
+//   o and dO): for each (b, h) and position q < SP (Sq rounded up to 64)
+//   the pair (lse log2 e, D), (+inf, 0) past Sq (P = 2^(scale log2 e s -
+//   lse log2 e), as the forward's softmax in log2 units), so that those
+//   rows give P = 0 with no test.  A dK / dV tile's pairs are contiguous, and one bulk
+//   copy brings them beside it.
 // * flash_attention_bwd_dkdv_kernel: one block per (b, KV head, tile of
-//   R keys), which loops over the G query heads of its group and, for
-//   each, over the 64-row q tiles that can see its keys (causal and
-//   window bounds; wholly masked tiles are never loaded).  Its K and V
-//   tiles stay in shared memory, and dK and dV in registers for the
-//   whole loop, so the group's sum stays inside the block: no atomics,
-//   no repeated K / V.
-// * flash_attention_bwd_dq_kernel: one block per (b, q head, tile of R
-//   rows), which loops over the 64-key tiles its rows can see, dQ in
-//   registers.
-//
-// Tiles as the f32 prefill's: rows staged as f32 in shared memory, padded
-// to hd + 4 floats; 256 threads, each with an RI x 4 patch of the (R,
-// 64) score tile (rows ty + 16 i, columns tx + 16 j) and RI rows x up to
-// 16 columns of each accumulator (columns 4 tx + 64 jj + e).  R = 64 up
-// to hd 128 and 32 past it, so that two R-row and two 64-row tiles fit
-// the 227 KB of shared memory at hd 256.
+//   KEYS keys), 16 keys a consumer warp, K and V resident (TMA, 4-D maps
+//   that end at kv_len: the keys past it are zeros and no weight meets
+//   what lies there).  A producer warp streams, for each of the G query
+//   heads, the q and dO tiles of QT positions that can see the block's
+//   keys (causal and window bounds: wholly masked tiles are never
+//   loaded), so the group's sum stays inside the block: no atomics, K
+//   and V read once.  Per tile: S^T = K q^T and dP^T = V dO^T (keys x
+//   positions), P^T and dS^T in registers, selected (not multiplied) by
+//   the mask on the tiles that straddle an edge, then dV += P^T dO and
+//   dK += dS^T q with P^T and dS^T straight from the score registers.
+//   Up to hd 128 eight warps (128 keys, 32 positions a tile) hold dK and
+//   dV whole; past it four (64 keys, 16 positions) hold half their
+//   columns each, in two blocks (blockIdx.z) that both compute S^T and
+//   dP^T in full: 2 x hd / 2 + 2 x QT / 2 accumulators a thread either
+//   way.  Key blocks start low first: under causal masking they see the
+//   most tiles.
+// * flash_attention_bwd_dq_kernel: the f32 prefill's block over packed q
+//   tiles (flash_tf32.cuh's Packed: one block per (b, KV head, TILES x 64
+//   packed rows of P = 64 / G positions x the G heads), its producer and
+//   ring of K / V stages and its rows' masks), with q and dO resident.
+//   S = q K^T, dP = dO V^T, dS in registers, dQ += dS K.
+// * Both tiled kernels: eight consumer warps take a producer warpgroup
+//   whose registers they claim (setmaxnreg); four take a producer warp.
+//   Every sum over positions or keys (dV, dK, dQ) runs a tile at a time
+//   in fresh mma accumulators added in f32 (the tensor cores truncate as
+//   they accumulate), a box of 32 columns at a time (four n-blocks, the
+//   split terms in a second chain).  The score products run a box at a
+//   time in a loop the compiler does not unroll: fully unrolled, the
+//   backward ran slower on the H100 (the tile's code, some thousands of
+//   instructions, the likely cause: the instruction cache).
+// * Shared memory: every tile in 128-byte swizzled boxes of 32 columns
+//   (flash_tf32.cuh; TMA writes them, fragment reads are free of bank
+//   conflicts), mirrored by flash_attention.bwd_smem_bytes in Python.
 
-#include <cuda_bf16.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "flash_attention.cuh"
+#include "flash_tf32.cuh"
 
 using namespace flash;
+using namespace flash::tf32;
 
 namespace {
 
-constexpr int BWD_THREADS = 256;
-constexpr int LT = 64;   // rows of the tile a block loops over
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// Positions of a (b, h) slab of (lse, D) pairs: Sq rounded up to 64.
+__host__ __device__ constexpr int lsd_rows(int Sq) {
+  return (Sq + 63) / 64 * 64;
 }
 
-// S = A B1^T and dP = C B2^T over hd for an (16 RI, 64) tile: A / C rows
-// ty + 16 i of the R-row tiles, B1 / B2 rows tx + 16 j of the 64-row
-// tiles (row stride ld).
-template <int RI>
-__device__ __forceinline__ void two_products(const float* A, const float* B1,
-                                             const float* C, const float* B2,
-                                             int ld, int hd, int ty, int tx,
-                                             float (&s)[RI][4],
-                                             float (&dp)[RI][4]) {
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-  for (int d = 0; d < hd; d += 4) {
-    float4 a[RI], c[RI], b1[4], b2[4];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * ld + d);
-      c[i] = *reinterpret_cast<const float4*>(C + (ty + 16 * i) * ld + d);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      b1[j] = *reinterpret_cast<const float4*>(B1 + (tx + 16 * j) * ld + d);
-      b2[j] = *reinterpret_cast<const float4*>(B2 + (tx + 16 * j) * ld + d);
-    }
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = dot4(a[i], b1[j], s[i][j]);
-        dp[i][j] = dot4(c[i], b2[j], dp[i][j]);
-      }
+// The dK / dV kernel: resident K and V of KEYS keys; a ring of q + dO
+// stages of QT positions, each with its QT (lse, D) pairs.
+template <int NB>
+struct KvCfg {
+  static constexpr int WARPS = NB <= 4 ? 8 : 4;      // consumer warps
+  static constexpr int KEYS = 16 * WARPS;
+  static constexpr int QT = NB <= 4 ? 32 : 16;       // positions a tile
+  static constexpr int PARTS = NB <= 4 ? 1 : 2;      // column parts
+  static constexpr int NC = 4 * NB / PARTS;          // 8-column n-blocks
+  static constexpr int THREADS = block_threads(WARPS);
+  static constexpr int KV_BOX = KEYS * ROW_BYTES;
+  static constexpr int Q_BOX = QT * ROW_BYTES;
+  static constexpr int FIXED = 2 * NB * KV_BOX;
+  static constexpr int LSD = 8 * QT;
+  static constexpr int STAGE = 2 * NB * Q_BOX + LSD;
+  static constexpr int STAGES = stages_that_fit(FIXED, STAGE, 4, SMEM_LIMIT);
+  static constexpr int SMEM = smem_bytes(FIXED, STAGE, STAGES);
+};
+
+// The dQ kernel: resident q and dO of TILES 64-row packed tiles; a ring
+// of K + V stages of KT keys.
+template <int NB>
+using DqCfg = PackedCfg<NB, NB <= 4 ? 8 : 4, NB <= 6 ? 32 : 16, 2>;
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(static_cast<uint64_t>(__cvta_generic_to_global(src))),
+      "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Eight lanes a row, 8 floats of o and of dO a lane and step.
+constexpr int LSD_THREADS = 256;
+constexpr int LSD_LANES = 8;
+
+__global__ void __launch_bounds__(LSD_THREADS)
+flash_attention_bwd_lsd_kernel(const float* __restrict__ o,
+                               const float* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               float2* __restrict__ lsd, int rows, int Sq,
+                               int H, int hd, int sp) {
+  const int row = blockIdx.x * (LSD_THREADS / LSD_LANES) +
+                  threadIdx.x / LSD_LANES;
+  const int lane = threadIdx.x % LSD_LANES;
+  if (row >= rows) return;   // whole groups of eight lanes
+  const int q = row % sp;
+  const int bh = row / sp;   // b H + h
+  if (q >= Sq) {
+    if (lane == 0) lsd[row] = make_float2(INFINITY, 0.f);
+    return;
   }
-}
-
-// acc[i][4 jj + e] += sum_r W[ty + 16 i][r] X[r][4 tx + 64 jj + e] over
-// the 64 rows r of X (W's row stride ldw, X's ld).
-template <int RI, int NJ4>
-__device__ __forceinline__ void accumulate(float (&acc)[RI][NJ4 * 4],
-                                           const float* W, int ldw,
-                                           const float* X, int ld, int hd,
-                                           int ty, int tx) {
-  for (int r = 0; r < LT; r += 4) {
-    float4 w[RI];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-      w[i] = *reinterpret_cast<const float4*>(W + (ty + 16 * i) * ldw + r);
-#pragma unroll
-    for (int jj = 0; jj < NJ4; ++jj) {
-      const int c = 4 * tx + 64 * jj;
-      if (c < hd) {
-        float4 x[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          x[e] = *reinterpret_cast<const float4*>(X + (r + e) * ld + c);
-#pragma unroll
-        for (int i = 0; i < RI; ++i) {
-          const float we[4] = {w[i].x, w[i].y, w[i].z, w[i].w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[i][4 * jj + 0] = fmaf(we[e], x[e].x, acc[i][4 * jj + 0]);
-            acc[i][4 * jj + 1] = fmaf(we[e], x[e].y, acc[i][4 * jj + 1]);
-            acc[i][4 * jj + 2] = fmaf(we[e], x[e].z, acc[i][4 * jj + 2]);
-            acc[i][4 * jj + 3] = fmaf(we[e], x[e].w, acc[i][4 * jj + 3]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// Rows ty + 16 i (i < RI) of acc, times `mul`, into row pos0 + ty + 16 i
-// (below `limit`) of a (.., S, NH, hd) tensor at `base`.
-template <typename T, int RI, int NJ4>
-__device__ __forceinline__ void store_rows(T* dst, int64_t base,
-                                           int64_t row_stride, int pos0,
-                                           int limit, int hd, float mul,
-                                           const float (&acc)[RI][NJ4 * 4],
-                                           int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int pos = pos0 + ty + 16 * i;
-    if (pos >= limit) continue;
-    T* row = dst + base + (int64_t)pos * row_stride;
-#pragma unroll
-    for (int jj = 0; jj < NJ4; ++jj) {
-      const int c = 4 * tx + 64 * jj;
-      if (c < hd) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          store1(row + c + e, acc[i][4 * jj + e] * mul);
-      }
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(BWD_THREADS)
-flash_attention_bwd_delta_kernel(const T* __restrict__ o,
-                                 const T* __restrict__ dout,
-                                 float* __restrict__ delta, int rows, int Sq,
-                                 int H, int hd) {
-  const int row = blockIdx.x * (BWD_THREADS / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  // row = (b Sq + q) H + h in the (B, Sq, H, hd) layout.
-  const T* a = o + (int64_t)row * hd;
-  const T* b = dout + (int64_t)row * hd;
+  const int h = bh % H;
+  const int b = bh / H;
+  const int64_t at = (((int64_t)b * Sq + q) * H + h) * hd;
   float sum = 0.f;
-  for (int c = 8 * lane; c < hd; c += 256) {
+  for (int c = 8 * lane; c < hd; c += 8 * LSD_LANES) {
     float x[8], y[8];
-    load8(a + c, x);
-    load8(b + c, y);
+    load8(o + at + c, x);
+    load8(dout + at + c, y);
 #pragma unroll
     for (int e = 0; e < 8; ++e) sum = fmaf(x[e], y[e], sum);
   }
+  // The eight lanes of a row are adjacent and all live.
+  const unsigned group = 0xffu << (threadIdx.x & 24);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (lane == 0) {
-    const int h = row % H;
-    const int bq = row / H;
-    const int q = bq % Sq;
-    const int b = bq / Sq;
-    delta[((int64_t)b * H + h) * Sq + q] = sum;
+  for (int off = LSD_LANES / 2; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(group, sum, off);
+  if (lane == 0)
+    lsd[row] = make_float2(lse[(int64_t)bh * Sq + q] * LOG2E, sum);
+}
+
+// acc (16 x the part's NBOX boxes of 32 columns) += A (16 x 8 NJ, from
+// accumulators) . the part's columns of rows 0 .. 8 NJ - 1 of `tile`, a
+// box at a time (eight chains: four n-blocks, split terms apart), each
+// box's product over the tile in fresh accumulators added in f32.  Part
+// p holds boxes p NBOX .. p NBOX + NBOX - 1; boxes past hd are skipped.
+template <int NBOX, int NJ>
+__device__ __forceinline__ void box_products(float (&acc)[4 * NBOX][4],
+                                             const FragA (&a)[NJ],
+                                             const Tile& tile, int part,
+                                             int box_bytes, const Lane& ln,
+                                             int hd) {
+  const Tile tp{tile.base + part * NBOX * box_bytes, box_bytes};
+#pragma unroll
+  for (int cb = 0; cb < NBOX; ++cb) {
+    if (BOX_COLS * (part * NBOX + cb) < hd) {
+      float big[4][4], small[4][4];
+#pragma unroll
+      for (int c4 = 0; c4 < 4; ++c4)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) big[c4][e] = small[c4][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4) {
+          FragB b;
+          tp.load_b_mn(b, ln, j, 4 * cb + c4);
+          mma3_split(big[c4], small[c4], a[j], b);
+        }
+#pragma unroll
+      for (int c4 = 0; c4 < 4; ++c4)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[4 * cb + c4][e] += big[c4][e] + small[c4][e];
+    }
   }
 }
 
-// R = 16 RI keys a block; NJ4 groups of 4 columns a thread (hd <= 64 NJ4).
-template <typename T, int RI, int NJ4>
-__global__ void __launch_bounds__(BWD_THREADS)
-flash_attention_bwd_dkdv_kernel(const T* __restrict__ q,
-                                const T* __restrict__ k,
-                                const T* __restrict__ v,
-                                const T* __restrict__ dout,
-                                const float* __restrict__ lse,
-                                const float* __restrict__ delta,
-                                T* __restrict__ dk, T* __restrict__ dv,
-                                int Sq, int Skv, int H, int KV, int hd,
-                                int kv_len, int causal, int window,
+template <int NB>
+__global__ void __launch_bounds__(KvCfg<NB>::THREADS, 1)
+flash_attention_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
+                                const __grid_constant__ CUtensorMap omap,
+                                const __grid_constant__ CUtensorMap kmap,
+                                const __grid_constant__ CUtensorMap vmap,
+                                const float2* __restrict__ lsd,
+                                float* __restrict__ dk,
+                                float* __restrict__ dv, int Sq, int Skv,
+                                int H, int KV, int hd, int kv_len,
+                                int causal, int window, int sp,
                                 float scale) {
-  constexpr int R = 16 * RI;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ld = hd + 4;
-  const int ldp = LT + 4;
-  float* Ks = smem;                 // R x ld
-  float* Vs = Ks + R * ld;          // R x ld
-  float* Qs = Vs + R * ld;          // LT x ld, q * scale
-  float* Os = Qs + LT * ld;         // LT x ld, dO
-  float* Ps = Os + LT * ld;         // R x ldp: P (rounded as for p . v)
-  float* Ss = Ps + R * ldp;         // R x ldp: dS
-  float* Ls = Ss + R * ldp;         // LT: lse
-  float* Ds = Ls + LT;              // LT: D
+  using C = KvCfg<NB>;
+  constexpr int STAGES = C::STAGES;
+  const float scale_log2 = scale * LOG2E;
+  constexpr int NJ = C::QT / 8;   // n-blocks of a score tile
+  constexpr int NC = C::NC;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* kvs = smem;                  // K NB boxes, V NB boxes
+  uint8_t* ring = smem + C::FIXED;      // [STAGES][q NB boxes, dO NB]
+  float2* lsd_s =
+      reinterpret_cast<float2*>(ring + STAGES * 2 * NB * C::Q_BOX);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(lsd_s + STAGES * C::QT);
+  // bars[0]: K and V landed; bars[1 + s]: stage s full; bars[1 + STAGES +
+  // s]: stage s empty (one arrival per consumer warp).
 
-  const int bg = blockIdx.y;
+  const int G = H / KV;
+  const int bg = blockIdx.x;
   const int b = bg / KV;
   const int g = bg - b * KV;
-  const int G = H / KV;
-  const int k_lo = blockIdx.x * R;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  const int64_t kv_base = ((int64_t)b * Skv * KV + g) * hd;
-  const int64_t kv_stride = (int64_t)KV * hd;
-
-  float acc_k[RI][NJ4 * 4], acc_v[RI][NJ4 * 4];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int c = 0; c < NJ4 * 4; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  // The q rows [q0, q1) that can see a key of [k_lo, k_hi].
-  const int k_hi = min(k_lo + R, kv_len) - 1;
-  int q0 = causal ? k_lo : 0;
+  // Key blocks low first: under causal masking they see the most tiles.
+  const int k_lo = blockIdx.y * C::KEYS;
+  const int part = blockIdx.z;
+  // The positions [q0, q1) that can see a key of [k_lo, k_hi].
+  const int k_hi = min(k_lo + C::KEYS, kv_len) - 1;
+  const int q0 = causal ? k_lo : 0;
   int q1 = k_hi < k_lo ? q0 : Sq;
   if (window > 0) q1 = min(q1, k_hi + window);
-  const int t0 = q0 / LT;
-  const int t1 = q1 > q0 ? (q1 + LT - 1) / LT : t0;
+  const int tq0 = q0 / C::QT;
+  const int nt = q1 > q0 ? (q1 + C::QT - 1) / C::QT - tq0 : 0;
+  const int n = G * nt;                 // tiles streamed: heads x tiles
+  const int nbox = (hd + BOX_COLS - 1) / BOX_COLS;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
 
-  if (t1 > t0) {
-    stage(Ks, ld, k, kv_base, kv_stride, k_lo, R, kv_len, hd, 1.f,
-          BWD_THREADS);
-    stage(Vs, ld, v, kv_base, kv_stride, k_lo, R, kv_len, hd, 1.f,
-          BWD_THREADS);
+  if (tid == 0) {
+    mbar_init(smem_u32(&bars[0]), 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(&bars[1 + s]), 1);
+      mbar_init(smem_u32(&bars[1 + STAGES + s]), C::WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = g * G + hh;
-    const int64_t q_base = ((int64_t)b * Sq * H + h) * hd;
-    const int64_t q_stride = (int64_t)H * hd;
-    const float* lse_row = lse + ((int64_t)b * H + h) * Sq;
-    const float* d_row = delta + ((int64_t)b * H + h) * Sq;
-    for (int t = t0; t < t1; ++t) {
-      const int q_lo = t * LT;
-      __syncthreads();   // the previous tile's readers are done
-      stage(Qs, ld, q, q_base, q_stride, q_lo, LT, Sq, hd, scale,
-            BWD_THREADS);
-      stage(Os, ld, dout, q_base, q_stride, q_lo, LT, Sq, hd, 1.f,
-            BWD_THREADS);
-      for (int r = tid; r < LT; r += BWD_THREADS) {
-        const bool in = q_lo + r < Sq;
-        Ls[r] = in ? lse_row[q_lo + r] : 0.f;
-        Ds[r] = in ? d_row[q_lo + r] : 0.f;
-      }
-      __syncthreads();
+  __syncthreads();
 
-      float s[RI][4], dp[RI][4];
-      two_products<RI>(Ks, Qs, Vs, Os, ld, hd, ty, tx, s, dp);
+  if (warp >= C::WARPS) {
+    // Producer: one lane issues every copy.
+    if constexpr (C::WARPS == 8) regs_release<PRODUCER_REGS>();
+    if (warp == C::WARPS && lane == 0 && n > 0) {
+      const uint32_t kvbar = smem_u32(&bars[0]);
+      mbar_expect_tx(kvbar, 2 * nbox * C::KV_BOX);
+      for (int c = 0; c < nbox; ++c) {
+        tma_load_4d(smem_u32(kvs + c * C::KV_BOX), &kmap, kvbar,
+                    c * BOX_COLS, g, k_lo, b);
+        tma_load_4d(smem_u32(kvs + (NB + c) * C::KV_BOX), &vmap, kvbar,
+                    c * BOX_COLS, g, k_lo, b);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int h = g * G + i / nt;
+        const int t = tq0 + i % nt;
+        const int s = i % STAGES;
+        mbar_wait(smem_u32(&bars[1 + STAGES + s]), ((i / STAGES) & 1) ^ 1);
+        const uint32_t full = smem_u32(&bars[1 + s]);
+        mbar_expect_tx(full, 2 * nbox * C::Q_BOX + C::LSD);
+        uint8_t* st = ring + s * 2 * NB * C::Q_BOX;
+        for (int c = 0; c < nbox; ++c) {
+          tma_load_4d(smem_u32(st + c * C::Q_BOX), &qmap, full,
+                      c * BOX_COLS, h, t * C::QT, b);
+          tma_load_4d(smem_u32(st + (NB + c) * C::Q_BOX), &omap, full,
+                      c * BOX_COLS, h, t * C::QT, b);
+        }
+        bulk_load(smem_u32(lsd_s + s * C::QT),
+                  lsd + ((int64_t)b * H + h) * sp + t * C::QT, C::LSD, full);
+      }
+    }
+    return;
+  }
+
+  if constexpr (C::WARPS == 8) regs_claim<CONSUMER_REGS>();
+  // Consumer warp: keys ka + g and ka + g + 8 of the block's.
+  const Lane ln(lane);
+  const int m0 = 16 * warp;
+  const int ka = k_lo + m0;
+  const int kl = min(ka + 15, kv_len - 1);   // its last key below kv_len
+  const Tile kt{kvs, C::KV_BOX};
+  const Tile vt{kvs + NB * C::KV_BOX, C::KV_BOX};
+  // This block's part of the columns: n-blocks part NC .. part NC + NC - 1.
+  const int c_lo = part * NC;
+  float dka[NC][4], dva[NC][4];
 #pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const int kpos = k_lo + ty + 16 * i;
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          const int qpos = q_lo + c;
-          const bool vis = qpos < Sq &&
-                           visible(qpos, kpos, kv_len, causal, window);
-          const float p = vis ? expf(s[i][j] - Ls[c]) : 0.f;
-          Ps[(ty + 16 * i) * ldp + c] = p;
-          Ss[(ty + 16 * i) * ldp + c] = vis ? p * (dp[i][j] - Ds[c]) : 0.f;
+    for (int e = 0; e < 4; ++e) dka[c][e] = dva[c][e] = 0.f;
+  if (n > 0) mbar_wait(smem_u32(&bars[0]), 0);
+
+  for (int i = 0; i < n; ++i) {
+    const int t = tq0 + i % nt;
+    const int s = i % STAGES;
+    mbar_wait(smem_u32(&bars[1 + s]), (i / STAGES) & 1);
+    const int pa = t * C::QT;
+    const int pb = min(pa + C::QT, Sq) - 1;
+    if (kl >= ka && (!causal || ka <= pb) &&
+        (window <= 0 || kl > pa - window)) {
+      const uint8_t* st = ring + s * 2 * NB * C::Q_BOX;
+      const Tile qt{st, C::Q_BOX};
+      const Tile ot{st + NB * C::Q_BOX, C::Q_BOX};
+      // S^T = K q^T and dP^T = V dO^T over hd (keys x positions).
+      float sct[NJ][4], dpt[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sct[j][e] = dpt[j][e] = 0.f;
+#pragma unroll 1
+      for (int cb = 0; cb < NB; ++cb) {
+        if (box_live(cb, hd)) {
+#pragma unroll
+          for (int ks = 4 * cb; ks < 4 * cb + 4; ++ks) {
+            FragA ak, av;
+            kt.load_a(ak, ln, ks, m0);
+            vt.load_a(av, ln, ks, m0);
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              FragB bq, bo;
+              qt.load_b(bq, ln, ks, 8 * j);
+              mma3(sct[j], ak, bq);
+              ot.load_b(bo, ln, ks, 8 * j);
+              mma3(dpt[j], av, bo);
+            }
+          }
         }
       }
-      __syncthreads();
-      accumulate<RI, NJ4>(acc_v, Ps, ldp, Os, ld, hd, ty, tx);
-      accumulate<RI, NJ4>(acc_k, Ss, ldp, Qs, ld, hd, ty, tx);
+      // P^T and dS^T, selected to 0 where a pair is masked; positions
+      // past Sq carry lse = +inf, so their P is 0 with no test.
+      const bool edge = ka + 16 > kv_len || (causal && ka + 15 > pa) ||
+                        (window > 0 && ka <= pb - window);
+      const float4* ls = reinterpret_cast<const float4*>(lsd_s + s * C::QT);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 l2 = ls[4 * j + ln.t];   // positions 8j + 2t, + 1
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool vis =
+              !edge || visible(pa + 8 * j + 2 * ln.t + (e & 1),
+                               ka + ln.g + 8 * (e >> 1), kv_len, causal,
+                               window);
+          const float p =
+              vis ? exp2f(fmaf(sct[j][e], scale_log2,
+                               -((e & 1) ? l2.z : l2.x)))
+                  : 0.f;
+          sct[j][e] = p;
+          dpt[j][e] = vis ? p * (dpt[j][e] - ((e & 1) ? l2.w : l2.y)) : 0.f;
+        }
+      }
+      // dV += P^T dO, then dK += dS^T q, over this part's columns a box
+      // of 32 at a time (columns past hd are TMA's zeros), its four
+      // n-blocks' products over the tile in fresh accumulators.
+      FragA fa[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc_to_a(fa[j], sct[j]);
+      box_products<NC / 4, NJ>(dva, fa, ot, part, C::Q_BOX, ln, hd);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc_to_a(fa[j], dpt[j]);
+      box_products<NC / 4, NJ>(dka, fa, qt, part, C::Q_BOX, ln, hd);
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(&bars[1 + STAGES + s]));
   }
-  // Every key row is written: zeros where no query sees it.
-  store_rows<T, RI, NJ4>(dk, kv_base, kv_stride, k_lo, Skv, hd, 1.f, acc_k,
-                         ty, tx);
-  store_rows<T, RI, NJ4>(dv, kv_base, kv_stride, k_lo, Skv, hd, 1.f, acc_v,
-                         ty, tx);
-}
-
-// R = 16 RI q rows a block.
-template <typename T, int RI, int NJ4>
-__global__ void __launch_bounds__(BWD_THREADS)
-flash_attention_bwd_dq_kernel(const T* __restrict__ q,
-                              const T* __restrict__ k,
-                              const T* __restrict__ v,
-                              const T* __restrict__ dout,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta,
-                              T* __restrict__ dq, int Sq, int Skv, int H,
-                              int KV, int hd, int kv_len, int causal,
-                              int window, float scale) {
-  constexpr int R = 16 * RI;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ld = hd + 4;
-  const int ldp = LT + 4;
-  float* Qs = smem;                 // R x ld, q * scale
-  float* Os = Qs + R * ld;          // R x ld, dO
-  float* Ks = Os + R * ld;          // LT x ld
-  float* Vs = Ks + LT * ld;         // LT x ld
-  float* Ss = Vs + LT * ld;         // R x ldp: dS
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int g = h / (H / KV);
-  const int q_lo = blockIdx.x * R;
-  const int q_hi = min(q_lo + R, Sq) - 1;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  const int64_t q_base = ((int64_t)b * Sq * H + h) * hd;
-  const int64_t q_stride = (int64_t)H * hd;
-  const int64_t kv_base = ((int64_t)b * Skv * KV + g) * hd;
-  const int64_t kv_stride = (int64_t)KV * hd;
-
-  stage(Qs, ld, q, q_base, q_stride, q_lo, R, Sq, hd, scale, BWD_THREADS);
-  stage(Os, ld, dout, q_base, q_stride, q_lo, R, Sq, hd, 1.f, BWD_THREADS);
-  float lse_r[RI], d_r[RI];
+  // Every key row below Skv is written: zeros where no query sees it.
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int qpos = q_lo + ty + 16 * i;
-    const int64_t at = ((int64_t)b * H + h) * Sq + qpos;
-    lse_r[i] = qpos < Sq ? lse[at] : 0.f;
-    d_r[i] = qpos < Sq ? delta[at] : 0.f;
-  }
-
-  float acc[RI][NJ4 * 4];
+  for (int h = 0; h < 2; ++h) {
+    const int key = ka + ln.g + 8 * h;
+    if (key >= Skv) continue;
+    const int64_t row = (((int64_t)b * Skv + key) * KV + g) * hd;
 #pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int c = 0; c < NJ4 * 4; ++c) acc[i][c] = 0.f;
-
-  int lo, hi;
-  kv_range(q_lo, q_hi, kv_len, causal, window, &lo, &hi);
-  const int t0 = lo / LT;
-  const int t1 = (hi + LT - 1) / LT;
-  for (int t = t0; t < t1; ++t) {
-    const int k0 = t * LT;
-    __syncthreads();   // the previous tile's readers are done
-    stage(Ks, ld, k, kv_base, kv_stride, k0, LT, kv_len, hd, 1.f,
-          BWD_THREADS);
-    stage(Vs, ld, v, kv_base, kv_stride, k0, LT, kv_len, hd, 1.f,
-          BWD_THREADS);
-    __syncthreads();
-
-    float s[RI][4], dp[RI][4];
-    two_products<RI>(Qs, Ks, Os, Vs, ld, hd, ty, tx, s, dp);
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int qpos = q_lo + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool vis = qpos < Sq &&
-                         visible(qpos, k0 + c, kv_len, causal, window);
-        const float p = vis ? expf(s[i][j] - lse_r[i]) : 0.f;
-        Ss[(ty + 16 * i) * ldp + c] = vis ? p * (dp[i][j] - d_r[i]) : 0.f;
+    for (int c = 0; c < NC; ++c) {
+      const int col = 8 * (c_lo + c) + 2 * ln.t;
+      if (8 * (c_lo + c) < hd) {
+        *reinterpret_cast<float2*>(dk + row + col) =
+            make_float2(dka[c][2 * h] * scale, dka[c][2 * h + 1] * scale);
+        *reinterpret_cast<float2*>(dv + row + col) =
+            make_float2(dva[c][2 * h], dva[c][2 * h + 1]);
       }
     }
-    __syncthreads();
-    accumulate<RI, NJ4>(acc, Ss, ldp, Ks, ld, hd, ty, tx);
   }
-  store_rows<T, RI, NJ4>(dq, q_base, q_stride, q_lo, Sq, hd, scale, acc, ty,
-                         tx);
 }
 
-// Rows of the tile a block owns: 64 up to hd 128, 32 past it.
-__host__ __device__ constexpr int bwd_rows(int hd) {
-  return hd <= 128 ? 64 : 32;
+template <int NB>
+__global__ void __launch_bounds__(DqCfg<NB>::THREADS, 1)
+flash_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap omap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              const float2* __restrict__ lsd,
+                              float* __restrict__ dq, int Sq, int H, int KV,
+                              int hd, int kv_len, int causal, int window,
+                              int sp, float scale) {
+  using C = DqCfg<NB>;
+  const float scale_log2 = scale * LOG2E;
+  constexpr int NJ = C::KT / 8;
+  constexpr int NC = 4 * NB;
+  extern __shared__ uint8_t smem_raw[];
+  const Packed<C> blk(smem_raw, Sq, H, KV, hd, kv_len, causal, window);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  blk.init(tid);
+
+  if (warp >= C::WARPS) {
+    if constexpr (C::WARPS == 8) regs_release<PRODUCER_REGS>();
+    if (warp == C::WARPS && lane == 0) {
+      const CUtensorMap* const qmaps[2] = {&qmap, &omap};
+      blk.produce(qmaps, &kmap, &vmap);
+    }
+    return;
+  }
+
+  if constexpr (C::WARPS == 8) regs_claim<CONSUMER_REGS>();
+  const Lane ln(lane);
+  const PackedRows rw(blk, warp, ln, Sq, kv_len, causal, window);
+  const int m0 = rw.m0;
+  float lse_r[2], d_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float2 x =
+        rw.live[h]
+            ? lsd[((int64_t)blk.b * H + rw.head[h]) * sp + rw.qpos[h]]
+            : make_float2(INFINITY, 0.f);
+    lse_r[h] = x.x;
+    d_r[h] = x.y;
+  }
+  const Tile qt = blk.resident(0, rw.wt);
+  const Tile ot = blk.resident(1, rw.wt);
+  float dqa[NC][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[c][e] = 0.f;
+  blk.wait_resident();
+
+  for (int t = blk.t0, i = 0; t < blk.t1; ++t, ++i) {
+    const int k0 = t * C::KT;
+    blk.wait_full(i);
+    if (rw.sees(k0, C::KT)) {
+      const Tile kt = blk.k_tile(i);
+      const Tile vt = blk.v_tile(i);
+      // S = q K^T and dP = dO V^T over hd, two chains each.
+      float sc[NJ][4], dp[NJ][4], scs[NJ][4], dps[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[j][e] = dp[j][e] = scs[j][e] = dps[j][e] = 0.f;
+#pragma unroll 1
+      for (int cb = 0; cb < NB; ++cb) {
+        if (box_live(cb, hd)) {
+#pragma unroll
+          for (int ks = 4 * cb; ks < 4 * cb + 4; ++ks) {
+            FragA aq, ao;
+            qt.load_a(aq, ln, ks, m0);
+            ot.load_a(ao, ln, ks, m0);
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              FragB bk, bv;
+              kt.load_b(bk, ln, ks, 8 * j);
+              mma3_split(sc[j], scs[j], aq, bk);
+              vt.load_b(bv, ln, ks, 8 * j);
+              mma3_split(dp[j], dps[j], ao, bv);
+            }
+          }
+        }
+      }
+      const bool edge = rw.edge(k0, C::KT, kv_len, causal, window);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const bool vis =
+              !edge || visible(rw.qpos[h], k0 + 8 * j + 2 * ln.t + (e & 1),
+                               kv_len, causal, window);
+          const float p =
+              vis ? exp2f(fmaf(sc[j][e] + scs[j][e], scale_log2, -lse_r[h]))
+                  : 0.f;
+          sc[j][e] = vis ? p * (dp[j][e] + dps[j][e] - d_r[h]) : 0.f;   // dS
+        }
+      // dQ += dS K, dS straight from the score registers.
+      FragA ad[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc_to_a(ad[j], sc[j]);
+      box_products<NB, NJ>(dqa, ad, kt, 0, C::KV_BOX, ln, hd);
+    }
+    blk.release(i, lane);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!rw.live[h]) continue;
+    float* row =
+        dq + (((int64_t)blk.b * Sq + rw.qpos[h]) * H + rw.head[h]) * hd;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (8 * c < hd)
+        *reinterpret_cast<float2*>(row + 8 * c + 2 * ln.t) = make_float2(
+            dqa[c][2 * h] * scale, dqa[c][2 * h + 1] * scale);
+  }
 }
 
-// Dynamic shared memory of the dK / dV kernel (the larger of the two):
-// two R-row and two 64-row tiles of hd + 4 floats, the P and dS tiles,
-// lse and D.
-size_t bwd_smem_bytes(int hd) {
-  const int r = bwd_rows(hd);
-  return sizeof(float) *
-         ((size_t)(2 * r + 2 * LT) * (hd + 4) + 2 * r * (LT + 4) + 2 * LT);
-}
-
-size_t dq_smem_bytes(int hd) {
-  const int r = bwd_rows(hd);
-  return sizeof(float) * ((size_t)(2 * r + 2 * LT) * (hd + 4) + r * (LT + 4));
-}
-
-template <typename T, int RI, int NJ4>
-int launch_bwd(const T* q, const T* k, const T* v, const T* o,
-               const T* dout, const float* lse, float* delta, T* dq, T* dk,
-               T* dv, int B, int Sq, int Skv, int H, int KV, int hd,
-               int kv_len, int causal, int window, float scale,
-               cudaStream_t stream) {
-  const int rows = B * Sq * H;
-  const int warps = BWD_THREADS / 32;
-  flash_attention_bwd_delta_kernel<T>
-      <<<(rows + warps - 1) / warps, BWD_THREADS, 0, stream>>>(
-          o, dout, delta, rows, Sq, H, hd);
+template <int NB>
+int launch_bwd(const float* q, const float* k, const float* v,
+               const float* o, const float* dout, const float* lse,
+               float2* lsd, float* dq, float* dk, float* dv, int B, int Sq,
+               int Skv, int H, int KV, int hd, int kv_len, int causal,
+               int window, float scale, cudaStream_t stream) {
+  using KC = KvCfg<NB>;
+  using QC = DqCfg<NB>;
+  const int sp = lsd_rows(Sq);
+  const int rows = B * H * sp;
+  const int per = LSD_THREADS / LSD_LANES;
+  flash_attention_bwd_lsd_kernel<<<(rows + per - 1) / per, LSD_THREADS, 0,
+                                   stream>>>(o, dout, lse, lsd, rows, Sq, H,
+                                             hd, sp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  constexpr int R = 16 * RI;
-  const size_t smem_kv = bwd_smem_bytes(hd);
-  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<T, RI, NJ4>,
+  // K and V end at kv_len: the keys past it come back as zeros.  q and dO
+  // by head here (the dK / dV kernel), packed by KV head for dQ.
+  const cuuint64_t q4[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)Sq,
+                            (cuuint64_t)B};
+  const cuuint32_t q4_box[4] = {BOX_COLS, 1, KC::QT, 1};
+  CUtensorMap kmap, vmap, qmap, omap;
+  int rc = encode_keys(&kmap, k, B, Skv, KV, hd, kv_len, KC::KEYS);
+  if (rc == 0) rc = encode_keys(&vmap, v, B, Skv, KV, hd, kv_len, KC::KEYS);
+  if (rc == 0) rc = encode_map(&qmap, q, 4, 4, q4, q4_box);
+  if (rc == 0) rc = encode_map(&omap, dout, 4, 4, q4, q4_box);
+  if (rc != 0) return rc;
+  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<NB>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_kv);
+                             KC::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid_kv((Skv + R - 1) / R, B * KV);
-  flash_attention_bwd_dkdv_kernel<T, RI, NJ4>
-      <<<grid_kv, BWD_THREADS, smem_kv, stream>>>(
-          q, k, v, dout, lse, delta, dk, dv, Sq, Skv, H, KV, hd, kv_len,
-          causal, window, scale);
+  dim3 grid_kv(B * KV, (Skv + KC::KEYS - 1) / KC::KEYS, KC::PARTS);
+  flash_attention_bwd_dkdv_kernel<NB>
+      <<<grid_kv, KC::THREADS, KC::SMEM, stream>>>(
+          qmap, omap, kmap, vmap, lsd, dk, dv, Sq, Skv, H, KV, hd, kv_len,
+          causal, window, sp, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem_q = dq_smem_bytes(hd);
-  err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<T, RI, NJ4>,
+  rc = encode_keys(&kmap, k, B, Skv, KV, hd, kv_len, QC::KT);
+  if (rc == 0) rc = encode_keys(&vmap, v, B, Skv, KV, hd, kv_len, QC::KT);
+  if (rc == 0) rc = encode_packed(&qmap, q, B, Sq, H, KV, hd);
+  if (rc == 0) rc = encode_packed(&omap, dout, B, Sq, H, KV, hd);
+  if (rc != 0) return rc;
+  err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<NB>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_q);
+                             QC::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid_q((Sq + R - 1) / R, B * H);
-  flash_attention_bwd_dq_kernel<T, RI, NJ4>
-      <<<grid_q, BWD_THREADS, smem_q, stream>>>(
-          q, k, v, dout, lse, delta, dq, Sq, Skv, H, KV, hd, kv_len, causal,
-          window, scale);
+  flash_attention_bwd_dq_kernel<NB>
+      <<<packed_grid<QC>(B, Sq, H, KV), QC::THREADS, QC::SMEM, stream>>>(
+      qmap, omap, kmap, vmap, lsd, dq, Sq, H, KV, hd, kv_len, causal, window,
+      sp, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int bwd_by_width(const void* q, const void* k, const void* v, const void* o,
-                 const void* dout, const void* lse, void* delta, void* dq,
-                 void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
-                 int hd, int kv_len, int causal, int window, float scale,
-                 cudaStream_t s) {
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* to = static_cast<const T*>(o);
-  const T* tdo = static_cast<const T*>(dout);
-  const float* fl = static_cast<const float*>(lse);
-  float* fd = static_cast<float*>(delta);
-  T* tdq = static_cast<T*>(dq);
-  T* tdk = static_cast<T*>(dk);
-  T* tdv = static_cast<T*>(dv);
-  if (hd <= 64)
-    return launch_bwd<T, 4, 1>(tq, tk, tv, to, tdo, fl, fd, tdq, tdk, tdv, B,
-                               Sq, Skv, H, KV, hd, kv_len, causal, window,
-                               scale, s);
-  if (hd <= 128)
-    return launch_bwd<T, 4, 2>(tq, tk, tv, to, tdo, fl, fd, tdq, tdk, tdv, B,
-                               Sq, Skv, H, KV, hd, kv_len, causal, window,
-                               scale, s);
-  if (hd <= 192)
-    return launch_bwd<T, 2, 3>(tq, tk, tv, to, tdo, fl, fd, tdq, tdk, tdv, B,
-                               Sq, Skv, H, KV, hd, kv_len, causal, window,
-                               scale, s);
-  return launch_bwd<T, 2, 4>(tq, tk, tv, to, tdo, fl, fd, tdq, tdk, tdv, B,
-                             Sq, Skv, H, KV, hd, kv_len, causal, window,
-                             scale, s);
+template <int NB>
+constexpr int bwd_smem() {
+  return KvCfg<NB>::SMEM > DqCfg<NB>::SMEM ? KvCfg<NB>::SMEM
+                                           : DqCfg<NB>::SMEM;
 }
 
 }  // namespace
 
-// dQ, dK, dV in f32 (and D into `delta`, (B, H, Sq) f32 scratch) of the
-// forward with these masks.  Three launches on `stream`; returns the
-// first cudaError, or 0.
+// dQ, dK, dV in f32 of the forward with these masks.  `delta` is f32
+// scratch of B x H x SP x 2 floats (SP = Sq rounded up to 64) for the
+// rows' (lse, D) pairs.  H / KV <= 64.  Three launches on `stream`;
+// returns the first cudaError, or -(CUresult) if a tensor map could not
+// be encoded, or 0.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
@@ -491,13 +603,40 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int B, int Sq, int Skv, int H, int KV,
                                    int hd, int kv_len, int causal, int window,
                                    float scale, void* stream) {
-  return bwd_by_width<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq,
-                             Skv, H, KV, hd, kv_len, causal, window, scale,
-                             static_cast<cudaStream_t>(stream));
+  const float* fq = static_cast<const float*>(q);
+  const float* fk = static_cast<const float*>(k);
+  const float* fv = static_cast<const float*>(v);
+  const float* fo = static_cast<const float*>(o);
+  const float* fdo = static_cast<const float*>(dout);
+  const float* fl = static_cast<const float*>(lse);
+  float2* lsd = static_cast<float2*>(delta);
+  float* fdq = static_cast<float*>(dq);
+  float* fdk = static_cast<float*>(dk);
+  float* fdv = static_cast<float*>(dv);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (boxes(hd)) {
+    case 2:
+      return launch_bwd<2>(fq, fk, fv, fo, fdo, fl, lsd, fdq, fdk, fdv, B, Sq,
+                           Skv, H, KV, hd, kv_len, causal, window, scale, s);
+    case 4:
+      return launch_bwd<4>(fq, fk, fv, fo, fdo, fl, lsd, fdq, fdk, fdv, B, Sq,
+                           Skv, H, KV, hd, kv_len, causal, window, scale, s);
+    case 6:
+      return launch_bwd<6>(fq, fk, fv, fo, fdo, fl, lsd, fdq, fdk, fdv, B, Sq,
+                           Skv, H, KV, hd, kv_len, causal, window, scale, s);
+    default:
+      return launch_bwd<8>(fq, fk, fv, fo, fdo, fl, lsd, fdq, fdk, fdv, B, Sq,
+                           Skv, H, KV, hd, kv_len, causal, window, scale, s);
+  }
 }
 
-// The backward's largest dynamic shared memory (its dK / dV kernel's),
-// mirrored by flash_attention.bwd_smem_bytes in Python.
+// The backward's largest dynamic shared memory (of its dK / dV and dQ
+// kernels), mirrored by flash_attention.bwd_smem_bytes in Python.
 extern "C" int flash_attention_bwd_smem(int hd) {
-  return (int)bwd_smem_bytes(hd);
+  switch (boxes(hd)) {
+    case 2: return bwd_smem<2>();
+    case 4: return bwd_smem<4>();
+    case 6: return bwd_smem<6>();
+    default: return bwd_smem<8>();
+  }
 }

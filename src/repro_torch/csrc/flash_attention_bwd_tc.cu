@@ -5,7 +5,7 @@
 // Replaces no TPU kernel: the reference trains through its plain
 // attention (src/repro/models/attention.py, attend_full) and has no
 // Pallas backward; its gradient here is written by hand because the
-// forward is.  f32 keeps the CUDA-core kernels of flash_attention_bwd.cu.
+// forward is.  f32 takes the split-TF32 kernels of flash_attention_bwd.cu.
 // Computes, per (batch, q head h, q row i, key j) with g = h / (H / KV)
 // the KV head:
 //   P_ij  = exp(scale q_i . k_j - lse_i) where visible, else 0;

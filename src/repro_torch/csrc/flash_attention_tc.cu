@@ -2,7 +2,7 @@
 //
 // Replaces, for bf16 inputs with more than one query row, the TPU kernel
 // flash_attention_kernel (_flash_kernel) of
-// src/repro/kernels/flash_attention.py; f32 keeps the CUDA-core kernel of
+// src/repro/kernels/flash_attention.py; f32 takes the split-TF32 kernel of
 // flash_attention.cu.  Computes, per (batch, q head, q row): s = q k^T,
 // accumulated in f32 on bf16 inputs; x = s * scale (in the f32
 // accumulator, log2 units); visible where k < kv_len, k <= q if causal
@@ -43,7 +43,7 @@
 //   threads with 80 accumulator registers each), and G = 1, 4, 5 use
 //   64, 64 and 60 of the 64 rows.  Rows past G x P are zeroed once and
 //   never stored.
-// * Tile skip as the CUDA-core kernel: a block walks only the kv tiles
+// * Tile skip as the f32 kernel: a block walks only the kv tiles
 //   that its positions can see (causal and window bounds), and builds
 //   the mask only on tiles that straddle the causal, window or kv_len
 //   edge.

@@ -57,6 +57,7 @@ SIGNATURES = {
                  _F, _F, _F, _F, _I, _F, _F, _I, _I, _I, _P],
     "flash_attention_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _F, _P],
+    "flash_attention_fwd_f32_smem": [_I],
     "flash_attention_fwd_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _F, _P],
     "flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_F, _P],

@@ -21,7 +21,12 @@ Three routes on the card (:func:`route`), each with its launch count in
   reference's model path does; :func:`repro_torch.kernels._check.
   bf16_prefill_ratio` and ``bf16_rounding_bias`` are its checks.
 * ``prefill_f32`` — f32, ``Sq > 1``: ``csrc/flash_attention.cu``, on the
-  CUDA cores in f32 (the 1e-5 limit rules out TF32 tensor cores).
+  tensor cores as split-precision TF32 products (``csrc/flash_tf32.cuh``:
+  each f32 operand split into two TF32 halves, three products a k-step,
+  about 2^-21 of ``|a||b|`` a product, inside the 1e-5 limit that one
+  TF32 product misses); q tiles pack a KV head's query group, K/V by TMA
+  into a ring of stages.  Bound by operations at 165 TFLOP/s (a third of
+  the 495 TF32 rate).
 * ``decode`` — ``Sq == 1``, either type: ``csrc/flash_attention.cu``, one
   block per KV head and kv split with the query group together, K/V tiles
   in the input type by TMA into a ring of stages (bf16 scores on the
@@ -41,8 +46,9 @@ backward is :func:`flash_attention_bwd`, on one of two routes
   product's operand.  Past hd 128 dV and dK come from two kernels (a
   64-key warpgroup's two accumulators and two score tiles would exceed
   its 240 registers).
-* ``backward`` — f32: ``csrc/flash_attention_bwd.cu``, on the CUDA cores
-  in f32.
+* ``backward`` — f32: ``csrc/flash_attention_bwd.cu``, every product on
+  the tensor cores as split TF32 (as ``prefill_f32``), q / dO and K / V
+  tiles by TMA.
 
 The reference has no backward kernel: it differentiates its plain
 attention, which the CPU route here does in
@@ -71,8 +77,11 @@ NEG_INF = -1e30
 BLOCK_K = 64            # keys per prefill tile, as in the CUDA sources
 DECODE_BLOCK_K = 32     # keys per decode tile
 MAX_HEAD_DIM = 256
-# The tensor-core prefill packs (q position, head) pairs into 64 rows.
+# The tensor-core kernels (bf16 and f32) pack (q position, head) pairs
+# into 64 rows.
 MAX_TC_GROUP = 64
+# f32 columns of a TMA box with the 128-byte swizzle.
+F32_BOX_COLS = 32
 # Shared memory a block may ask for on the H100 (227 KB).
 SMEM_LIMIT = 232448
 # The decode kernel's most splits of one (batch, KV head): they form one
@@ -101,6 +110,17 @@ def bwd_route(dtype: torch.dtype, hd: int) -> str:
     return "backward_tc" if dtype == torch.bfloat16 else "backward"
 
 
+def check_group(grp: int, which: str) -> None:
+    """Raise unless ``grp`` query heads per KV head fit the kernel of
+    route ``which``: every route but ``decode``, f32 and bf16 alike, packs
+    (position, head) pairs into 64-row tiles, so it serves at most
+    :data:`MAX_TC_GROUP` (the f32 kernels on the CUDA cores before them
+    served any group; no configuration of the zoo has more than 64)."""
+    if which != "decode" and grp > MAX_TC_GROUP:
+        raise ValueError(f"{grp} query heads per KV head exceed the "
+                         f"{which} kernel's {MAX_TC_GROUP}")
+
+
 def tc_smem_bytes(hd: int) -> int:
     """Dynamic shared memory of the tensor-core prefill (its ``TcCfg``):
     1024 bytes of alignment slack, two warpgroups' q tiles and a ring of
@@ -113,14 +133,57 @@ def tc_smem_bytes(hd: int) -> int:
         + 8 * (1 + 2 * stages)
 
 
+def f32_boxes(hd: int) -> int:
+    """Boxes of 32 f32 columns (128 bytes, TMA's swizzle width) that the
+    f32 kernels' instantiation for ``hd`` covers: 2, 4, 6 or 8."""
+    boxes = -(-hd // F32_BOX_COLS)
+    return -(-boxes // 2) * 2
+
+
+def _ring_smem(fixed: int, stage: int, most: int = 4) -> int:
+    """Shared memory of an f32 kernel with ``fixed`` resident bytes and
+    the most ring stages of ``stage`` bytes, up to ``most``, that fit
+    :data:`SMEM_LIMIT`: 1024 bytes of alignment slack and a full and an
+    empty mbarrier a stage, and one more (``tf32::smem_bytes``)."""
+    def smem(stages: int) -> int:
+        return 1024 + fixed + stages * stage + 8 * (1 + 2 * stages)
+    stages = most
+    while stages > 1 and smem(stages) > SMEM_LIMIT:
+        stages -= 1
+    return smem(stages)
+
+
+def f32_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of the f32 prefill (its ``F32Cfg``, the C
+    entry ``flash_attention_fwd_f32_smem``): the q tiles (two of 64 packed
+    rows up to hd 128, one past it) and a ring of K + V stages (64 keys
+    up to hd 128, 32 past it), in boxes of 128 bytes a row."""
+    nb = f32_boxes(hd)
+    tiles, keys = (2, 64) if nb <= 4 else (1, 32)
+    return _ring_smem(tiles * nb * 64 * 128, 2 * nb * keys * 128)
+
+
 def bwd_smem_bytes(hd: int) -> int:
-    """Dynamic shared memory of the backward's dK / dV kernel, the larger
-    of its two: f32 tiles of K and V (64 keys up to hd 128, 32 past it)
-    and of q and dO (64 rows), rows of hd + 4 floats, the P and dS tiles
-    (rows of 68 floats) and 64 lse and D values."""
-    rows = 64 if hd <= 128 else 32
-    return 4 * ((2 * rows + 2 * BLOCK_K) * (hd + 4)
-                + 2 * rows * (BLOCK_K + 4) + 2 * BLOCK_K)
+    """Dynamic shared memory of the f32 backward, the larger of its two
+    tiled kernels (the C entry ``flash_attention_bwd_smem``): the dK / dV
+    kernel's resident K and V (128 keys up to hd 128, 64 past it) and a
+    ring of q + dO stages (32 positions, 16 past hd 128) with 8 bytes of
+    (lse, D) a position; the dQ kernel's resident q and dO (two 64-row
+    tiles, one past hd 128) and a ring of K + V stages (32 keys, 16 past
+    hd 192)."""
+    nb = f32_boxes(hd)
+    keys, qt = (128, 32) if nb <= 4 else (64, 16)
+    kv = _ring_smem(2 * nb * keys * 128, 2 * nb * qt * 128 + 8 * qt)
+    tiles = 2 if nb <= 4 else 1
+    kt = 32 if nb <= 6 else 16
+    dq = _ring_smem(2 * tiles * nb * 64 * 128, 2 * nb * kt * 128)
+    return max(kv, dq)
+
+
+def lsd_rows(sq: int) -> int:
+    """Positions of a (batch, head) slab of the f32 backward's (lse, D)
+    scratch: Sq rounded up to 64."""
+    return -(-sq // 64) * 64
 
 
 def bwd_tc_width(hd: int) -> int:
@@ -419,13 +482,12 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     which = route(q.dtype, sq, with_lse)
     if which == "decode":
         tma_strides((hd, kvh, skv, b), k.element_size())
-    elif which == "prefill_tc":
-        if grp > MAX_TC_GROUP:
-            raise ValueError(f"{grp} query heads per KV head exceed the "
-                             f"tensor-core kernel's {MAX_TC_GROUP}")
+    else:
+        check_group(grp, which)
         tma_strides((hd, grp, kvh, sq, b), q.element_size())
         tma_strides((hd, kvh, skv, b), k.element_size())
-        check_smem(tc_smem_bytes(hd), "prefill_tc")
+        check_smem(tc_smem_bytes(hd) if which == "prefill_tc"
+                   else f32_smem_bytes(hd), which)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev) \
         if with_lse else None
@@ -480,14 +542,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     grp = h // kvh
     _check.cuda_operand("lse", lse, torch.float32, (b, h, sq), q.device)
     which = bwd_route(q.dtype, hd)
+    check_group(grp, which)
+    tma_strides((hd, grp, kvh, sq, b), q.element_size())
+    tma_strides((hd, kvh, skv, b), k.element_size())
     if which == "backward_tc":
-        if grp > MAX_TC_GROUP:
-            raise ValueError(f"{grp} query heads per KV head exceed the "
-                             f"tensor-core backward's {MAX_TC_GROUP}")
-        tma_strides((hd, grp, kvh, sq, b), q.element_size())
-        tma_strides((hd, kvh, skv, b), k.element_size())
         check_smem(bwd_tc_smem_bytes(hd), which)
     else:
+        tma_strides((hd, h, sq, b), q.element_size())
         check_smem(bwd_smem_bytes(hd), which)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
@@ -508,8 +569,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          *outs, b, sq, skv, h, kvh, hd,
                                          *masks)
     else:
-        delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-        err = lib.flash_attention_bwd(*pointers, delta.data_ptr(), *outs,
+        # (lse, D) of each position of each (batch, head), Sq padded to 64.
+        scratch = torch.empty((b, h, lsd_rows(sq), 2), dtype=torch.float32,
+                              device=q.device)
+        err = lib.flash_attention_bwd(*pointers, scratch.data_ptr(), *outs,
                                       b, sq, skv, h, kvh, hd, *masks)
     _build.check(err, f"flash_attention ({which})")
     flash_attention.launches += 1

@@ -272,6 +272,22 @@ def test_bf16_prefill_always_takes_the_tensor_cores(sq):
         tfa.check_smem(tfa.tc_smem_bytes(hd), "prefill_tc")
 
 
+def test_f32_prefill_smem_fits_every_width():
+    """The f32 prefill's shared memory (``f32_smem_bytes``, the mirror of
+    the C entry ``flash_attention_fwd_f32_smem``, which the card checks)
+    fits the H100 at every accepted width: two 64-row q tiles and two
+    stages of 64 keys up to hd 128, one tile and three or two stages of
+    32 keys past it."""
+    for hd in range(8, tfa.MAX_HEAD_DIM + 1, 8):
+        assert 0 < tfa.f32_smem_bytes(hd) <= tfa.SMEM_LIMIT, hd
+        assert tfa.f32_boxes(hd) in (2, 4, 6, 8)
+        assert 32 * tfa.f32_boxes(hd) >= hd
+    assert tfa.f32_smem_bytes(64) == 164936
+    assert tfa.f32_smem_bytes(120) == tfa.f32_smem_bytes(128) == 197672
+    assert tfa.f32_smem_bytes(160) == 197688
+    assert tfa.f32_smem_bytes(256) == 197672
+
+
 def test_shared_memory_over_the_limit_raises():
     """The widest head fits the tensor-core prefill; a byte over 227 KB
     raises before any launch."""

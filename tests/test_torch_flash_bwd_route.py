@@ -1,12 +1,13 @@
 """The flash backward's two routes, on the CPU (no JAX).
 
 ``flash_attention.bwd_route`` names the kernel that serves a backward on
-the card: ``backward_tc`` (``csrc/flash_attention_bwd_tc.cu``, the tensor
-cores) for bf16 at every width the forward serves (multiples of 8 up to
-256), ``backward`` (``csrc/flash_attention_bwd.cu``, the CUDA cores) for
-f32.  The tensor-core kernels' shared memory (``bwd_tc_smem_bytes``, the
-mirror of the C entry ``flash_attention_bwd_tc_smem``) fits the H100 at
-every width, and each route has its launch count.  CPU tensors take the
+the card: ``backward_tc`` (``csrc/flash_attention_bwd_tc.cu``, wgmma)
+for bf16 at every width the forward serves (multiples of 8 up to 256),
+``backward`` (``csrc/flash_attention_bwd.cu``, split TF32 on the tensor
+cores) for f32.  Both routes' shared memory (``bwd_tc_smem_bytes`` and
+``bwd_smem_bytes``, the mirrors of the C entries
+``flash_attention_bwd_tc_smem`` and ``flash_attention_bwd_smem``) fits
+the H100 at every width, and each route has its launch count.  CPU tensors take the
 plain backward whatever the route; the kernels themselves are held
 against it on the card (``tests/test_torch_flash_grad_card.py``).
 """
@@ -54,6 +55,35 @@ def test_bwd_tc_smem_fits_every_width_it_serves(one_thread):
     assert tfa.bwd_tc_smem_bytes(256) == 198696
     with pytest.raises(ValueError, match="up to 256"):
         tfa.bwd_tc_smem_bytes(264)
+
+
+@pytest.mark.parametrize("which", ["prefill_tc", "prefill_f32",
+                                   "backward_tc", "backward"])
+def test_packed_routes_take_at_most_64_heads_a_group(which):
+    """Every route but decode packs (position, head) pairs into 64-row
+    tiles, the f32 ones as the bf16 ones: a group of 64 query heads per
+    KV head fits, 65 raises before any launch; decode takes any group."""
+    tfa.check_group(tfa.MAX_TC_GROUP, which)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        tfa.check_group(tfa.MAX_TC_GROUP + 1, which)
+    tfa.check_group(tfa.MAX_TC_GROUP + 1, "decode")
+
+
+def test_bwd_f32_smem_fits_every_width(one_thread):
+    """The f32 backward's larger kernel fits at every width: up to hd 128
+    the dK / dV kernel (K and V of 128 keys, three q + dO stages of 32
+    positions with their (lse, D) pairs); past it K and V of 64 keys and
+    stages of 16 positions, or the dQ kernel."""
+    for hd in HEAD_DIMS:
+        assert tfa.bwd_route(torch.float32, hd) == "backward"
+        assert 0 < tfa.bwd_smem_bytes(hd) <= tfa.SMEM_LIMIT, hd
+    assert tfa.bwd_smem_bytes(64) == 133192
+    assert tfa.bwd_smem_bytes(120) == tfa.bwd_smem_bytes(128) == 231224
+    assert tfa.bwd_smem_bytes(160) == 198216
+    assert tfa.bwd_smem_bytes(256) == 230840
+    # The (lse, D) scratch: Sq rounded up to 64 positions a (b, head).
+    assert [tfa.lsd_rows(s) for s in (1, 64, 65, 1024)] == [64, 64, 128,
+                                                            1024]
 
 
 @pytest.mark.parametrize("hd", HEAD_DIMS)

@@ -17,7 +17,7 @@ no JAX (``pytest tests/test_torch_flash_grad_card.py -k on_card``):
   (G = 5, a window).  Each call launches once, through its
   ``bwd_route``: the tensor-core kernels
   (``csrc/flash_attention_bwd_tc.cu``, route ``backward_tc``) for bf16 at
-  every width, the CUDA-core kernel (``csrc/flash_attention_bwd.cu``,
+  every width, the split-TF32 kernels (``csrc/flash_attention_bwd.cu``,
   route ``backward``) for f32.  The keys and values past ``kv_len`` are
   NaN for the kernels' forward (its output must stay finite) and
   backward, each launched after a NaN fill of shared memory (the plain
