@@ -231,7 +231,20 @@ each phase failing the script on error:
     FLOPs over path 21's warm step are printed as TFLOP/s.  Then one
     production record, qwen3-14b x train_4k at 16x16 and at 2x16x16
     (abstract meshes, nothing allocated): per-device argument bytes,
-    FLOPs, the planned collectives and the wall.
+    FLOPs, the planned collectives and the wall;
+21. path 24 (run after path 11), the legacy per-round loop
+    ``run_federated_loop`` at full width, 3 rounds each on the configs
+    of paths 1 (24a), 11 (24b: path 2 with every telemetry group on) and
+    3 (24c, 8-bit ``quant``), each beside ``run_federated`` on the same
+    config with deterministic algorithms on: records and parameters bit
+    for bit, every kernel's launches equal, 24b's host frames (numpy,
+    ``(R, K)`` or ``(R,)``) equal to ``run_federated``'s device frames;
+    the warm wall per round of both on path 1's config in turns, the host
+    syncs of a 1-round and a 3-round run of each (the loop's extra ones
+    must all be its per-round copies); and, after the batch paths' check
+    of phase 9, the loop at K = 16 on path 2's config with a cap of 4 and
+    the bf16 carry, card against CPU from one tape: equal selections, DAS
+    iterations, delivered and dropped counts, parameters within 5e-3.
 
 The kernel phase first prints, from ``cuobjdump -sass``, the size and
 the atomic instructions of the ``stream_update``, ``diversity`` and
@@ -1814,10 +1827,11 @@ def slice_configs(*, rounds, iterations_max, sub2, path=1, codec="quant",
 
 def run_slice(torch, data, net, wcfg, *, rounds, iterations_max, sub2,
               device, draws=None, kind="cnn", path=1, codec="quant",
-              **path_kw):
+              loop=False, **path_kw):
     """One run of a path through the user's entry point: ``(params,
     records)``, and the server buffer's log after them for path 4
-    (``events.run_events``)."""
+    (``events.run_events``); with ``loop`` through the legacy per-round
+    loop ``run_federated_loop`` instead of ``run_federated``."""
     from repro_torch.core import events, federated
     from repro_torch.models import paper_nets
     spec = paper_nets.PaperNetSpec(kind=kind)
@@ -1825,6 +1839,8 @@ def run_slice(torch, data, net, wcfg, *, rounds, iterations_max, sub2,
     scfg, fcfg = slice_configs(rounds=rounds, iterations_max=iterations_max,
                                sub2=sub2, path=path, codec=codec, **path_kw)
     entry = events.run_events if path == 4 else federated.run_federated
+    if loop:
+        entry = federated.run_federated_loop
     return entry(model=model, data=data, net=net, wcfg=wcfg, scfg=scfg,
                  fcfg=fcfg, seed=SEED + 4, draws=draws, device=device)
 
@@ -2212,6 +2228,161 @@ def phase_telemetry(torch, dev, data, net, wcfg) -> None:
         raise AssertionError(f"path 11: the report failed: {rep.stderr}")
 
 
+# Path 24, the legacy per-round loop: its runs and the path whose config
+# each repeats (24b: path 11, path 2 with every telemetry group on).
+LOOP_PATHS = {"24a": 1, "24b": 11, "24c": 3}
+
+
+def loop_frames_equal(torch, host: dict, frames: dict, rounds: int,
+                      k: int) -> None:
+    """The loop's host frames against ``run_federated``'s device frames:
+    the same leaves, each a numpy array ``(R, K)`` or ``(R,)`` equal to
+    the device leaf copied to the host."""
+    import numpy as np
+    if set(host) != set(frames):
+        raise AssertionError(f"path 24b frame leaves {sorted(host)} vs "
+                             f"{sorted(frames)}")
+    for name, t in frames.items():
+        got = host[name]
+        if not (isinstance(got, np.ndarray)
+                and got.shape in ((rounds, k), (rounds,))
+                and np.array_equal(got, t.cpu().numpy(), equal_nan=True)):
+            raise AssertionError(f"path 24b frame {name}: "
+                                 f"{type(got).__name__} "
+                                 f"{getattr(got, 'shape', None)} differs")
+
+
+def loop_card_vs_cpu(torch, dev) -> None:
+    """The loop at K = 16, 2 rounds, on path 2's config with a binding
+    cap of CARD_CPU_CAP and the bf16 carry (path 8's single config), on
+    the card and on the CPU from one tape, TF32 off: equal selections,
+    DAS iterations, delivered and dropped counts, parameters within
+    BATCH_CARD_CPU_PARAM_TOL (the bf16 carry; the binding cap re-prices
+    the round, so the Sub2 objective is printed, not held, as on path
+    8)."""
+    from repro_torch.core import bandwidth
+    rounds, sub2 = 2, bandwidth.Sub2Params.fast()
+    path_kw = dict(path=8, cap=CARD_CPU_CAP)
+    data, net, wcfg, draws = card_cpu_world(torch, rounds, sub2, **path_kw)
+    (p_gpu, r_gpu), (p_cpu, r_cpu) = (
+        run_slice(torch, data, net, wcfg, rounds=rounds, iterations_max=4,
+                  sub2=sub2, device=device, draws=draws, loop=True,
+                  **path_kw) for device in (dev, "cpu"))
+    for a, b in zip(r_gpu, r_cpu):
+        j_a = 0.5 * a.energy_total + 0.5 * a.round_time
+        j_b = 0.5 * b.energy_total + 0.5 * b.round_time
+        print(f"[card-vs-cpu] path 24 round {a.round}: card sel "
+              f"{a.n_selected} iters {a.iterations} delivered {a.n_success} "
+              f"dropped {a.n_dropped}, CPU {b.n_selected} {b.iterations} "
+              f"{b.n_success} {b.n_dropped}; Sub2 objective rel diff "
+              f"{abs(j_a - j_b) / j_b:.2e}", flush=True)
+        if not ((a.selected == b.selected).all()
+                and (a.iterations, a.n_success, a.n_dropped)
+                == (b.iterations, b.n_success, b.n_dropped)):
+            raise AssertionError(f"path 24 round {a.round}: card and CPU "
+                                 f"loops differ")
+    if not sum(r.n_dropped for r in r_gpu):
+        raise AssertionError("path 24 card-vs-cpu: the cap never bound")
+    err = max(float((p_gpu[n].cpu() - p_cpu[n]).abs().max())
+              for n in p_cpu)
+    print(f"[card-vs-cpu] path 24 final params max abs diff {err:.3g} "
+          f"(limit {BATCH_CARD_CPU_PARAM_TOL:g})", flush=True)
+    if not err <= BATCH_CARD_CPU_PARAM_TOL:
+        raise AssertionError(f"path 24: card and CPU params differ by {err}")
+
+
+def phase_loop(torch, dev, data, net, wcfg, smi: str) -> None:
+    """Path 24: the legacy per-round loop ``run_federated_loop`` at full
+    width, 3 rounds each on the configs of paths 1 (24a), 11 (24b) and 3
+    (24c), each beside ``run_federated`` on the same config with
+    deterministic algorithms on: records and parameters bit for bit,
+    every kernel's launches equal to ``run_federated``'s and to
+    ``expected_counts``, 24b's host frames ``run_federated``'s device
+    frames copied to the host.  Then, deterministic algorithms off: the
+    warm wall per round of both on path 1's config in turns, the host
+    syncs of a 1-round and a 3-round run of each by source line (the
+    loop's extra syncs must all be its per-round copies in
+    ``core/federated.py``).  Its card-vs-CPU check, ``loop_card_vs_cpu``,
+    runs with the other paths' (it turns TF32 off for the rest of the
+    process)."""
+    from repro_torch.core import bandwidth
+    rounds, k = 3, data.num_devices
+    kw = dict(rounds=rounds, iterations_max=6, sub2=bandwidth.Sub2Params(),
+              device=dev)
+    for label, path in LOOP_PATHS.items():
+        out = {}
+        with deterministic_algorithms(torch, f"path {label}"):
+            for loop in (False, True):
+                reset_counts()
+                out[loop] = (run_slice(torch, data, net, wcfg, path=path,
+                                       loop=loop, **kw), read_counts())
+                torch.cuda.synchronize()
+        (p_run, r_run, *f_run), counts_run = out[False]
+        (p_loop, r_loop, *f_loop), counts = out[True]
+        bitwise = len(r_loop) == len(r_run) == rounds and all(
+            same_records(a, b) for a, b in zip(r_run, r_loop)) and all(
+            torch.equal(p_run[n], p_loop[n]) for n in p_run)
+        want = expected_counts(2 if path == 11 else path, rounds,
+                               sum(r.iterations for r in r_loop))
+        for r in r_loop:
+            print(f"[path {label}] round {r.round}: acc={r.accuracy:.4f} "
+                  f"sel={r.n_selected:3d} ok={r.n_success:3d} "
+                  f"T={r.round_time!r} E={r.energy_total!r} "
+                  f"das_iters={r.iterations}", flush=True)
+        print(f"[path {label}] run_federated_loop on path {path}'s config: "
+              f"records and parameters "
+              f"{'bit for bit' if bitwise else 'NOT'} equal to "
+              f"run_federated's; launches {counts} (run_federated "
+              f"{counts_run})", flush=True)
+        if not bitwise:
+            raise AssertionError(f"path {label}: the loop differs from "
+                                 f"run_federated")
+        if counts != counts_run or counts != want:
+            raise AssertionError(f"path {label} launch counts {counts}, "
+                                 f"run_federated {counts_run}, expected "
+                                 f"{want}")
+        check_records(torch, r_loop, p_loop, k)
+        if len(f_loop) != len(f_run) or len(f_run) != (path == 11):
+            raise AssertionError(f"path {label}: frames returned "
+                                 f"{len(f_loop)} / {len(f_run)}")
+        if f_run:
+            loop_frames_equal(torch, f_loop[0], f_run[0], rounds, k)
+            print(f"[path {label}] {len(f_loop[0])} host frame leaves, "
+                  f"numpy (R, K) or (R,), equal to run_federated's device "
+                  f"frames", flush=True)
+    walls = {False: [], True: []}
+    for loop in (False, True, True, False, False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_slice(torch, data, net, wcfg, path=1, loop=loop, **kw)
+        torch.cuda.synchronize()
+        walls[loop].append((time.perf_counter() - t0) / rounds)
+    print(f"[path 24] warm wall per round on path 1's config in turns "
+          f"(run_federated, loop, loop, run_federated, ...): loop "
+          f"{walls[True]} s, run_federated {walls[False]} s; loop / "
+          f"run_federated of the medians "
+          f"{median(walls[True]) / median(walls[False]):.4f} ({smi})",
+          flush=True)
+    das = das_sync_line()
+    for n in (1, rounds):
+        run_syncs, _ = count_syncs(torch, data, net, wcfg, dev, 1, rounds=n)
+        loop_syncs, recs = count_syncs(torch, data, net, wcfg, dev, 1,
+                                       rounds=n, loop=True)
+        added = loop_syncs - run_syncs
+        added.pop(das, None)
+        iters = sum(r.iterations for r in recs)
+        print(f"[syncs] path 24, {n} round(s) ({iters} DAS iterations): "
+              f"loop {sum(loop_syncs.values())} host syncs, run_federated "
+              f"{sum(run_syncs.values())}; the loop adds {dict(added)}; "
+              f"loop by line: "
+              f"{', '.join(f'{s} x{c}' for s, c in loop_syncs.most_common())}",
+              flush=True)
+        if any(not line.startswith("src/repro_torch/core/federated.py")
+               for line in added):
+            raise AssertionError(f"path 24: the loop adds host syncs "
+                                 f"outside its record copies: {added}")
+
+
 def phase_profile(torch, dev, data, net, wcfg, path: int, floor: dict,
                   run=None, what: str = "", **path_kw) -> None:
     """One more full-width round (path 4: its events; a batch path: the
@@ -2322,30 +2493,40 @@ BATCH_CARD_CPU_PARAM_TOL = 5e-3
 EVENT_BATCH_F32_PARAM_TOL = 1e-4
 
 
-def phase_card_vs_cpu(torch, dev, path: int, horizon: float = 0.0):
-    """K = 16, 2 rounds (path 4: its 6 events at ``horizon``), one tape,
-    TF32 off: card and CPU must agree.  Returns the card's records."""
-    from repro_torch.core import bandwidth, federated, wireless
+def card_cpu_world(torch, rounds: int, sub2, **path_kw):
+    """The card-vs-CPU world, K = 16 (100 shards of 50 images), TF32
+    off, and one random tape of a path's config for ``rounds`` ->
+    ``(data, net, wcfg, draws)``."""
+    from repro_torch.core import federated, wireless
     from repro_torch.data import partition, synthetic
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    k, rounds, codec = 16, 2, "topk"
     imgs, labels = synthetic.generate(SEED, samples_per_class=600)
     data = partition.partition(
         imgs, labels, seed=SEED + 1,
-        spec=partition.PartitionSpec(num_devices=k, num_shards=100,
+        spec=partition.PartitionSpec(num_devices=16, num_shards=100,
                                      shard_size=50))
     wcfg = wireless.WirelessConfig()
     gen = torch.Generator().manual_seed(SEED + 2)
-    net = wireless.sample_network(gen, k, wcfg)
-    sub2 = bandwidth.Sub2Params.fast()
-    path_kw = dict(horizon=horizon, cap=CARD_CPU_CAP) if path == 4 else {}
+    net = wireless.sample_network(gen, 16, wcfg)
     _, fcfg = slice_configs(rounds=rounds, iterations_max=4, sub2=sub2,
-                            path=path, codec=codec, **path_kw)
+                            **path_kw)
     draws = federated.draw_tape(
         gen, net, federated.sim_length(fcfg), data.capacity,
         federated._max_local_steps(fcfg, data.capacity), 50, fcfg,
         federated.client_histograms(data, fcfg.num_classes))
+    return data, net, wcfg, draws
+
+
+def phase_card_vs_cpu(torch, dev, path: int, horizon: float = 0.0):
+    """K = 16, 2 rounds (path 4: its 6 events at ``horizon``), one tape,
+    TF32 off: card and CPU must agree.  Returns the card's records."""
+    from repro_torch.core import bandwidth
+    rounds, codec = 2, "topk"
+    sub2 = bandwidth.Sub2Params.fast()
+    path_kw = dict(horizon=horizon, cap=CARD_CPU_CAP) if path == 4 else {}
+    data, net, wcfg, draws = card_cpu_world(torch, rounds, sub2, path=path,
+                                            codec=codec, **path_kw)
     out = {}
     for device in (dev, "cpu"):
         out[str(device)] = run_slice(torch, data, net, wcfg, rounds=rounds,
@@ -5718,6 +5899,7 @@ def main() -> int:
                                          horizon=horizon)
     phase_sync_limit(torch, dev, data, net, wcfg)
     phase_telemetry(torch, dev, data, net, wcfg)
+    phase_loop(torch, dev, data, net, wcfg, smi)
     for path in BATCH_OF:
         by_path[path], _, walls[path] = phase_batch_path(
             torch, dev, data, wcfg, path, walls[BATCH_OF[path]],
@@ -5743,6 +5925,7 @@ def main() -> int:
     phase_card_vs_cpu(torch, dev, 4, horizon=horizon16)
     for path in BATCH_OF:
         phase_batch_card_vs_cpu(torch, dev, path, horizon=horizon16)
+    loop_card_vs_cpu(torch, dev)
     by_path[6] = phase_serve(torch, dev)
     phase_dense_card_vs_cpu(torch, dev)
     for path in MOE_PATHS:

@@ -19,7 +19,8 @@ EMA (:func:`reliability_update`) feeds the scheduler's
 ``reliability_discount``.  Randomness is an input: :func:`sample_faults`
 takes its uniforms and :func:`chronic_rates` its normal draw, so a test
 can feed the reference's ``jax.random`` draws; :func:`draw_uniforms`
-makes them from a ``torch.Generator``.
+makes them from a ``torch.Generator``.  :func:`fault_step` is a round's
+draw and realized accounting in one call.
 """
 
 from __future__ import annotations
@@ -207,6 +208,23 @@ def apply_faults(draw: FaultDraw, selected: Tensor, alpha: Tensor,
     energy = torch.where(sel & torch.isfinite(energy), energy, zero)
     t_total = torch.where(sel, t_train * draw.compute_mult + t_up, zero)
     return ok, energy, torch.amax(t_total, dim=-1)
+
+
+def fault_step(u_drop: Tensor, u_dropout: Tensor, u_strag: Tensor,
+               u_tail: Tensor, selected: Tensor, alpha: Tensor,
+               t_train: Tensor, gains: Tensor, net: wireless.NetworkState,
+               wcfg: wireless.WirelessConfig, payload_bits: Optional[Tensor],
+               cfg: FaultConfig, drop_rates: Optional[Tensor] = None
+               ) -> Tuple[FaultDraw, Tensor, Tensor, Tensor]:
+    """One round's fault draw and its realized accounting -> ``(draw, ok,
+    energy, round_time)``: :func:`sample_faults` on the round's uniforms,
+    then :func:`apply_faults`.  Every driver's round runs this one
+    sequence."""
+    draw = sample_faults(u_drop, u_dropout, u_strag, u_tail, gains, net, cfg,
+                         drop_rates)
+    ok, energy, round_time = apply_faults(draw, selected, alpha, t_train,
+                                          gains, net, wcfg, payload_bits, cfg)
+    return draw, ok, energy, round_time
 
 
 def reliability_update(rel: Tensor, selected: Tensor, ok: Tensor,

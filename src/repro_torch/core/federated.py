@@ -50,7 +50,11 @@ kernel launches once a round for all of them, as often as in the single
 driver's round: ``sub2_pgd`` once per DAS outer iteration (lanes that
 converged are frozen, :func:`scheduler.das_schedule`), ``stream_update``,
 ``compress_update`` and the FedAvg kernels once, ``diversity`` once a
-run.  The round's code is the single driver's (:func:`_drive`).
+run.  The round's code is the single driver's (:func:`_rounds`).
+
+:func:`run_federated_loop` is the reference's legacy per-round loop:
+the same rounds (:func:`_rounds`), each round's record copied to the
+host as the round ends, so it equals :func:`run_federated` bit for bit.
 
 Each phase runs under a ``torch.profiler.record_function`` scope
 (``stream_refresh``, ``schedule``, ``local_train``, ``aggregate`` through
@@ -72,7 +76,8 @@ import copy
 import dataclasses
 import functools
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from typing import (Callable, Dict, Iterator, List, Optional,
+                    Sequence, Union)
 
 import numpy as np
 import torch
@@ -718,14 +723,16 @@ def _host_metrics(metrics: RoundMetrics) -> RoundMetrics:
                           for f in dataclasses.fields(metrics)))
 
 
-def _records(m: RoundMetrics) -> List[RoundRecord]:
-    """Records from one run's metrics, already on the host as numpy."""
+def _records(m: RoundMetrics, start: int = 0) -> List[RoundRecord]:
+    """Records from one run's metrics, already on the host as numpy, the
+    first numbered ``start``."""
     history: List[RoundRecord] = []
     for r in range(m.selected.shape[0]):
         n_sel = int(m.n_selected[r])
         e_total = float(m.energy_total[r])
         history.append(RoundRecord(
-            round=r, accuracy=float(m.accuracy[r]), n_selected=n_sel,
+            round=start + r, accuracy=float(m.accuracy[r]),
+            n_selected=n_sel,
             round_time=float(m.round_time[r]), energy_total=e_total,
             energy_per_device=e_total / max(n_sel, 1),
             selected=np.asarray(m.selected[r]),
@@ -1132,12 +1139,11 @@ class _Run:
                 return selected, result.energy, result.round_time, None
             energy, round_time = _dispatch_accounting(result, selected)
             return selected, energy, round_time, None
-        draw = faults.sample_faults(
-            **_round_of(self.draws.faults, r), gains=gains, net=self.net,
-            cfg=self.flt, drop_rates=self.drop_rates)
-        ok, energy, round_time = faults.apply_faults(
-            draw, selected, result.alpha, result.t_train, gains, self.net,
-            self.wcfg, payload, self.flt)
+        draw, ok, energy, round_time = faults.fault_step(
+            **_round_of(self.draws.faults, r), selected=selected,
+            alpha=result.alpha, t_train=result.t_train, gains=gains,
+            net=self.net, wcfg=self.wcfg, payload_bits=payload, cfg=self.flt,
+            drop_rates=self.drop_rates)
         return ok, energy, round_time, draw
 
     def noise(self, r: int) -> Optional[Tensor]:
@@ -1255,12 +1261,14 @@ def run_federated_batch(*, model: nn.Module,
         (params, metrics, frames)
 
 
-def _drive(run: _Run) -> tuple[Params, RoundMetrics,
-                               Optional[Dict[str, Tensor]]]:
+def _rounds(run: _Run) -> Iterator[tuple[Params, tuple,
+                                         Optional[Dict[str, Tensor]]]]:
     """The synchronous rounds of a run, one scenario or a batch (every
-    tensor with ``run.lead`` in front) -> ``(params, RoundMetrics,
-    frames)``, the frames stacked like the metrics, or None without
-    telemetry."""
+    tensor with ``run.lead`` in front): yields each round's ``(params,
+    metrics row, frame)`` as the round ends, the row a tuple of
+    :class:`RoundMetrics` fields and the frame None without telemetry.
+    The one round body of :func:`_drive` and :func:`run_federated_loop`;
+    it syncs the host only where the round's own steps do."""
     fcfg = run.fcfg
     stream, comp = fcfg.stream, fcfg.compression
     data, trainer, max_steps = run.data, run.trainer, run.max_steps
@@ -1268,8 +1276,6 @@ def _drive(run: _Run) -> tuple[Params, RoundMetrics,
     sig_fn, sigst = run.sig_fn, run.signal_init()
     ages = torch.zeros(run.lead + (run.k,), dtype=torch.int32,
                        device=run.dev)
-    rows: List[tuple] = []
-    frames: List[Dict[str, Tensor]] = []
     for r in range(fcfg.num_rounds):
         index, sizes_r, stale, hists_r, st = run.index(r, st, ages)
         gains = run.draws.gains[r]
@@ -1306,20 +1312,75 @@ def _drive(run: _Run) -> tuple[Params, RoundMetrics,
             # The round's observations fold in before the frame, so the
             # frame holds the carry a signal-aware scheduler would see.
             sigst = telemetry_health.signal_update(sigst, ok, *obs, energy)
+        frame = None
         if run.tel is not None:
-            frames.append(run.frame(r, result, result.selected, selected,
-                                    ok, energy, payload, gains, index, ages,
-                                    stale, rel, draw, sigst, obs))
+            frame = run.frame(r, result, result.selected, selected, ok,
+                              energy, payload, gains, index, ages, stale,
+                              rel, draw, sigst, obs)
         ages, rel = run.advance(ages, rel, selected, ok)
         if stream is not None:
             st = _stream_advance(st, hists_r, stale, ok, run.cdt)
-        rows.append((run.evaluate(r, params),
-                     torch.sum(selected, dim=-1).to(torch.int32),
-                     round_time, energy, torch.sum(energy, dim=-1),
-                     selected, run.iterations(result),
-                     torch.sum(ok, dim=-1).to(torch.int32), n_dropped))
+        row = (run.evaluate(r, params),
+               torch.sum(selected, dim=-1).to(torch.int32), round_time,
+               energy, torch.sum(energy, dim=-1), selected,
+               run.iterations(result),
+               torch.sum(ok, dim=-1).to(torch.int32), n_dropped)
+        yield params, row, frame
+
+
+def _drive(run: _Run) -> tuple[Params, RoundMetrics,
+                               Optional[Dict[str, Tensor]]]:
+    """The synchronous rounds of a run (:func:`_rounds`) -> ``(params,
+    RoundMetrics, frames)``, the frames stacked like the metrics, or None
+    without telemetry; nothing leaves the device."""
+    params, rows, frames = run.params, [], []
+    for params, row, frame in _rounds(run):
+        rows.append(row)
+        frames.append(frame)
     return params, stack_metrics(rows, dim=len(run.lead)), \
         run.stack_frames(frames)
+
+
+def run_federated_loop(*, model: nn.Module,
+                       data: partition_lib.ClientDataset,
+                       net: wireless.NetworkState,
+                       wcfg: wireless.WirelessConfig,
+                       scfg: scheduler.SchedulerConfig,
+                       fcfg: FLConfig, seed: int = 0,
+                       draws: Optional[Draws] = None, eval_every: int = 1,
+                       device: DeviceLike = None
+                       ) -> tuple[Params, List[RoundRecord]]:
+    """The legacy per-round loop: :func:`run_federated`'s rounds, each
+    round's :class:`RoundRecord` made on the host as the round ends.
+
+    Takes :func:`run_federated`'s arguments and runs the same round body
+    (:func:`_rounds`), so from the same seed or ``draws`` its records and
+    parameters are :func:`run_federated`'s bit for bit, with the same
+    kernel launches; it syncs the host every round to copy the round's
+    metrics (and frame).  With ``fcfg.telemetry`` the return grows a
+    third element: the frames as host numpy arrays stacked ``(R, ...)``,
+    each round's copied as it ends.  ``device=None`` means the CUDA card
+    and raises without one.  An event config (``fcfg.events``) raises
+    ``ValueError``: the event driver has no per-round loop.
+    """
+    if fcfg.events is not None:
+        raise ValueError(
+            "FLConfig.events is set: the event-driven drivers have no "
+            "legacy per-round loop (their reference is the synchronous-"
+            "limit parity contract) — use run_federated / "
+            "run_federated_batch")
+    run = _Run(model=model, data=data, net=net, wcfg=wcfg, scfg=scfg,
+               fcfg=fcfg, seed=seed, draws=draws, eval_every=eval_every,
+               device=device)
+    params, records, frames = run.params, [], []
+    for r, (params, row, frame) in enumerate(_rounds(run)):
+        records += _records(_host_metrics(stack_metrics([row])), start=r)
+        if frame is not None:
+            frames.append({n: t.cpu().numpy() for n, t in frame.items()})
+    if run.tel is None:
+        return params, records
+    return params, records, {n: np.stack([f[n] for f in frames])
+                             for n in (frames[0] if frames else ())}
 
 
 def stack_metrics(rows: List[tuple], dim: int = 0) -> RoundMetrics:
