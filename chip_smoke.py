@@ -6,6 +6,7 @@
     python3 chip_smoke.py --flash-bwd     # the flash backward and path 21
     python3 chip_smoke.py --launch        # path 21, paths 22-23, path 12's
                                           # scenario-mesh walks
+    python3 chip_smoke.py --mesh          # paths 25b-e: serving on a mesh
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc/`` and runs,
 each phase failing the script on error:
@@ -244,7 +245,22 @@ each phase failing the script on error:
     must all be its per-round copies); and, after the batch paths' check
     of phase 9, the loop at K = 16 on path 2's config with a cap of 4 and
     the bf16 carry, card against CPU from one tape: equal selections, DAS
-    iterations, delivered and dropped counts, parameters within 5e-3.
+    iterations, delivered and dropped counts, parameters within 5e-3;
+22. path 25a, serving on a device mesh: path 6's model (all 24 layers,
+    bf16) on a 1x1 ``(data, model)`` mesh from a one-rank NCCL group
+    (``HashStore``), the parameters as DTensors on the one-device
+    tensors' storage, beside the same weights without a mesh: B = 1, a
+    2048-token prompt, 16 decode steps on the one-device run's greedy
+    tokens.  Logits and cache bit for bit (else the first output to
+    differ named, within 2e-2 of the largest logit), the flash launches
+    by route and a profiled decode step's flash kernels equal, prefill s
+    and decode ms a step on the mesh and without, and no process group
+    left.  ``--mesh`` runs the same check for paths 18 (25b), 15 (25c),
+    17 (25d) and 14 (25e)'s configurations.
+
+Every card-vs-CPU phase sets TF32 off for matrix products and cuDNN and
+restores what it found (``tf32_off``), so the phases after it run in
+torch's default state.
 
 The kernel phase first prints, from ``cuobjdump -sass``, the size and
 the atomic instructions of the ``stream_update``, ``diversity`` and
@@ -327,6 +343,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -2060,6 +2077,24 @@ def phase_path(torch, dev, data, net, wcfg, path: int, **path_kw):
     return counts, recs, warm / rounds
 
 
+def tf32_off(fn):
+    """Run ``fn(torch, ...)`` with TF32 off for matrix products and cuDNN,
+    restoring the flags it found (the card-vs-CPU checks hold f32 sums to
+    the CPU's; what runs after them keeps torch's default state)."""
+    @functools.wraps(fn)
+    def run(torch, *args, **kw):
+        saved = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            return fn(torch, *args, **kw)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
+    return run
+
+
 @contextlib.contextmanager
 def deterministic_algorithms(torch, label: str):
     """Deterministic algorithms on within ``with`` (cuDNN's deterministic
@@ -2252,6 +2287,7 @@ def loop_frames_equal(torch, host: dict, frames: dict, rounds: int,
                                  f"{getattr(got, 'shape', None)} differs")
 
 
+@tf32_off
 def loop_card_vs_cpu(torch, dev) -> None:
     """The loop at K = 16, 2 rounds, on path 2's config with a binding
     cap of CARD_CPU_CAP and the bf16 carry (path 8's single config), on
@@ -2494,13 +2530,11 @@ EVENT_BATCH_F32_PARAM_TOL = 1e-4
 
 
 def card_cpu_world(torch, rounds: int, sub2, **path_kw):
-    """The card-vs-CPU world, K = 16 (100 shards of 50 images), TF32
-    off, and one random tape of a path's config for ``rounds`` ->
-    ``(data, net, wcfg, draws)``."""
+    """The card-vs-CPU world, K = 16 (100 shards of 50 images), and one
+    random tape of a path's config for ``rounds`` -> ``(data, net, wcfg,
+    draws)``; its callers run with TF32 off (:func:`tf32_off`)."""
     from repro_torch.core import federated, wireless
     from repro_torch.data import partition, synthetic
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     imgs, labels = synthetic.generate(SEED, samples_per_class=600)
     data = partition.partition(
         imgs, labels, seed=SEED + 1,
@@ -2518,6 +2552,7 @@ def card_cpu_world(torch, rounds: int, sub2, **path_kw):
     return data, net, wcfg, draws
 
 
+@tf32_off
 def phase_card_vs_cpu(torch, dev, path: int, horizon: float = 0.0):
     """K = 16, 2 rounds (path 4: its 6 events at ``horizon``), one tape,
     TF32 off: card and CPU must agree.  Returns the card's records."""
@@ -2855,6 +2890,7 @@ def explain_iterations(label: str, trace_gpu, trace_cpu, k: int,
                              f"convergence test")
 
 
+@tf32_off
 def phase_batch_card_vs_cpu(torch, dev, path: int,
                             horizon: float = 0.0) -> None:
     """A batch path at K = 16, S = CARD_CPU_BATCH_S, 2 rounds, on the
@@ -2871,8 +2907,6 @@ def phase_batch_card_vs_cpu(torch, dev, path: int,
     from repro_torch.core import bandwidth, federated, wireless
     from repro_torch.data import partition, synthetic
     from repro_torch.models import paper_nets
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     k, s, rounds, codec = 16, CARD_CPU_BATCH_S, 2, "topk"
     imgs, labels = synthetic.generate(SEED, samples_per_class=600)
     data = partition.partition(
@@ -3184,6 +3218,7 @@ def serve_parity(torch, transformer, params, cfg, prompt, tok, logits,
     return rel, same
 
 
+@tf32_off
 def phase_dense_card_vs_cpu(torch, dev) -> None:
     """The four dense configs at ``reduced()``: the same weights and
     tokens on the card and the CPU, prefill of 150 tokens (past danube's
@@ -3194,8 +3229,6 @@ def phase_dense_card_vs_cpu(torch, dev) -> None:
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     b, s, steps = 2, 150, 3
     for arch in DENSE_ARCHS:
         for dtype, tol in (("float32", DENSE_CARD_CPU_TOL),
@@ -4267,6 +4300,7 @@ def moe_prefill_only(torch, dev) -> None:
         torch.cuda.empty_cache()
 
 
+@tf32_off
 def phase_moe_card_vs_cpu(torch, dev) -> None:
     """The three configurations of paths 15-17 at ``reduced()`` with
     ``MOE_CARD_CPU_DISPATCH``, on the card and the CPU (f32, TF32 off):
@@ -4275,8 +4309,6 @@ def phase_moe_card_vs_cpu(torch, dev) -> None:
     of the prefill's groups."""
     from repro_torch import configs
     from repro_torch.models import transformer
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     b, s, steps = 2, 128, 3
     for path, (arch, _) in MOE_PATHS.items():
         cfg = dataclasses.replace(configs.get(arch).reduced(),
@@ -4435,6 +4467,7 @@ def media_parity(torch, transformer, params, cfg, prompt, enc, label: str,
                              f"tokens {same.tolist()}")
 
 
+@tf32_off
 def phase_media_serve(torch, dev, path: int) -> dict:
     """Paths 18-19 (``MEDIA_PATHS``): the VLM on an embeddings prompt or
     the encoder-decoder on frame embeddings, served at published widths.
@@ -4577,8 +4610,6 @@ def phase_media_serve(torch, dev, path: int) -> dict:
     media_parity(torch, transformer, sp, cfg, prompt, enc, "bf16", path,
                  SERVE_PARITY_TOL, held=spec["bf16_held"])
     # The same bf16 weights in f32 compute (each cast at use), TF32 off.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     media_parity(torch, transformer, sp,
                  dataclasses.replace(cfg, dtype_compute="float32"), prompt,
                  enc, "f32 compute", path, SERVE_F32_PARITY_TOL)
@@ -4605,6 +4636,7 @@ def grid_positions(torch, b: int, prefix: int, rows: int, cols: int,
     return pos[:, None].expand(3, b, pos.shape[1]).contiguous()
 
 
+@tf32_off
 def phase_media_card_vs_cpu(torch, dev) -> None:
     """The configurations of paths 18-19 at ``reduced()`` on the card and
     the CPU (f32, TF32 off), within 1e-4 of the largest logit: qwen2-vl's
@@ -4615,8 +4647,6 @@ def phase_media_card_vs_cpu(torch, dev) -> None:
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     b, steps = 2, 3
     for path, spec in MEDIA_PATHS.items():
         cfg = configs.get(spec["arch"]).reduced()
@@ -4892,6 +4922,7 @@ def train_microbatches(torch, cfg, params, gen) -> None:
         raise AssertionError(f"path 13 mb 1 vs mb 2: {m}")
 
 
+@tf32_off
 def phase_xlstm_card_vs_cpu(torch, dev) -> None:
     """xlstm-125m at ``reduced(num_layers=4)``, f32 with TF32 off, one set
     of weights and batches on the card and the CPU: forward logits,
@@ -4905,8 +4936,6 @@ def phase_xlstm_card_vs_cpu(torch, dev) -> None:
     from repro_torch.launch import steps
     from repro_torch.models import transformer
     from repro_torch.tree import tree_leaves
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get("xlstm_125m").reduced(num_layers=4)
     ocfg = optim.OptimizerConfig(name="sgd", momentum=0.0, learning_rate=0.1,
                                  grad_clip=0.0, warmup_steps=0)
@@ -5428,6 +5457,7 @@ def phase_danube_train(torch, dev, smi: str) -> dict:
     return dict(counts, flash_attention_bwd=routes["backward_tc"])
 
 
+@tf32_off
 def phase_danube_card_vs_cpu(torch, dev) -> dict:
     """h2o-danube-3-4b at ``reduced(num_layers=2)`` (window 128) on the
     card and on the CPU from one state, f32 with TF32 off: one federated
@@ -5441,8 +5471,6 @@ def phase_danube_card_vs_cpu(torch, dev) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import steps
     from repro_torch.tree import tree_leaves
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get("h2o_danube_3_4b").reduced(num_layers=2)
     ocfg = optim.OptimizerConfig(name="sgd", momentum=0.0, learning_rate=0.1,
                                  grad_clip=0.0, warmup_steps=0)
@@ -5739,6 +5767,182 @@ def phase_launch(torch, dev, data, wcfg, smi: str, path21: dict) -> None:
                          sum(r["wall"] for r in rows), smi)
 
 
+# Path 25: serving on a device mesh (the DTensor path) against the same
+# weights without one, in one call: a 1x1 (data, model) mesh from a
+# one-rank NCCL group, B = 1, a 2048-token prompt and 16 decode steps.
+# 25a (the default run) is path 6's model at all 24 layers; under
+# --mesh, 25b-e are paths 18, 15, 17 and 14's configurations.
+MESH_B, MESH_PROMPT, MESH_GEN = 1, 2048, 16
+MESH_PATHS = {"25a": 6, "25b": 18, "25c": 15, "25d": 17, "25e": 14}
+
+
+def mesh_path_config(label: str):
+    from repro_torch import configs
+    path = MESH_PATHS[label]
+    if path in MEDIA_PATHS:
+        return media_path_config(path)
+    if path in MOE_PATHS:
+        return moe_path_config(path)
+    return configs.get("h2o_danube_3_4b" if path == 6 else "xlstm_125m")
+
+
+def mesh_serve_run(torch, transformer, params, cfg, prompt, toks, mesh):
+    """Prefill ``prompt`` (padded for the steps), then one decode step a
+    token of ``toks`` (B, n) -> (logits of prefill and each step, the
+    cache, prefill s, warm decode s a step over steps 2..n)."""
+    s, n = prompt.shape[1], toks.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(params, prompt, cfg,
+                                        pad_to=s + n + 1, mesh=mesh)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    outs = [logits]
+    for i in range(n):
+        if i == 1:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        logits, cache = transformer.decode_step(
+            params, toks[:, i:i + 1], cache, s + i, cfg, mesh=mesh)
+        outs.append(logits)
+    torch.cuda.synchronize()
+    return outs, cache, t_pre, (time.perf_counter() - t1) / (n - 1)
+
+
+def flash_kernels_profiled(torch, fn) -> tuple[int, int, float, float]:
+    """Run ``fn`` once under torch.profiler -> (flash kernels, device
+    kernels, wall ms, device busy ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("Activity Buffer")]
+    busy = sum(k.time_range.elapsed_us() for k in kernels) / 1e3
+    return (sum("flash_attention_" in k.name for k in kernels),
+            len(kernels), wall, busy)
+
+
+def phase_mesh_serve(torch, dev, label: str, smi: str) -> dict:
+    """Path 25 (``MESH_PATHS``): one configuration served without a mesh
+    and on a 1x1 mesh of the card, from the same weights (the DTensors
+    wrap the one-device tensors' storage), the same prompt and the same
+    decode tokens (the one-device run's greedy picks).  Logits and cache
+    must agree bit for bit (else, naming the first output that differs,
+    within the bf16 serving limit of the largest logit); the flash
+    launches by route, and the flash kernels a profiled decode step
+    runs, must equal the one-device run's; no process group may remain.
+    Returns the mesh run's launch counts."""
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+    from repro_torch.sharding import params as sharding_params
+    from repro_torch.tree import tree_leaves
+    tag = f"[path {label}]"
+    cfg = mesh_path_config(label)
+    b, s, n = MESH_B, MESH_PROMPT, MESH_GEN
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    sp = transformer.serving_params(transformer.init(gen, cfg), cfg)
+    if cfg.name.startswith("qwen2-vl"):       # precomputed patch embeddings
+        prompt = torch.randn((b, s, cfg.d_model), generator=gen, device=dev,
+                             dtype=torch.bfloat16)
+    else:
+        prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                               device=dev)
+    print(f"{tag} {cfg.name}, {cfg.num_layers} layers "
+          f"({transformer.param_count(cfg)} parameters, "
+          f"{cfg.dtype_compute}); B={b}, prompt {s}, {n} decode steps",
+          flush=True)
+    # The one-device run: greedy tokens (a warm-up), then the timed run
+    # on them.
+    logits, cache = transformer.prefill(sp, prompt, cfg, pad_to=s + n + 1)
+    toks = [logits[:, -1].argmax(-1)]
+    for i in range(n - 1):
+        logits, cache = transformer.decode_step(sp, toks[-1][:, None], cache,
+                                                s + i, cfg)
+        toks.append(logits[:, -1].argmax(-1))
+    toks = torch.stack(toks, dim=1)
+    del logits, cache
+    reset_counts()
+    want, want_cache, pre0, step0 = mesh_serve_run(
+        torch, transformer, sp, cfg, prompt, toks, None)
+    want_routes = dict(fa.flash_attention.route_launches)
+    attn = cfg.num_groups * sum(x.mixer == "attn" for x in cfg.pattern)
+    if want_routes["prefill_tc"] != attn or \
+            want_routes["decode"] != attn * n:
+        raise AssertionError(f"{tag} one-device flash routes {want_routes}")
+    flash0 = flash_kernels_profiled(torch, lambda: transformer.decode_step(
+        sp, toks[:, :1], want_cache, s + n, cfg))
+
+    store = dist.HashStore()
+    mesh = mesh_lib.init_mesh(mesh_lib.Mesh(("data", "model"), (1, 1)),
+                              store, 0)
+    try:
+        sharded = sharding_params.shard_params(sp, cfg, mesh)
+        pairs = list(zip(tree_leaves(sharded), tree_leaves(sp)))
+        shared = sum(d.to_local().data_ptr() == t.data_ptr()
+                     for d, t in pairs)
+        print(f"{tag} 1x1 mesh {mesh.device_mesh}: {shared} of "
+              f"{len(pairs)} parameter DTensors wrap the one-device "
+              f"tensors' storage", flush=True)
+        if shared != len(pairs):       # a copy would not fit path 17's
+            raise AssertionError(f"{tag} shard_params copied weights")
+        mesh_serve_run(torch, transformer, sharded, cfg, prompt, toks,
+                       mesh)                 # warm-up: DTensor's caches
+        reset_counts()
+        got, got_cache, pre1, step1 = mesh_serve_run(
+            torch, transformer, sharded, cfg, prompt, toks, mesh)
+        counts = read_counts()
+        routes = dict(fa.flash_attention.route_launches)
+        flash1 = flash_kernels_profiled(
+            torch, lambda: transformer.decode_step(
+                sharded, toks[:, :1], got_cache, s + n, cfg, mesh=mesh))
+        outputs = [(f"logits {i}", g.full_tensor(), w)
+                   for i, (g, w) in enumerate(zip(got, want))]
+        outputs += [(f"cache {pos}/{k}", got_cache[pos][k].full_tensor(),
+                     want_cache[pos][k])
+                    for pos in want_cache for k in want_cache[pos]]
+    finally:
+        mesh_lib.destroy_mesh()
+    if dist.is_initialized():
+        raise AssertionError(f"{tag} a process group remains")
+    differ = [name for name, g, w in outputs if not torch.equal(g, w)]
+    top = max(float(w.float().abs().max()) for name, _, w in outputs
+              if name.startswith("logits"))
+    rel = max(float((g.float() - w.float()).abs().max()) / top
+              for name, g, w in outputs if name.startswith("logits"))
+    print(f"{tag} mesh vs one device: {len(outputs) - len(differ)} of "
+          f"{len(outputs)} outputs (prefill + {n} steps' logits, every "
+          f"cache leaf) bit for bit"
+          + (f"; first to differ: {differ[0]}; logits max-abs error over "
+             f"the largest logit {rel:.3g} (limit {SERVE_PARITY_TOL:g})"
+             if differ else ""), flush=True)
+    if differ and not rel <= SERVE_PARITY_TOL:
+        raise AssertionError(f"{tag} mesh logits differ by {rel}")
+    print(f"{tag} flash launches by route: mesh {routes}, one device "
+          f"{want_routes}; a profiled decode step runs {flash1[0]} flash "
+          f"kernels of {flash1[1]} on the mesh, {flash0[0]} of {flash0[1]} "
+          f"without", flush=True)
+    if routes != want_routes or flash1[0] != flash0[0]:
+        raise AssertionError(f"{tag} mesh flash launches differ")
+    print(f"{tag} {smi}: prefill {pre1:.3f} s on the mesh, {pre0:.3f} s "
+          f"without; decode {step1 * 1e3:.2f} ms a step on the mesh, "
+          f"{step0 * 1e3:.2f} ms without (warm, steps 2-{n}); profiled "
+          f"decode step: mesh wall {flash1[2]:.2f} ms busy {flash1[3]:.2f} "
+          f"ms, one device wall {flash0[2]:.2f} ms busy {flash0[3]:.2f} ms",
+          flush=True)
+    del sp, sharded, got, want, got_cache, want_cache, outputs
+    torch.cuda.empty_cache()
+    return counts
+
+
 KERNELS = {
     "fedavg_agg": ("src/repro_torch/csrc/fedavg_agg.cu",
                    "src/repro/kernels/fedavg_agg.py:30"),
@@ -5814,6 +6018,12 @@ def main() -> int:
         phase_flash_bwd(torch, dev)
         phase_stablelm_train(torch, dev, smi)
         phase_stablelm_card_vs_cpu(torch, dev)
+        return 0
+    if sys.argv[1:] == ["--mesh"]:
+        for label in ("25b", "25c", "25d", "25e"):
+            phase_mesh_serve(torch, dev, label, smi)
+        print(f"[time] chip_smoke --mesh ran "
+              f"{time.perf_counter() - t_start:.1f}s", flush=True)
         return 0
     if sys.argv[1:] == ["--launch"]:
         path21 = {}
@@ -5943,6 +6153,7 @@ def main() -> int:
     by_path[21] = phase_stablelm_train(torch, dev, smi, path21)
     phase_stablelm_card_vs_cpu(torch, dev)
     phase_launch(torch, dev, None, wcfg, smi, path21)
+    phase_mesh_serve(torch, dev, "25a", smi)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=by_path[owner[name]][re.sub(

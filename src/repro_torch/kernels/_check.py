@@ -3,6 +3,8 @@ bf16 result against its f32 answer."""
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from repro_torch.kernels import _build
@@ -10,6 +12,23 @@ from repro_torch.kernels import _build
 # Two bf16 NaNs side by side, and one f32 NaN: shared memory filled with
 # it reads as NaN in either type.
 NAN_WORD = 0x7FC07FC0
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (no DTensor exists before
+    ``torch.distributed.tensor`` is imported)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def local_only(label: str, *tensors) -> None:
+    """Raise if any of ``tensors`` is a DTensor: a kernel wrapper takes
+    each rank's local tensors, and a DTensor reaches the flash kernel
+    only through its mesh entry (``flash_attention``'s ``local_map``);
+    a DTensor computed here on its own would run the plain version or
+    the kernel on the wrong shard."""
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(f"{label} takes local tensors, not DTensors")
 
 
 def cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype,

@@ -139,6 +139,8 @@ def compress_update(updates: torch.Tensor, residual: torch.Tensor,
     kw = dict(mode=mode, keep=keep, thresh_iters=thresh_iters)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    _check.local_only("compress_update", updates, residual, widths,
+                      selected, noise)
     if updates.device.type == "cpu":
         return compress_update_plain(updates, residual, widths, selected,
                                      noise, **kw)

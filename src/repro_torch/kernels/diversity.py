@@ -57,6 +57,7 @@ def diversity_stats(labels: torch.Tensor, mask: torch.Tensor,
     CPU tensors take :func:`diversity_stats_plain`; CUDA tensors launch
     the kernel (int32 labels, f32 mask, C <= 64) or raise.
     """
+    _check.local_only("diversity_stats", labels, mask)
     if labels.device.type == "cpu":
         return diversity_stats_plain(labels, mask, num_classes)
     if not 1 <= num_classes <= MAX_CLASSES:

@@ -96,6 +96,7 @@ def fedavg_agg(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     CPU tensors take :func:`fedavg_agg_plain`; CUDA tensors launch the
     kernel once (f32, contiguous) or raise.
     """
+    _check.local_only("fedavg_agg", updates, weights)
     if updates.device.type == "cpu":
         return fedavg_agg_plain(updates, weights)
     return _launch(fedavg_agg, "fedavg_agg_f32", updates,
@@ -123,6 +124,7 @@ def fedavg_agg_masked(updates: torch.Tensor, weights: torch.Tensor,
     CPU tensors take :func:`fedavg_agg_masked_plain`; CUDA tensors launch
     the kernel (f32, contiguous) or raise.
     """
+    _check.local_only("fedavg_agg_masked", updates, weights, mask)
     if updates.device.type == "cpu":
         return fedavg_agg_masked_plain(updates, weights, mask)
     return _launch(fedavg_agg_masked, "fedavg_agg_masked_f32", updates,
@@ -152,6 +154,7 @@ def fedavg_agg_stale(updates: torch.Tensor, weights: torch.Tensor,
     CPU tensors take :func:`fedavg_agg_stale_plain`; CUDA tensors launch
     the kernel (f32, contiguous) or raise.
     """
+    _check.local_only("fedavg_agg_stale", updates, weights, mask, stale)
     if updates.device.type == "cpu":
         return fedavg_agg_stale_plain(updates, weights, mask, stale)
     return _launch(fedavg_agg_stale, "fedavg_agg_stale_f32", updates,

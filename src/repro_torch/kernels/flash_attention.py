@@ -50,6 +50,15 @@ backward is :func:`flash_attention_bwd`, on one of two routes
   the tensor cores as split TF32 (as ``prefill_f32``), q / dO and K / V
   tiles by TMA.
 
+On a device mesh (``sharding.rules``), :func:`flash_attention` takes
+DTensor operands and runs the same routes on each rank's local block
+(:func:`_flash_on_mesh`): batch over ``data``, heads over ``model``.
+Where the query and KV heads both split, q head h reads KV head h // G
+on every rank; otherwise K/V are repeated to the query heads, as the
+reference's ``_repeat_kv`` does, and the heads split unevenly, as its
+``constrain_pad`` does (a rank whose block holds no head launches
+nothing).  A DTensor reaching a kernel wrapper any other way raises.
+
 The reference has no backward kernel: it differentiates its plain
 attention, which the CPU route here does in
 :func:`flash_attention_bwd_plain`.  Both
@@ -427,10 +436,62 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sq, and its backward :func:`flash_attention_bwd`.
     """
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
+    if _check.is_dtensor(q):
+        return _flash_on_mesh(q, k, v, causal, window, kv_len)
+    _check.local_only("flash_attention", k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, kv_len)[0]
     return _forward(q, k, v, causal, window, kv_len, False)[0]
+
+
+def _repeat_heads(t: torch.Tensor, heads: int, mesh) -> torch.Tensor:
+    """(B, S, KV, hd) DTensor -> (B, S, heads, hd): each KV head repeated
+    for its query group, whole heads on every ``model`` rank."""
+    from repro_torch.sharding import rules
+    t = rules.constrain(t, mesh, "batch", None, None, None)
+    b, s, kvh, hd = t.shape
+    return t[:, :, :, None].expand(b, s, kvh, heads // kvh, hd).reshape(
+        b, s, heads, hd)
+
+
+def _flash_on_mesh(q, k, v, causal: bool, window: int, kv_len: int):
+    """:func:`flash_attention` on DTensors: q, k and v laid out batch over
+    ``data`` and heads over ``model`` (K/V repeated to the query heads
+    unless both head counts split, the heads then uneven), and the
+    wrapper called under ``local_map`` on each rank's (B_local, S,
+    H_local, hd) block, which launches the kernel on the card.  The
+    output has q's layout."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding import rules
+    if not (_check.is_dtensor(k) and _check.is_dtensor(v)):
+        raise TypeError("flash_attention on a mesh takes q, k and v as "
+                        "DTensors")
+    dm = q.device_mesh
+    mesh = Mesh(tuple(dm.mesh_dim_names), tuple(dm.shape), device_mesh=dm)
+    h, kvh = q.shape[2], k.shape[2]
+    if h % mesh.axis_size("model") or kvh % mesh.axis_size("model"):
+        k, v = (_repeat_heads(t, h, mesh) for t in (k, v))
+    plc = rules.named(mesh, "batch", None, "tensor", None).placements
+
+    def local(ql, kl, vl):
+        if ql.numel() == 0:      # no head (or no sequence) on this rank
+            return torch.empty_like(ql)
+        return flash_attention(ql.contiguous(), kl.contiguous(),
+                               vl.contiguous(), causal=causal,
+                               window=window, kv_len=kv_len).contiguous()
+
+    out = local_map(local, out_placements=plc, in_placements=(plc,) * 3,
+                    device_mesh=dm, redistribute_inputs=True)(q, k, v)
+    # local_map sizes its output as if every shard were full: an uneven
+    # split of the heads (or the batch) has q's global shape.
+    shape = tuple(q.shape)
+    return DTensor.from_local(out.to_local(), dm, plc, run_check=False,
+                              shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, kv_len: int) -> None:
@@ -469,6 +530,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     card one launch of :func:`route`'s kernel, or with the lse of the
     prefill kernel of the type at any Sq (the decode kernel writes
     none)."""
+    _check.local_only("flash_attention", q, k, v)
     if q.device.type in PLAIN_DEVICES:
         got = flash_attention_plain(q, k, v, causal=causal, window=window,
                                     kv_len=kv_len, with_lse=with_lse)
@@ -532,6 +594,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     card is counted in ``flash_attention.launches`` and under its
     route."""
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
+    _check.local_only("flash_attention_bwd", q, k, v, o, lse, do)
     if q.device.type in PLAIN_DEVICES:
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window, kv_len=kv_len)

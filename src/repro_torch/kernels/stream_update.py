@@ -82,6 +82,7 @@ def stream_update(hists: torch.Tensor, deltas: torch.Tensor,
     ``(S, K)``.  CPU tensors take :func:`stream_update_plain`; CUDA
     tensors launch the kernel (f32, contiguous, C <= 64) or raise.
     """
+    _check.local_only("stream_update", hists, deltas)
     if hists.device.type == "cpu":
         return stream_update_plain(hists, deltas, arrivals, staleness,
                                    selected, decay=decay, size_cap=size_cap)

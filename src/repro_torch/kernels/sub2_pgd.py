@@ -153,6 +153,8 @@ def sub2_pgd(selected: torch.Tensor, t_train: torch.Tensor,
     kw = dict(rho=rho, lr=lr, tau=tau, iters=iters,
               bandwidth_hz=bandwidth_hz, min_alpha=min_alpha,
               proj_iters=proj_iters)
+    _check.local_only("sub2_pgd", selected, t_train, snr_coeff, tx_power,
+                      payload_bits, alpha0)
     if selected.device.type == "cpu":
         return sub2_pgd_plain(selected, t_train, snr_coeff, tx_power,
                               payload_bits, alpha0, **kw)

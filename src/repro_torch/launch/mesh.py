@@ -14,6 +14,13 @@ over such a mesh from one process, and the dry-run planner
 the same shape where a process group is initialised (the DTensor
 placements of ``sharding.rules.placements``).
 
+A model runs on a mesh from one process a rank: :func:`init_mesh`
+brings up the process group (``nccl`` on the card, ``gloo`` on the CPU)
+through a ``torch.distributed`` store the caller passes in (a
+``HashStore`` for one rank, a ``FileStore`` for ranks on one host), and
+returns the mesh with its ``DeviceMesh``; :func:`destroy_mesh` takes
+the group down.
+
 Functions only: importing this module touches no device.
 """
 
@@ -21,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -37,6 +44,9 @@ class Mesh:
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
     devices: Optional[Tuple[torch.device, ...]] = None
+    # The DeviceMesh of a mesh a model runs on (:func:`init_mesh`).
+    device_mesh: Any = dataclasses.field(default=None, compare=False,
+                                         repr=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.shape):
@@ -118,3 +128,34 @@ def device_mesh(mesh: Mesh):
     from torch.distributed.device_mesh import init_device_mesh
     kind = mesh.devices[0].type if mesh.devices else "cpu"
     return init_device_mesh(kind, mesh.shape, mesh_dim_names=mesh.axis_names)
+
+
+def init_mesh(mesh: Mesh, store, rank: int = 0,
+              device: DeviceLike = None) -> Mesh:
+    """Bring up the process group of ``mesh``'s ``mesh.size`` ranks as
+    rank ``rank``, rendezvousing through the ``torch.distributed`` store
+    ``store`` (no network address), and return ``mesh`` with its
+    entries' devices and its ``DeviceMesh``.  On the card by default
+    (``nccl``, rank ``r`` on card ``r`` modulo the cards present),
+    raising without one; ``device="cpu"`` runs ``gloo`` on the CPU."""
+    import torch.distributed as dist
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        devices = tuple(torch.device("cuda", r % torch.cuda.device_count())
+                        for r in range(mesh.size))
+    else:
+        devices = (dev,) * mesh.size
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=store, rank=rank, world_size=mesh.size)
+    up = dataclasses.replace(mesh, devices=devices)
+    return dataclasses.replace(up, device_mesh=device_mesh(up))
+
+
+def destroy_mesh() -> None:
+    """Take down the process group :func:`init_mesh` brought up (a no-op
+    when none is up); its mesh is not used after."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -23,6 +23,16 @@ writes the new K/V into it **in place** (the reference returns a new
 cache): at full width a copy of every layer's cache per token would
 move more bytes than the attention reads.  Cross-attention decode
 attends the whole encoder K/V, which it never writes.
+
+On a device mesh (``mesh``, with the parameters as DTensors from
+``sharding.params.shard_params``) the activations are DTensors laid out
+at the reference's sites: q / k / v projections batch over ``data`` and
+heads over ``model``, the output's residual by ``residual_constrain``.
+The reference's ``attend_full`` layout (``constrain_pad`` of q, K/V
+repeated by ``_repeat_kv``) is ``flash_attention``'s mesh entry, which
+repeats K/V only where the heads do not both split.  The decode cache's
+in-place write lands in each rank's shard.  ``mesh=None`` runs the
+one-device code.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import rules
 
 Params = Dict[str, torch.Tensor]
 
@@ -64,7 +75,7 @@ def init(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig
+def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, mesh=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x -> q (B,S,H,hd), k, v (B,S,KV,hd)."""
     hd = cfg.resolved_head_dim
@@ -76,9 +87,12 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    q = q.reshape(*q.shape[:2], cfg.num_heads, hd)
-    k = k.reshape(*k.shape[:2], cfg.num_kv_heads, hd)
-    v = v.reshape(*v.shape[:2], cfg.num_kv_heads, hd)
+    q = rules.constrain(q, mesh, "batch", None, "tensor")
+    k = rules.constrain(k, mesh, "batch", None, "tensor")
+    v = rules.constrain(v, mesh, "batch", None, "tensor")
+    q = common.split_heads(q, cfg.num_heads, hd, mesh)
+    k = common.split_heads(k, cfg.num_kv_heads, hd, mesh)
+    v = common.split_heads(v, cfg.num_kv_heads, hd, mesh)
     if cfg.qk_norm:
         q = common.rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = common.rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -94,10 +108,11 @@ def _project_q(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _maybe_rope(q: torch.Tensor, k: torch.Tensor,
-                positions: Optional[torch.Tensor], cfg: ModelConfig
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                positions: Optional[torch.Tensor], cfg: ModelConfig,
+                mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """M-RoPE over (3, B, S) positions, (partial) RoPE over (B, S), or
-    nothing under absolute positions."""
+    nothing under absolute positions.  On a mesh the positions are a
+    tensor every rank holds whole, and the tables replicate."""
     if cfg.pos_embedding != "rope" or positions is None:
         return q, k
     hd = cfg.resolved_head_dim
@@ -107,10 +122,14 @@ def _maybe_rope(q: torch.Tensor, k: torch.Tensor,
     else:
         sin, cos = common.rope_sin_cos(positions, hd, cfg.rope_theta,
                                        cfg.rope_fraction)
+    sin, cos = rules.replicated(sin, mesh), rules.replicated(cos, mesh)
     return common.apply_rope(q, sin, cos), common.apply_rope(k, sin, cos)
 
 
-def _out_proj(p: Params, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _out_proj(p: Params, out: torch.Tensor, cfg: ModelConfig,
+              mesh=None) -> torch.Tensor:
+    # Unevenly split heads gather before they merge (common.split_heads).
+    out = rules.constrain(out, mesh, "batch", None, "tensor", None)
     out = out.reshape(*out.shape[:2], -1) @ p["wo"].to(out.dtype)
     if cfg.use_bias:
         out = out + p["bo"].to(out.dtype)
@@ -121,7 +140,8 @@ def attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 cfg: ModelConfig, causal: Optional[bool] = None,
                 window: int = 0) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) -> (B, Sq, H, hd);
-    ``causal`` defaults to ``cfg.causal``."""
+    ``causal`` defaults to ``cfg.causal``.  DTensors (a mesh) take
+    ``flash_attention``'s mesh entry, which lays them out."""
     causal = cfg.causal if causal is None else causal
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=causal, window=window)
@@ -130,22 +150,25 @@ def attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
             positions: Optional[torch.Tensor], layer_window: bool,
             kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-            causal: Optional[bool] = None, return_kv: bool = False):
+            causal: Optional[bool] = None, return_kv: bool = False,
+            mesh=None):
     """Attention over a full sequence.  Returns
     ``(out, (k, v) if return_kv else None)``; k is after RoPE.
     ``kv_override`` supplies precomputed (k, v) for cross-attention
     (:func:`cross_kv`): its query takes no RoPE and no q-norm, and
-    ``causal`` defaults to False."""
+    ``causal`` defaults to False.  On a ``mesh`` (self-attention only)
+    the output is the residual stream's layout."""
     if kv_override is None:
-        q, k, v = _project_qkv(p, x, cfg)
-        q, k = _maybe_rope(q, k, positions, cfg)
+        q, k, v = _project_qkv(p, x, cfg, mesh)
+        q, k = _maybe_rope(q, k, positions, cfg, mesh)
     else:
         q = _project_q(p, x, cfg)
         k, v = kv_override
         causal = False if causal is None else causal
     window = cfg.sliding_window if layer_window else 0
     out = _out_proj(p, attend_full(q, k, v, cfg, causal=causal,
-                                   window=window), cfg)
+                                   window=window), cfg, mesh)
+    out = rules.residual_constrain(out, mesh, cfg.sequence_sharding)
     return (out, (k, v)) if return_kv else (out, None)
 
 
@@ -180,8 +203,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 def decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
            index: int, cfg: ModelConfig, layer_window: bool,
-           cross_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+           cross_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+           mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode.  x: (B, 1, D); ``index`` (a host int) is the
     absolute position of the new token.  SWA layers keep a ring buffer
     (slot ``index % max_len``), others a padded cache (slot
@@ -190,7 +213,9 @@ def decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     care about slot order, so the kernel sees ``causal=False`` and that
     length as ``kv_len``.  The cache is updated in place and returned.
     With ``cross_cache`` (the encoder's (k, v)) the query attends all of
-    it, non-causal, and ``cache`` is returned untouched."""
+    it, non-causal, and ``cache`` is returned untouched.  On a ``mesh``
+    the cache is a DTensor (``transformer.init_cache``) and each rank
+    writes its shard."""
     if cross_cache is not None:
         k, v = cross_cache
         out = flash_attention(_project_q(p, x, cfg).contiguous(), k, v,
@@ -198,8 +223,8 @@ def decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
         return _out_proj(p, out, cfg), cache
     shape = (3, x.shape[0], 1) if cfg.mrope_sections else (x.shape[0], 1)
     positions = torch.full(shape, index, dtype=torch.long, device=x.device)
-    q, k_new, v_new = _project_qkv(p, x, cfg)
-    q, k_new = _maybe_rope(q, k_new, positions, cfg)
+    q, k_new, v_new = _project_qkv(p, x, cfg, mesh)
+    q, k_new = _maybe_rope(q, k_new, positions, cfg, mesh)
     k, v = cache["k"], cache["v"]
     max_len = k.shape[1]
     is_ring = bool(layer_window and cfg.sliding_window > 0)
@@ -208,4 +233,4 @@ def decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     v[:, slot] = v_new[:, 0].to(v.dtype)
     out = flash_attention(q.contiguous(), k, v, causal=False, window=0,
                           kv_len=min(index + 1, max_len))
-    return _out_proj(p, out, cfg), cache
+    return _out_proj(p, out, cfg, mesh), cache

@@ -17,6 +17,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.sharding import rules
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -83,6 +85,16 @@ def apply_norm(p: dict, x: torch.Tensor, norm_type: str,
     if norm_type == "rmsnorm":
         return rmsnorm(x, p["scale"], eps)
     return layernorm(x, p["scale"], p["bias"], eps)
+
+
+def split_heads(t: torch.Tensor, heads: int, hd: int,
+                mesh=None) -> torch.Tensor:
+    """(..., heads * hd) -> (..., heads, hd).  On a mesh whose ``model``
+    axis does not divide ``heads``, the last dim gathers first: a DTensor
+    splits a sharded dim only into whole, even shards."""
+    if mesh is not None and heads % mesh.axis_size("model"):
+        t = rules.constrain(t, mesh, "batch", *(None,) * (t.dim() - 1))
+    return t.reshape(*t.shape[:-1], heads, hd)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,11 @@ and ``norm`` are f32 and read in f32 (``D`` in the compute dtype in
 Initializers take an explicit ``torch.Generator`` and leading ``groups``
 dims for the layer stack, and make their tensors on the default device,
 as ``transformer.init`` sets it.
+
+On a device mesh (``mesh``; DTensor parameters) ``d_inner`` lies on
+``model`` (the reference's site on the conv input), the SSD chunk scan
+runs on each rank's local heads under ``local_map``, and the output is
+in the residual layout; decode runs on DTensors.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import rules
 
 Params = Dict[str, torch.Tensor]
 State = Dict[str, torch.Tensor]
@@ -139,22 +145,50 @@ def _gate_out(p: Params, y: torch.Tensor, z: torch.Tensor,
     return (y * F.silu(z)) @ p["wo"].to(y.dtype)
 
 
+def _ssd_local_heads(xh, b, c, log_a, dt_s, chunk: int, mesh):
+    """:func:`_ssd_chunked` on DTensors, each rank on its batch shard and
+    its local heads (all heads where ``model`` does not divide them)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    def plc(shape, *names):
+        return rules.placements(rules.constrain_spec(shape, mesh, *names),
+                                mesh)
+
+    bsz, _, nh, hp = xh.shape
+    heads = plc(xh.shape, "batch", None, "tensor", None)
+    return local_map(
+        lambda *a: _ssd_chunked(*a, chunk),
+        out_placements=(heads, plc((bsz, nh, b.shape[-1], hp), "batch",
+                                   "tensor", None, None)),
+        in_placements=(heads, plc(b.shape, "batch", None, None),
+                       plc(c.shape, "batch", None, None),
+                       plc(log_a.shape, "batch", None, "tensor"),
+                       plc(dt_s.shape, "batch", None, "tensor")),
+        device_mesh=mesh.device_mesh, redistribute_inputs=True)(
+        xh, b, c, log_a, dt_s)
+
+
 def forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
-            return_state: bool = False):
+            return_state: bool = False, mesh=None):
     """The full-sequence Mamba block.  x: (B, S, D) -> (out (B, S, D),
     ``{"h": (B, nh, n, p) f32, "conv": (B, K - 1, d_inner)}`` or None)."""
     bsz, s, _ = x.shape
     nh, hp = cfg.ssm_num_heads, cfg.ssm_head_dim
     dt = x.dtype
     z = x @ p["wz"].to(dt)
-    xin = F.silu(_causal_conv(x @ p["wx"].to(dt), p["conv"]))
+    xin = rules.constrain(x @ p["wx"].to(dt), mesh, "batch", None, "tensor")
+    xin = F.silu(_causal_conv(xin, p["conv"]))
     b = x @ p["wB"].to(dt)
     c = x @ p["wC"].to(dt)
     dt_s, log_a = _step_sizes(p, x @ p["wdt"].to(dt))
-    xh = xin.reshape(bsz, s, nh, hp)
-    y, h = _ssd_chunked(xh, b, c, log_a, dt_s, cfg.ssm_chunk)
+    xh = common.split_heads(xin, nh, hp, mesh)
+    if mesh is None:
+        y, h = _ssd_chunked(xh, b, c, log_a, dt_s, cfg.ssm_chunk)
+    else:
+        y, h = _ssd_local_heads(xh, b, c, log_a, dt_s, cfg.ssm_chunk, mesh)
     y = y + xh * p["D"][:, None].to(dt)
     out = _gate_out(p, y.reshape(bsz, s, -1), z, cfg)
+    out = rules.residual_constrain(out, mesh, cfg.sequence_sharding)
     if return_state:
         return out, {"h": h, "conv": xin_raw_tail(x, p, cfg)}
     return out, None
@@ -178,8 +212,8 @@ def init_state(cfg: ModelConfig, batch: int, dtype, device=None,
                                 dtype=dtype, device=device)}
 
 
-def decode(p: Params, x: torch.Tensor, state: State, cfg: ModelConfig
-           ) -> Tuple[torch.Tensor, State]:
+def decode(p: Params, x: torch.Tensor, state: State, cfg: ModelConfig,
+           mesh=None) -> Tuple[torch.Tensor, State]:
     """Single-token step.  x: (B, 1, D); returns (out (B, 1, D), new
     state)."""
     bsz = x.shape[0]
@@ -194,7 +228,7 @@ def decode(p: Params, x: torch.Tensor, state: State, cfg: ModelConfig
     b = xt @ p["wB"].to(dt)                            # (B, n)
     c = xt @ p["wC"].to(dt)
     dt_s, log_a = _step_sizes(p, xt @ p["wdt"].to(dt))  # (B, nh)
-    xh = xin.reshape(bsz, nh, hp).to(f32)
+    xh = common.split_heads(xin, nh, hp, mesh).to(f32)
     h = (torch.exp(log_a)[:, :, None, None] * state["h"]
          + torch.einsum("bh,bn,bhp->bhnp", dt_s, b.to(f32), xh))
     y = torch.einsum("bn,bhnp->bhp", c.to(f32), h) + xh * p["D"][:, None]

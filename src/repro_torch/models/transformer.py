@@ -27,7 +27,19 @@ Three entry points:
 
 ``decode_step`` takes the position ``index`` as a host ``int``: the
 serving loop counts positions on the host, so the kernel's ``kv_len``
-costs no device-to-host sync.  The reference casts every weight to the
+costs no device-to-host sync.
+
+On a device mesh (``mesh=`` a ``launch.mesh.init_mesh`` mesh, the
+parameters from ``sharding.params.shard_params``), ``forward``,
+``prefill``, ``decode_step`` and ``init_cache`` run as DTensors, one
+process a rank: inputs every rank holds whole are laid out batch over
+``data``; the residual stream is constrained between blocks as the
+reference constrains it (batch over ``data``, the sequence over
+``model``), the logits batch over ``data`` and vocabulary over
+``model``; the decode cache lies batch over ``data`` and KV heads over
+``model`` where they divide, else ``head_dim`` (:func:`cache_spec`).
+An encoder-decoder raises on a mesh.  ``mesh=None`` runs the one-device
+code.  The reference casts every weight to the
 compute dtype at each use; :func:`serving_params` makes that copy once,
 after which the same casts are no-ops and a decode step reads only the
 compute-dtype weights.
@@ -40,8 +52,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import _check
 from repro_torch.models import attention, common, moe, ssm, xlstm
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.sharding import rules
 from repro_torch.tree import tree_leaves
 
 Params = Dict[str, Any]
@@ -178,33 +192,34 @@ def _group(tree, g: int):
 
 def _mixer_full(bp: Params, spec: LayerSpec, h: torch.Tensor,
                 cfg: ModelConfig, positions, collect_state: bool,
-                causal: Optional[bool] = None):
+                causal: Optional[bool] = None, mesh=None):
     if spec.mixer == "attn":
         h, kv = attention.forward(bp["mixer"], h, cfg, positions,
                                   layer_window=spec.sliding_window,
-                                  causal=causal, return_kv=collect_state)
+                                  causal=causal, return_kv=collect_state,
+                                  mesh=mesh)
         return h, ({"k": kv[0], "v": kv[1]} if collect_state else None)
     fwd = {"mamba": ssm.forward, "mlstm": xlstm.mlstm_forward,
            "slstm": xlstm.slstm_forward}[spec.mixer]
-    return fwd(bp["mixer"], h, cfg, return_state=collect_state)
+    return fwd(bp["mixer"], h, cfg, return_state=collect_state, mesh=mesh)
 
 
-def _ffn(bp: Params, spec: LayerSpec, x: torch.Tensor, cfg: ModelConfig
-         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _ffn(bp: Params, spec: LayerSpec, x: torch.Tensor, cfg: ModelConfig,
+         mesh=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The FFN half of a block: ``(x, the MoE aux loss or None)``."""
     if spec.ffn == "none":
         return x, None
     h = common.apply_norm(bp["norm2"], x, cfg.norm_type, cfg.norm_eps)
     if spec.ffn == "moe":
-        h, aux = moe.moe_apply(bp["ffn"], h, cfg)
+        h, aux = moe.moe_apply(bp["ffn"], h, cfg, mesh)
         return x + h, aux
-    return x + moe.mlp_apply(bp["ffn"], h, cfg), None
+    return x + moe.mlp_apply(bp["ffn"], h, cfg, mesh), None
 
 
 def _block_full(bp: Params, spec: LayerSpec, x: torch.Tensor,
                 cfg: ModelConfig, positions, collect_state: bool,
                 causal: Optional[bool] = None,
-                enc_out: Optional[torch.Tensor] = None):
+                enc_out: Optional[torch.Tensor] = None, mesh=None):
     """Pre-norm residual block: the mixer, cross-attention against
     ``enc_out`` where the block has it, the FFN.  Returns ``(x, aux,
     state)``: the MoE aux loss (None without a MoE FFN), and when
@@ -213,7 +228,7 @@ def _block_full(bp: Params, spec: LayerSpec, x: torch.Tensor,
     mixer's final state, else None."""
     h = common.apply_norm(bp["norm1"], x, cfg.norm_type, cfg.norm_eps)
     h, state = _mixer_full(bp, spec, h, cfg, positions, collect_state,
-                           causal)
+                           causal, mesh)
     x = x + h
     if "cross" in bp and enc_out is not None:
         h = common.apply_norm(bp["norm_cross"], x, cfg.norm_type,
@@ -224,20 +239,24 @@ def _block_full(bp: Params, spec: LayerSpec, x: torch.Tensor,
         x = x + h
         if collect_state:
             state = dict(state, cross_k=kv[0], cross_v=kv[1])
-    x, aux = _ffn(bp, spec, x, cfg)
+    x, aux = _ffn(bp, spec, x, cfg, mesh)
     return x, aux, state
 
 
 def embed_inputs(params: Params, inputs: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """Token ids (B, S) -> embeddings in the compute dtype; float inputs
     (B, S, D) are precomputed frontend embeddings (the VLM's patches,
     the audio frames) and pass through.  Absolute positions add the
-    sinusoid of positions 0..S-1."""
+    sinusoid of positions 0..S-1.  On a ``mesh`` the output is in the
+    residual layout (the vocabulary-sharded lookup reduced into it)."""
     if inputs.is_floating_point():
         x = inputs
     else:
         x = torch.nn.functional.embedding(inputs, params["embed"])
+    if mesh is not None:
+        return rules.residual_constrain(x, mesh, cfg.sequence_sharding).to(
+            common.dtype_of(cfg.dtype_compute))
     x = x.to(common.dtype_of(cfg.dtype_compute))
     if cfg.pos_embedding == "absolute":
         pos = common.sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
@@ -256,13 +275,13 @@ def final_norm(params: Params, x: torch.Tensor,
                              cfg.norm_eps)
 
 
-def lm_logits(params: Params, x: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
+def lm_logits(params: Params, x: torch.Tensor, cfg: ModelConfig,
+              mesh=None) -> torch.Tensor:
     x = final_norm(params, x, cfg)
     logits = x @ head_matrix(params, cfg).to(x.dtype)
     if cfg.logits_softcap > 0.0:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
-    return logits
+    return rules.constrain(logits, mesh, "batch", None, "tensor")
 
 
 def default_positions(inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -271,6 +290,19 @@ def default_positions(inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b, s = inputs.shape[:2]
     pos = torch.arange(s, device=inputs.device)[None].expand(b, s)
     return pos[None].expand(3, b, s) if cfg.mrope_sections else pos
+
+
+def _on_mesh(inputs: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
+    """An entry point's inputs on ``mesh``: a DTensor as it is, a tensor
+    every rank holds whole laid out batch over ``data``.  An
+    encoder-decoder raises."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder: its encoder and "
+            f"cross-attention have no mesh path yet")
+    if _check.is_dtensor(inputs):
+        return inputs
+    return rules.distribute(inputs, mesh, "batch")
 
 
 def _encoder_out(params: Params, cfg: ModelConfig,
@@ -299,7 +331,7 @@ def encode(params: Params, embeds: torch.Tensor,
 def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
             positions: Optional[torch.Tensor] = None,
             encoder_inputs: Optional[torch.Tensor] = None,
-            return_hidden: bool = False
+            return_hidden: bool = False, mesh=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits (B, S, V) and the MoE aux loss, summed over
     the MoE layers (0 without any).  ``inputs``: token ids (B, S) or
@@ -310,22 +342,29 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
     ``return_hidden=True`` returns the final-norm hidden states (B, S, D)
     in place of the logits, so the loss can fold the LM head into a
     chunked cross-entropy (``launch.steps.chunked_xent``).
+
+    On a ``mesh``: ``inputs`` a DTensor or the same tensor on every
+    rank; ``positions`` (every rank's whole tensor) as above; the
+    logits and aux loss DTensors.
     """
+    if mesh is not None:
+        inputs = _on_mesh(inputs, cfg, mesh)
     enc_out = _encoder_out(params, cfg, encoder_inputs)
-    x = embed_inputs(params, inputs, cfg)
+    x = embed_inputs(params, inputs, cfg, mesh)
     if positions is None and cfg.pos_embedding == "rope":
         positions = default_positions(inputs, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = rules.replicated(torch.zeros((), dtype=torch.float32,
+                                       device=x.device), mesh)
     for g in range(cfg.num_groups):
         gp = _group(params["layers"], g)
         for i, spec in enumerate(cfg.pattern):
             x, a, _ = _block_full(gp[f"pos{i}"], spec, x, cfg, positions,
-                                  False, enc_out=enc_out)
+                                  False, enc_out=enc_out, mesh=mesh)
             if a is not None:
                 aux = aux + a
     if return_hidden:
         return final_norm(params, x, cfg), aux
-    return lm_logits(params, x, cfg), aux
+    return lm_logits(params, x, cfg, mesh), aux
 
 
 def _layer_cache_init(spec: LayerSpec, cfg: ModelConfig, batch: int,
@@ -349,8 +388,53 @@ def _layer_cache_init(spec: LayerSpec, cfg: ModelConfig, batch: int,
     return c
 
 
+def _kv_names(kv_heads: int, mesh) -> tuple:
+    """The logical names of a (B, S, KV, hd) K/V tensor in the decode
+    cache: KV heads over ``model`` where they divide, else ``head_dim``
+    (the reference's ``_cache_constrain``)."""
+    if kv_heads % mesh.axis_size("model") == 0:
+        return ("batch", None, "tensor", None)
+    return ("batch", None, None, "tensor")
+
+
+def _cache_constrain(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Lay prefill K/V out as the decode cache holds them."""
+    if mesh is None:
+        return x
+    return rules.constrain(x, mesh, *_kv_names(x.shape[-2], mesh))
+
+
+def cache_spec(name: str, shape: Tuple[int, ...], mesh):
+    """The spec of one stacked (num_groups, B, ...) decode-cache leaf on
+    ``mesh``: attention's K/V by :func:`_kv_names`; Mamba's conv buffer
+    (G, B, K - 1, d_inner) with ``d_inner`` over ``model``; every other
+    recurrent state (G, B, heads or d, ...) with its heads (sLSTM: d)
+    over ``model``; batch over ``data``.  These are the layouts the
+    reference's prefill and decode leave the cache in."""
+    if name in ("k", "v"):
+        names = (None,) + _kv_names(shape[3], mesh)
+    elif name == "conv":
+        names = (None, "batch", None, "tensor")
+    else:
+        names = (None, "batch", "tensor") + (None,) * (len(shape) - 3)
+    return rules.constrain_spec(shape, mesh, *names)
+
+
+def _cache_on_mesh(shapes: Params, mesh) -> Params:
+    """DTensor caches of the ``meta`` cache ``shapes``, each leaf laid out
+    by :func:`cache_spec` with each rank's shard made in place: the
+    mLSTM / sLSTM stabilizers ``m`` at ``xlstm.M_START``, the rest 0."""
+    from torch.distributed import tensor as dtensor
+    return {pos: {name: dtensor.full(
+        t.shape, xlstm.M_START if name == "m" else 0.0, dtype=t.dtype,
+        device_mesh=mesh.device_mesh,
+        placements=rules.placements(cache_spec(name, t.shape, mesh), mesh))
+        for name, t in leaves.items()} for pos, leaves in shapes.items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device=None, enc_len: Optional[int] = None) -> Params:
+               device=None, enc_len: Optional[int] = None,
+               mesh=None) -> Params:
     """Decode cache, stacked (num_groups, ...) per pattern position.
     Attention layers: zero K/V (B, L, KV, hd) in ``dtype``, full-attention
     layers holding ``max_len`` positions and SWA layers a ring of
@@ -361,11 +445,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     the recurrent state's start, in f32 whatever ``dtype`` (Mamba's conv
     buffer of pre-conv inputs in ``dtype``), as the reference's.  Under
     cross-attention with ``enc_len``, each layer also holds ``cross_k`` /
-    ``cross_v`` (B, enc_len, KV, hd), which :func:`prefill` fills."""
+    ``cross_v`` (B, enc_len, KV, hd), which :func:`prefill` fills.  On a
+    ``mesh`` every leaf is a DTensor laid out by :func:`cache_spec` on
+    the mesh's devices."""
     dtype = dtype or common.dtype_of(cfg.dtype_compute)
-    return {f"pos{i}": _layer_cache_init(spec, cfg, batch, max_len, dtype,
-                                         device, enc_len)
-            for i, spec in enumerate(cfg.pattern)}
+    if mesh is not None:
+        device = "meta"
+    cache = {f"pos{i}": _layer_cache_init(spec, cfg, batch, max_len, dtype,
+                                          device, enc_len)
+             for i, spec in enumerate(cfg.pattern)}
+    return cache if mesh is None else _cache_on_mesh(cache, mesh)
 
 
 def _store_state(dst: Dict[str, torch.Tensor],
@@ -373,6 +462,8 @@ def _store_state(dst: Dict[str, torch.Tensor],
     """Write a recurrent mixer's state (or cross-attention's K/V) into
     its layer's cache slices."""
     for key, t in state.items():
+        if _check.is_dtensor(t):
+            t = t.redistribute(dst[key].device_mesh, dst[key].placements)
         dst[key].copy_(t)
 
 
@@ -382,47 +473,56 @@ def _attn_cache_layout(dst: Dict[str, torch.Tensor], k: torch.Tensor,
     """Lay prefill K/V into one layer's decode cache ``dst`` (zeros):
     full-attention layers take positions 0..S-1 (the rest stays the
     zero padding up to ``pad_to``); SWA layers scatter the last
-    ``window`` entries into ring slots ``pos % window``."""
-    if spec.sliding_window and cfg.sliding_window:
+    ``window`` entries into ring slots ``pos % window`` (two slices: the
+    slots from ``p0 % window`` on, then those from 0)."""
+    for name, t in (("k", k), ("v", v)):
+        if not (spec.sliding_window and cfg.sliding_window):
+            dst[name][:, :seq_len] = t
+            continue
         w = cfg.sliding_window
         p0 = max(0, seq_len - w)
-        slots = torch.arange(p0, seq_len, device=k.device) % w
-        dst["k"][:, slots] = k[:, p0:]
-        dst["v"][:, slots] = v[:, p0:]
-    else:
-        dst["k"][:, :seq_len] = k
-        dst["v"][:, :seq_len] = v
+        r = p0 % w
+        first = min(seq_len - p0, w - r)
+        dst[name][:, r:r + first] = t[:, p0:p0 + first]
+        if seq_len - p0 > first:
+            dst[name][:, :seq_len - p0 - first] = t[:, p0 + first:]
 
 
 def prefill(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
             encoder_inputs: Optional[torch.Tensor] = None,
-            pad_to: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
+            pad_to: Optional[int] = None,
+            mesh=None) -> Tuple[torch.Tensor, Params]:
     """Process the prompt (token ids (B, S) or embeddings (B, S, D), at
     :func:`default_positions`); return (last-token logits (B, 1, V),
     decode cache).  Full-attention layers keep S positions zero-padded to
     ``pad_to`` (when larger), SWA layers a ring of ``sliding_window``
     slots, recurrent layers their final state; an encoder-decoder
     encodes ``encoder_inputs`` and keeps each layer's cross-attention
-    K/V."""
+    K/V.  On a ``mesh`` the logits and the cache are DTensors."""
+    if mesh is not None:
+        inputs = _on_mesh(inputs, cfg, mesh)
     enc_out = _encoder_out(params, cfg, encoder_inputs)
-    x = embed_inputs(params, inputs, cfg)
+    x = embed_inputs(params, inputs, cfg, mesh)
     positions = (default_positions(inputs, cfg)
                  if cfg.pos_embedding == "rope" else None)
     b, seq_len = inputs.shape[:2]
     full_len = pad_to if pad_to is not None and pad_to > seq_len else seq_len
     caches = init_cache(cfg, b, full_len, x.dtype, x.device,
-                        None if enc_out is None else enc_out.shape[1])
+                        None if enc_out is None else enc_out.shape[1], mesh)
     for g in range(cfg.num_groups):
         gp = _group(params["layers"], g)
         for i, spec in enumerate(cfg.pattern):
             x, _, state = _block_full(gp[f"pos{i}"], spec, x, cfg,
-                                      positions, True, enc_out=enc_out)
+                                      positions, True, enc_out=enc_out,
+                                      mesh=mesh)
             dst = _group(caches[f"pos{i}"], g)
             if spec.mixer == "attn":
-                _attn_cache_layout(dst, state.pop("k"), state.pop("v"),
-                                   spec, cfg, seq_len)
+                _attn_cache_layout(
+                    dst, _cache_constrain(state.pop("k"), mesh),
+                    _cache_constrain(state.pop("v"), mesh), spec, cfg,
+                    seq_len)
             _store_state(dst, state)
-    return lm_logits(params, x[:, -1:, :], cfg), caches
+    return lm_logits(params, x[:, -1:, :], cfg, mesh), caches
 
 
 def cache_max_len(cache: Params) -> int:
@@ -434,12 +534,12 @@ def cache_max_len(cache: Params) -> int:
 
 
 def _embed_step(params: Params, tokens: torch.Tensor, index: int,
-                cache: Params, cfg: ModelConfig) -> torch.Tensor:
+                cache: Params, cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """A decode step's token embeddings; absolute positions add row
     ``index`` of a sinusoid table ``cache_max_len(cache)`` long (the
     reference's ``dynamic_slice`` clamps the row into it)."""
     if cfg.pos_embedding != "absolute":
-        return embed_inputs(params, tokens, cfg)
+        return embed_inputs(params, tokens, cfg, mesh)
     x = torch.nn.functional.embedding(tokens, params["embed"]).to(
         common.dtype_of(cfg.dtype_compute))
     row = min(index, cache_max_len(cache) - 1)
@@ -448,13 +548,18 @@ def _embed_step(params: Params, tokens: torch.Tensor, index: int,
 
 
 def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
-                index: int, cfg: ModelConfig) -> Tuple[torch.Tensor, Params]:
+                index: int, cfg: ModelConfig,
+                mesh=None) -> Tuple[torch.Tensor, Params]:
     """One decode step.  tokens: (B, 1) ids; ``index``: the new token's
     position, a host int (M-RoPE: on all three axes).  Returns (logits
     (B, 1, V), cache), the cache updated in place; cross-attention
-    attends the cache's encoder K/V."""
+    attends the cache's encoder K/V.  On a ``mesh`` the cache is
+    :func:`prefill`'s (or :func:`init_cache`'s) on the same mesh, and
+    each rank writes its shard."""
     index = _index(index)
-    x = _embed_step(params, tokens, index, cache, cfg)
+    if mesh is not None:
+        tokens = _on_mesh(tokens, cfg, mesh)
+    x = _embed_step(params, tokens, index, cache, cfg, mesh)
     for g in range(cfg.num_groups):
         for i, spec in enumerate(cfg.pattern):
             bp = _group(params["layers"][f"pos{i}"], g)
@@ -463,11 +568,12 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
                                   cfg.norm_eps)
             if spec.mixer == "attn":
                 h, _ = attention.decode(bp["mixer"], h, gc, index, cfg,
-                                        layer_window=spec.sliding_window)
+                                        layer_window=spec.sliding_window,
+                                        mesh=mesh)
             else:
                 dec = {"mamba": ssm.decode, "mlstm": xlstm.mlstm_decode,
                        "slstm": xlstm.slstm_decode}[spec.mixer]
-                h, state = dec(bp["mixer"], h, gc, cfg)
+                h, state = dec(bp["mixer"], h, gc, cfg, mesh=mesh)
                 _store_state(gc, state)
             x = x + h
             if "cross" in bp and "cross_k" in gc:
@@ -477,5 +583,5 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
                     bp["cross"], h, gc, index, cfg, layer_window=False,
                     cross_cache=(gc["cross_k"], gc["cross_v"]))
                 x = x + h
-            x, _ = _ffn(bp, spec, x, cfg)     # decode drops the aux
-    return lm_logits(params, x, cfg), cache
+            x, _ = _ffn(bp, spec, x, cfg, mesh)     # decode drops the aux
+    return lm_logits(params, x, cfg, mesh), cache

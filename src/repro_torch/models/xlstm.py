@@ -25,6 +25,14 @@ Both follow the xLSTM residual-block layout with the input up-projection
 (mLSTM: expand 2x); the configuration has no separate FFN.  Every
 initializer takes leading ``groups`` dims for the layer stack and makes
 its tensors on the default device, as ``transformer.init`` sets it.
+
+On a device mesh (``mesh``; DTensor parameters) the mLSTM's chunkwise
+recurrence runs on each rank's local heads under ``local_map`` and its
+decode on DTensors.  The sLSTM's gates each read every head's recurrent
+output (``_slstm_step``'s reshape of the (nh, 4 hd) product into four
+gates of d), so its recurrence runs whole on every ``model`` rank, each
+``data`` rank on its batch shard.  Both outputs are in the residual
+layout (the reference's sites).
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import rules
 
 Params = Dict[str, torch.Tensor]
 State = Dict[str, torch.Tensor]
@@ -154,8 +163,35 @@ def _mlstm_out(p: Params, h: torch.Tensor, gate: torch.Tensor,
     return (h * F.silu(gate)) @ p["wo"].to(h.dtype)
 
 
+def _mlstm_local_heads(q, k, v, ig, fg, chunk: int, mesh):
+    """:func:`_mlstm_chunked` on DTensors, each rank on its batch shard
+    and its local heads (all heads where ``model`` does not divide
+    them)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    def plc(ndim):
+        names = ("batch", None, "tensor") if ndim == 3 else ("batch",
+                                                             "tensor")
+        shape = (q.shape[0],) + ((q.shape[1],) if ndim == 3 else ()) + (
+            q.shape[2],)
+        return rules.placements(rules.constrain_spec(
+            shape, mesh, *names), mesh)
+
+    seq, state = plc(3), plc(2)
+
+    def local(*a):
+        h, st = _mlstm_chunked(*a, chunk)
+        return h, st["C"], st["n"], st["m"]
+
+    h, c_st, n_st, m_st = local_map(
+        local, out_placements=(seq, state, state, state),
+        in_placements=(seq,) * 5, device_mesh=mesh.device_mesh,
+        redistribute_inputs=True)(q, k, v, ig, fg)
+    return h, {"C": c_st, "n": n_st, "m": m_st}
+
+
 def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                  return_state: bool = False):
+                  return_state: bool = False, mesh=None):
     """x: (B, S, D) -> (out (B, S, D), final state or None)."""
     bsz, s, _ = x.shape
     nh = cfg.xlstm_heads
@@ -164,12 +200,16 @@ def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     gate = x @ p["wgate"].to(dt)
     din = up.shape[-1]
     hd = din // nh
-    q = (up @ p["wq"].to(dt)).reshape(bsz, s, nh, hd)
-    k = (up @ p["wk"].to(dt)).reshape(bsz, s, nh, hd)
-    v = (up @ p["wv"].to(dt)).reshape(bsz, s, nh, hd)
+    q = common.split_heads(up @ p["wq"].to(dt), nh, hd, mesh)
+    k = common.split_heads(up @ p["wk"].to(dt), nh, hd, mesh)
+    v = common.split_heads(up @ p["wv"].to(dt), nh, hd, mesh)
     ig, fg = _mlstm_gates(p, up, nh)
-    h, st = _mlstm_chunked(q, k, v, ig, fg, cfg.ssm_chunk)
+    if mesh is None:
+        h, st = _mlstm_chunked(q, k, v, ig, fg, cfg.ssm_chunk)
+    else:
+        h, st = _mlstm_local_heads(q, k, v, ig, fg, cfg.ssm_chunk, mesh)
     out = _mlstm_out(p, h.reshape(bsz, s, din).to(dt), gate, cfg)
+    out = rules.residual_constrain(out, mesh, cfg.sequence_sharding)
     return out, (st if return_state else None)
 
 
@@ -186,7 +226,7 @@ def mlstm_init_state(cfg: ModelConfig, batch: int, device=None,
 
 
 def mlstm_decode(p: Params, x: torch.Tensor, state: State,
-                 cfg: ModelConfig) -> Tuple[torch.Tensor, State]:
+                 cfg: ModelConfig, mesh=None) -> Tuple[torch.Tensor, State]:
     """Single-token mLSTM step.  x: (B, 1, D); returns (out (B, 1, D),
     new state)."""
     bsz = x.shape[0]
@@ -198,9 +238,10 @@ def mlstm_decode(p: Params, x: torch.Tensor, state: State,
     gate = xt @ p["wgate"].to(dt)
     din = up.shape[-1]
     hd = din // nh
-    q = (up @ p["wq"].to(dt)).reshape(bsz, nh, hd).to(f32) * hd ** -0.5
-    k = (up @ p["wk"].to(dt)).reshape(bsz, nh, hd).to(f32)
-    v = (up @ p["wv"].to(dt)).reshape(bsz, nh, hd).to(f32)
+    q = common.split_heads(up @ p["wq"].to(dt), nh, hd, mesh).to(f32) \
+        * hd ** -0.5
+    k = common.split_heads(up @ p["wk"].to(dt), nh, hd, mesh).to(f32)
+    v = common.split_heads(up @ p["wv"].to(dt), nh, hd, mesh).to(f32)
     ig, fg = _mlstm_gates(p, up, nh)
     logf = F.logsigmoid(fg)
     m_new = torch.maximum(logf + state["m"], ig)
@@ -264,26 +305,59 @@ def _slstm_out(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return h @ p["wo"].to(h.dtype)
 
 
-def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                  return_state: bool = False):
-    """Sequential sLSTM over time.  x: (B, S, D) -> (out, state or None)."""
-    bsz, s, d = x.shape
-    gx = (x @ p["wx"].to(x.dtype)).to(torch.float32)        # (B,S,4d)
-    zeros = torch.zeros((bsz, d), dtype=torch.float32, device=x.device)
+def _slstm_scan(wr: torch.Tensor, bias: torch.Tensor, cfg: ModelConfig,
+                gx: torch.Tensor):
+    """The sLSTM over time from its input gates gx (B, S, 4d) f32:
+    (h of every step (B, S, d), c, n, h, m at the last)."""
+    bsz, s, _ = gx.shape
+    d = cfg.d_model
+    p = {"wr": wr, "bias": bias}
+    zeros = torch.zeros((bsz, d), dtype=torch.float32, device=gx.device)
     carry = (zeros, zeros, zeros,
              torch.full((bsz, d), M_START, dtype=torch.float32,
-                        device=x.device))
+                        device=gx.device))
     hs = []
     # On shape-only ``meta`` tensors (the dry run) every step has the
     # same shapes and no data: one step stands for all of them, and
     # ``launch.dryrun`` counts the other steps' products.
-    meta = x.device.type == "meta"
+    meta = gx.device.type == "meta"
     for t in range(min(s, 1) if meta else s):
         carry = _slstm_step(p, cfg, carry, gx[:, t])
         hs.append(carry[2])
     if meta:
         hs = hs * s
-    out = _slstm_out(p, torch.stack(hs, dim=1).to(x.dtype), cfg)
+    return (torch.stack(hs, dim=1),) + carry
+
+
+def _whole_on_model(fn, mesh, n_out: int, batched: tuple, weights: tuple):
+    """``fn(*batched, *weights)`` under ``local_map`` on each rank's batch
+    shard, everything else whole: the ``batched`` tensors (batch first)
+    and the ``n_out`` outputs laid out batch over ``data`` (where it
+    divides) and replicated over ``model``, the weights replicated."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    whole = [Replicate()] * len(mesh.shape)
+    batch = rules.placements(rules.constrain_spec(
+        batched[0].shape, mesh, "batch"), mesh)
+    return local_map(fn, out_placements=(batch,) * n_out,
+                     in_placements=(batch,) * len(batched)
+                     + (whole,) * len(weights),
+                     device_mesh=mesh.device_mesh,
+                     redistribute_inputs=True)(*batched, *weights)
+
+
+def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                  return_state: bool = False, mesh=None):
+    """Sequential sLSTM over time.  x: (B, S, D) -> (out, state or None)."""
+    gx = (x @ p["wx"].to(x.dtype)).to(torch.float32)        # (B,S,4d)
+    if mesh is None:
+        hs, *carry = _slstm_scan(p["wr"], p["bias"], cfg, gx)
+    else:
+        hs, *carry = _whole_on_model(
+            lambda g, wr, bias: _slstm_scan(wr, bias, cfg, g), mesh, 5,
+            (gx,), (p["wr"], p["bias"]))
+    out = _slstm_out(p, hs.to(x.dtype), cfg)
+    out = rules.residual_constrain(out, mesh, cfg.sequence_sharding)
     if not return_state:
         return out, None
     return out, dict(zip(("c", "n", "h", "m"), carry))
@@ -300,9 +374,15 @@ def slstm_init_state(cfg: ModelConfig, batch: int, device=None,
 
 
 def slstm_decode(p: Params, x: torch.Tensor, state: State,
-                 cfg: ModelConfig) -> Tuple[torch.Tensor, State]:
+                 cfg: ModelConfig, mesh=None) -> Tuple[torch.Tensor, State]:
     gx = (x[:, 0] @ p["wx"].to(x.dtype)).to(torch.float32)
-    carry = _slstm_step(p, cfg, (state["c"], state["n"], state["h"],
-                                 state["m"]), gx)
+    carry = (state["c"], state["n"], state["h"], state["m"])
+    if mesh is None:
+        carry = _slstm_step(p, cfg, carry, gx)
+    else:
+        carry = _whole_on_model(
+            lambda g, c, n, h, m, wr, bias: _slstm_step(
+                {"wr": wr, "bias": bias}, cfg, (c, n, h, m), g),
+            mesh, 4, (gx,) + carry, (p["wr"], p["bias"]))
     out = _slstm_out(p, carry[2].to(x.dtype), cfg)
     return out[:, None, :], dict(zip(("c", "n", "h", "m"), carry))

@@ -16,6 +16,9 @@ dicts; :func:`param_specs` walks the tree (tensors, ``meta`` ones from
   (whisper's vocab 51,865 over a 16-way model axis): an input placement,
   unlike a constraint, cannot pad.
 
+:func:`shard_params` lays a parameter tree out on a mesh as DTensors by
+these specs, for a model that runs on it.
+
 The port's parameter tree has the reference's paths and layouts leaf for
 leaf (``transformer.init``), so the rules apply unchanged.
 """
@@ -116,3 +119,32 @@ def param_shardings(shapes: Params, cfg: ModelConfig, mesh: Mesh) -> Params:
     spec)."""
     return rules.tree_spec(param_specs(shapes, cfg, mesh),
                            lambda _, s: rules.placements(s, mesh))
+
+
+def shard_params(params: Params, cfg: ModelConfig, mesh: Mesh) -> Params:
+    """Every leaf of ``params`` as a DTensor on ``mesh.device_mesh`` laid
+    out by :func:`param_specs`.  Every rank holds the whole tree (the
+    same seed or the same file), so each keeps its shard and nothing is
+    sent; where a leaf's shard is the whole leaf (a mesh of one), the
+    DTensor wraps the leaf's own storage, with no copy."""
+    from torch.distributed.tensor import DTensor
+    specs = param_specs(params, cfg, mesh)
+    coord = mesh.device_mesh.get_coordinate()
+
+    def shard(t, pspec):
+        plc = rules.placements(pspec, mesh)
+        local = t
+        # Mesh axes in order, as DTensor splits a dim over several.
+        for axis, (size, p) in enumerate(zip(mesh.shape, plc)):
+            if p.is_shard() and size > 1:
+                local = local.chunk(size, dim=p.dim)[coord[axis]]
+        return DTensor.from_local(local.contiguous(), mesh.device_mesh, plc,
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+
+    def walk(node, pspec):
+        if isinstance(node, dict):
+            return {k: walk(v, pspec[k]) for k, v in node.items()}
+        return shard(node, pspec)
+
+    return walk(params, specs)

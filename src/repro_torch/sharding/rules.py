@@ -19,16 +19,25 @@ their product, major to minor); it compares entry for entry with the
 reference's ``jax.sharding.PartitionSpec``.  :func:`placements` turns one
 into the DTensor ``Shard`` / ``Replicate`` list of each mesh dim.
 
-The reference's ``constrain``, ``constrain_pad``, ``residual_constrain``
-and ``named`` constrain tensors inside a model that runs on a mesh; the
-port's models run on one device, so they wait for a model path over
-several devices (ROADMAP queue 1).
+Inside a model that runs on a mesh, :func:`constrain`,
+:func:`constrain_pad` and :func:`residual_constrain` lay a DTensor out
+by logical names, as the reference's ``with_sharding_constraint`` does:
+``x.redistribute`` to the placements of the spec.  :func:`constrain`
+drops an axis whose dim does not divide by its shards
+(:func:`constrain_spec`); :func:`constrain_pad` keeps it, DTensor's
+uneven ``Shard`` (``torch.chunk``'s split: the last shards short or
+empty) taking the place of GSPMD's padding.  With ``mesh=None`` each
+returns its input itself.  A mesh that lays tensors out carries its
+``DeviceMesh`` (``launch.mesh.init_mesh``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Optional, Sequence, Tuple, Union
+
+import torch
 
 from repro_torch.launch.mesh import Mesh
 
@@ -134,3 +143,100 @@ def placements(pspec: PartitionSpec, mesh: Mesh) -> list:
                 if axis in entry_axes(entry)]
         out.append(Shard(dims[0]) if dims else Replicate())
     return out
+
+
+# ---------------------------------------------------------------------------
+# Constraints inside a model on a mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a spec: the counterpart of ``jax.sharding.
+    NamedSharding``.  :attr:`placements` are the DTensor placements of
+    ``spec`` on ``mesh.device_mesh``."""
+
+    mesh: Mesh
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> list:
+        return placements(self.spec, self.mesh)
+
+
+def named(mesh: Mesh, *logical: Optional[str]) -> NamedSharding:
+    return NamedSharding(mesh, spec(mesh, *logical))
+
+
+def constrain_spec(shape: Sequence[int], mesh: Mesh,
+                   *logical: Optional[str]) -> PartitionSpec:
+    """The spec :func:`constrain` lays a ``shape`` tensor out by: each
+    dim's logical name, or None where the name resolves to no axis of
+    ``mesh`` or the dim does not divide by the product of its axes (a
+    batch of 1, 12 heads on a 16-way axis): those dims replicate."""
+    names = []
+    for dim, name in zip(shape, logical):
+        size = entry_size(resolve(name, mesh), mesh)
+        names.append(name if size > 1 and dim % size == 0 else None)
+    return spec(mesh, *names)
+
+
+def _lay_out(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        raise TypeError(f"a tensor constrained on mesh "
+                        f"{sharding.mesh.describe()} must be a DTensor, got "
+                        f"{type(x).__name__}")
+    if sharding.mesh.device_mesh is None:
+        raise ValueError("the mesh has no DeviceMesh: bring it up with "
+                         "launch.mesh.init_mesh")
+    return x.redistribute(sharding.mesh.device_mesh, sharding.placements)
+
+
+def constrain(x: torch.Tensor, mesh: Optional[Mesh],
+              *logical: Optional[str]) -> torch.Tensor:
+    """Lay the DTensor ``x`` out by logical names (:func:`constrain_spec`:
+    dims that do not divide replicate); ``x`` itself without a mesh."""
+    if mesh is None:
+        return x
+    return _lay_out(x, NamedSharding(mesh, constrain_spec(x.shape, mesh,
+                                                          *logical)))
+
+
+def constrain_pad(x: torch.Tensor, mesh: Optional[Mesh],
+                  *logical: Optional[str]) -> torch.Tensor:
+    """Like :func:`constrain`, but a dim that does not divide stays
+    sharded, unevenly (40 heads on a 16-way axis: 3 a shard, the last
+    shards short); used for attention's head dims."""
+    if mesh is None:
+        return x
+    return _lay_out(x, named(mesh, *logical))
+
+
+def residual_constrain(x: torch.Tensor, mesh: Optional[Mesh],
+                       seq_shard: bool) -> torch.Tensor:
+    """Constrain a (B, S, D) residual-stream tensor between blocks:
+    batch over ``data``, the sequence over ``model`` when ``seq_shard``
+    (Megatron-style sequence parallelism)."""
+    return constrain(x, mesh, "batch", "seq" if seq_shard else None, None)
+
+
+def replicated(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """A tensor every rank holds whole (positions, RoPE tables) as a
+    DTensor replicated over ``mesh``, so that it meets the model's
+    DTensors in one operation; ``t`` itself without a mesh."""
+    if mesh is None:
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh.device_mesh,
+                              [Replicate()] * len(mesh.shape),
+                              run_check=False)
+
+
+def distribute(t: torch.Tensor, mesh: Mesh,
+               *logical: Optional[str]) -> torch.Tensor:
+    """A tensor every rank holds whole (the same inputs on every rank) as
+    a DTensor laid out by :func:`constrain_spec`: each rank keeps its
+    shard, and nothing is sent."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, mesh.device_mesh, placements(
+        constrain_spec(t.shape, mesh, *logical), mesh), src_data_rank=None)
