@@ -6,7 +6,8 @@
     python3 chip_smoke.py --flash-bwd     # the flash backward and path 21
     python3 chip_smoke.py --launch        # path 21, paths 22-23, path 12's
                                           # scenario-mesh walks
-    python3 chip_smoke.py --mesh          # paths 25b-e: serving on a mesh
+    python3 chip_smoke.py --mesh          # paths 25b-f: serving on a mesh,
+                                          # 26b: the federated step on it
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc/`` and runs,
 each phase failing the script on error:
@@ -256,7 +257,25 @@ each phase failing the script on error:
     by route and a profiled decode step's flash kernels equal, prefill s
     and decode ms a step on the mesh and without, and no process group
     left.  ``--mesh`` runs the same check for paths 18 (25b), 15 (25c),
-    17 (25d) and 14 (25e)'s configurations.
+    17 (25d), 14 (25e) and 19 (25f, whisper-small: its encoder and
+    cross-attention on the mesh, path 19's 64-token prompt against 1500
+    frames)'s configurations;
+23. path 26a, training on a device mesh: path 21's plain step
+    (stablelm-12b, 2 of 40 layers, published widths, AdamW, 8 x 1024
+    tokens) through ``launch.train.setup`` with and without a 1x1 mesh,
+    two steps each from the same seed and batches (the one-device state
+    copied to the host first).  Parameters, moments, ``ce`` and
+    ``grad_norm`` bit for bit (else the first leaf to differ named and
+    every leaf within 3e-2 of its largest), the launches and flash
+    routes equal (each layer's ``prefill_tc`` and ``backward_tc`` a
+    step), each run's warm step and peak memory printed, and no process
+    group left.  ``--mesh`` runs path 26b, path 20's federated step at its
+    6 layers (K = 4, a client a pass), fed the one-device run's DAS
+    selections, with the mesh step's route (a client at a time by
+    ``autograd.grad``) also run on one device: the mesh run bit for bit
+    that route, and each held to the one-device step (``torch.func``)
+    as 26a's; one ``fedavg_agg`` a step and the same flash launches by
+    route (K a layer a step) on all three.
 
 Every card-vs-CPU phase sets TF32 off for matrix products and cuDNN and
 restores what it found (``tf32_off``), so the phases after it run in
@@ -5771,9 +5790,11 @@ def phase_launch(torch, dev, data, wcfg, smi: str, path21: dict) -> None:
 # weights without one, in one call: a 1x1 (data, model) mesh from a
 # one-rank NCCL group, B = 1, a 2048-token prompt and 16 decode steps.
 # 25a (the default run) is path 6's model at all 24 layers; under
-# --mesh, 25b-e are paths 18, 15, 17 and 14's configurations.
+# --mesh, 25b-f are paths 18, 15, 17, 14 and 19's configurations (25f,
+# whisper-small, takes path 19's 64-token prompt against 1500 frames).
 MESH_B, MESH_PROMPT, MESH_GEN = 1, 2048, 16
-MESH_PATHS = {"25a": 6, "25b": 18, "25c": 15, "25d": 17, "25e": 14}
+MESH_PATHS = {"25a": 6, "25b": 18, "25c": 15, "25d": 17, "25e": 14,
+              "25f": 19}
 
 
 def mesh_path_config(label: str):
@@ -5786,14 +5807,17 @@ def mesh_path_config(label: str):
     return configs.get("h2o_danube_3_4b" if path == 6 else "xlstm_125m")
 
 
-def mesh_serve_run(torch, transformer, params, cfg, prompt, toks, mesh):
-    """Prefill ``prompt`` (padded for the steps), then one decode step a
-    token of ``toks`` (B, n) -> (logits of prefill and each step, the
-    cache, prefill s, warm decode s a step over steps 2..n)."""
+def mesh_serve_run(torch, transformer, params, cfg, prompt, toks, mesh,
+                   enc=None):
+    """Prefill ``prompt`` (padded for the steps; an encoder-decoder
+    encodes ``enc``), then one decode step a token of ``toks`` (B, n) ->
+    (logits of prefill and each step, the cache, prefill s, warm decode
+    s a step over steps 2..n)."""
     s, n = prompt.shape[1], toks.shape[1]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = transformer.prefill(params, prompt, cfg,
+                                        encoder_inputs=enc,
                                         pad_to=s + n + 1, mesh=mesh)
     torch.cuda.synchronize()
     t_pre = time.perf_counter() - t0
@@ -5848,6 +5872,10 @@ def phase_mesh_serve(torch, dev, label: str, smi: str) -> dict:
     tag = f"[path {label}]"
     cfg = mesh_path_config(label)
     b, s, n = MESH_B, MESH_PROMPT, MESH_GEN
+    enc, frames = None, 0
+    if cfg.is_encdec:
+        s, frames = (MEDIA_PATHS[MESH_PATHS[label]][k]
+                     for k in ("prompt", "frames"))
     gen = torch.Generator(device=dev).manual_seed(SEED + 25)
     sp = transformer.serving_params(transformer.init(gen, cfg), cfg)
     if cfg.name.startswith("qwen2-vl"):       # precomputed patch embeddings
@@ -5856,13 +5884,19 @@ def phase_mesh_serve(torch, dev, label: str, smi: str) -> dict:
     else:
         prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                                device=dev)
-    print(f"{tag} {cfg.name}, {cfg.num_layers} layers "
-          f"({transformer.param_count(cfg)} parameters, "
+    if cfg.is_encdec:                         # stub frame embeddings
+        enc = torch.randn((b, frames, cfg.d_model), generator=gen,
+                          device=dev, dtype=torch.bfloat16)
+    print(f"{tag} {cfg.name}, {cfg.num_layers} layers"
+          + (f" and {cfg.encoder_layers} encoder layers over {frames} "
+             f"frames" if cfg.is_encdec else "")
+          + f" ({transformer.param_count(cfg)} parameters, "
           f"{cfg.dtype_compute}); B={b}, prompt {s}, {n} decode steps",
           flush=True)
     # The one-device run: greedy tokens (a warm-up), then the timed run
     # on them.
-    logits, cache = transformer.prefill(sp, prompt, cfg, pad_to=s + n + 1)
+    logits, cache = transformer.prefill(sp, prompt, cfg, encoder_inputs=enc,
+                                        pad_to=s + n + 1)
     toks = [logits[:, -1].argmax(-1)]
     for i in range(n - 1):
         logits, cache = transformer.decode_step(sp, toks[-1][:, None], cache,
@@ -5872,10 +5906,12 @@ def phase_mesh_serve(torch, dev, label: str, smi: str) -> dict:
     del logits, cache
     reset_counts()
     want, want_cache, pre0, step0 = mesh_serve_run(
-        torch, transformer, sp, cfg, prompt, toks, None)
+        torch, transformer, sp, cfg, prompt, toks, None, enc)
     want_routes = dict(fa.flash_attention.route_launches)
     attn = cfg.num_groups * sum(x.mixer == "attn" for x in cfg.pattern)
-    if want_routes["prefill_tc"] != attn or \
+    if cfg.is_encdec:               # cross-attention in every decoder block
+        attn *= 2
+    if want_routes["prefill_tc"] != attn + cfg.encoder_layers or \
             want_routes["decode"] != attn * n:
         raise AssertionError(f"{tag} one-device flash routes {want_routes}")
     flash0 = flash_kernels_profiled(torch, lambda: transformer.decode_step(
@@ -5895,10 +5931,10 @@ def phase_mesh_serve(torch, dev, label: str, smi: str) -> dict:
         if shared != len(pairs):       # a copy would not fit path 17's
             raise AssertionError(f"{tag} shard_params copied weights")
         mesh_serve_run(torch, transformer, sharded, cfg, prompt, toks,
-                       mesh)                 # warm-up: DTensor's caches
+                       mesh, enc)            # warm-up: DTensor's caches
         reset_counts()
         got, got_cache, pre1, step1 = mesh_serve_run(
-            torch, transformer, sharded, cfg, prompt, toks, mesh)
+            torch, transformer, sharded, cfg, prompt, toks, mesh, enc)
         counts = read_counts()
         routes = dict(fa.flash_attention.route_launches)
         flash1 = flash_kernels_profiled(
@@ -5941,6 +5977,219 @@ def phase_mesh_serve(torch, dev, label: str, smi: str) -> dict:
     del sp, sharded, got, want, got_cache, want_cache, outputs
     torch.cuda.empty_cache()
     return counts
+
+
+# Path 26: training on a device mesh (the DTensor train steps) against
+# the same run without one, in one call: a 1x1 (data, model) mesh from a
+# one-rank NCCL group, ``launch.train.setup`` with ``mesh=`` (the state
+# drawn again from the same seed, laid out by ``shard_params``), the
+# one-device run's batches.  26a (the default run) is path 21's plain
+# step (stablelm-12b, 2 of 40 layers, published widths, AdamW, 8 x 1024
+# tokens); under --mesh, 26b is path 20's federated danube at its 6 of 24
+# layers (K = 4, a client a pass, 16 x 1024 tokens), the one-device
+# run's DAS selections fed to the mesh run, with a third run: the mesh
+# step's route (a client at a time by ``autograd.grad``) on one device.
+# Two steps each; each run's state is copied to the host before the next
+# starts (two of path 21's 17.7 GiB states do not fit beside its
+# activations).
+MESH_TRAIN_STEPS = 2
+# A leaf that is not bit for bit the one-device run's, of its largest
+# magnitude: path 21's bf16 card-vs-CPU limit.
+MESH_TRAIN_TOL = STABLELM_CARD_CPU_TOL
+
+
+def train_leaves(state, metrics: list) -> dict:
+    """Parameters, moments and each step's metrics by name, gathered
+    where they are DTensors."""
+    from repro_torch.sharding.rules import is_dtensor
+    from repro_torch.tree import tree_leaves
+
+    def whole(t):
+        return t.full_tensor() if is_dtensor(t) else t
+    out = {f"params/{i}": whole(t)
+           for i, t in enumerate(tree_leaves(state["params"]))}
+    for name in ("mu", "nu"):
+        out.update({f"{name}/{i}": whole(t)
+                    for i, t in enumerate(tree_leaves(state["opt"][name]))})
+    for i, m in enumerate(metrics):
+        out.update({f"step{i}/{k}": whole(v) for k, v in m.items()})
+    return out
+
+
+def held_to_one_device(torch, tag: str, got: dict, want: dict,
+                       what: str = "mesh vs one device",
+                       exact: bool = False) -> None:
+    """``got`` (on the card) bit for bit ``want`` (on the host), or (not
+    ``exact``) the first leaf that differs named and every leaf within
+    MESH_TRAIN_TOL of its largest magnitude."""
+    if set(got) != set(want):
+        raise AssertionError(f"{tag} leaves {sorted(set(got) ^ set(want))}")
+    differ, worst = [], (0.0, None)
+    for name, w in want.items():
+        w = w.to(got[name].device)
+        if torch.equal(got[name], w):
+            continue
+        differ.append(name)
+        rel = float((got[name].float() - w.float()).abs().max()) / max(
+            float(w.float().abs().max()), 1e-30)
+        worst = max(worst, (rel, name), key=lambda x: x[0])
+    print(f"{tag} {what}: {len(want) - len(differ)} of "
+          f"{len(want)} leaves (parameters, moments, each step's metrics) "
+          f"bit for bit"
+          + (f"; first to differ: {differ[0]}; worst {worst[1]} at "
+             f"{worst[0]:.3g} of its largest (limit {MESH_TRAIN_TOL:g})"
+             if differ else ""), flush=True)
+    if differ and exact:
+        raise AssertionError(f"{tag} {what}: {differ[0]} differs")
+    if worst[0] > MESH_TRAIN_TOL:
+        raise AssertionError(f"{tag} {worst[1]} differs by {worst[0]}")
+
+
+def mesh_train_runs(torch, tag: str, argv: list, batches_of, smi: str,
+                    same_route=None) -> list:
+    """``launch.train.setup(argv)`` without a mesh and with a 1x1 mesh,
+    a step a batch of ``batches_of(run)`` (made once, from the
+    one-device run's generator); the mesh run held to the one-device
+    run by :func:`held_to_one_device`.  With ``same_route`` (a function
+    of a one-device ``Run`` giving the mesh step's route on one device)
+    a run of that step comes between them, held to the one-device run
+    likewise, and the mesh run must be it bit for bit.  Returns each
+    run's (launch counts, flash launches by route), counted from zero."""
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    labels = ["one device", "1x1 mesh"]
+    if same_route is not None:
+        labels.insert(1, "one device, the mesh's route")
+    out, want, same, batches = [], None, None, None
+    for label in labels:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = None
+        if label == "1x1 mesh":
+            mesh = mesh_lib.init_mesh(
+                mesh_lib.Mesh(("data", "model"), (1, 1)), dist.HashStore(),
+                0)
+        try:
+            t0 = time.perf_counter()
+            run = train.setup(train.parse_args(argv), mesh=mesh)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            if batches is None:
+                batches = batches_of(run)
+            state, step = run.state, run.step
+            if label == "one device, the mesh's route":
+                step = same_route(run)
+            del run
+            metrics, walls, ces = [], [], []
+            reset_counts()
+            for batch in batches:
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                ces.append(float(m["ce"]))
+                walls.append(time.perf_counter() - t0)
+                metrics.append(m)
+                if not math.isfinite(ces[-1]):
+                    raise AssertionError(f"{tag} {label}: ce {ces[-1]}")
+            out.append((read_counts(),
+                        dict(fa.flash_attention.route_launches)))
+            peak = torch.cuda.max_memory_allocated()
+            print(f"{tag} {label}: set up in {setup_s:.2f}s; step walls "
+                  f"{[round(w, 3) for w in walls]} s (warm step "
+                  f"{walls[-1]:.3f} s); ce {ces}; max_memory_allocated "
+                  f"{peak / 2 ** 30:.2f} GiB; {smi}", flush=True)
+            leaves = train_leaves(state, metrics)
+            del state, metrics, step
+            if want is None:
+                want = {k: v.cpu() for k, v in leaves.items()}
+            elif mesh is None:
+                held_to_one_device(torch, tag, leaves, want,
+                                   "the mesh's route vs one device")
+                same = {k: v.cpu() for k, v in leaves.items()}
+            else:
+                held_to_one_device(torch, tag, leaves, want)
+                if same is not None:
+                    held_to_one_device(
+                        torch, tag, leaves, same,
+                        "mesh vs its route on one device", exact=True)
+            del leaves
+        finally:
+            if mesh is not None:
+                mesh_lib.destroy_mesh()
+    if dist.is_initialized():
+        raise AssertionError(f"{tag} a process group remains")
+    del want, same, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_train(torch, dev, smi: str) -> dict:
+    """Path 26a: path 21's plain step on a 1x1 mesh beside the same
+    steps without one.  Parameters, moments, ``ce`` and ``grad_norm``
+    bit for bit (else the first leaf that differs named and held);
+    ``prefill_tc`` and ``backward_tc`` launches equal, each layer's
+    forward and backward a step.  Returns the mesh run's counts."""
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    tag = "[path 26a]"
+    argv = ["--arch", "stablelm-12b", "--num-layers", str(STABLELM_LAYERS),
+            "--batch", str(STABLELM_BATCH), "--seq", str(STABLELM_SEQ),
+            "--seed", str(SEED + 26)]
+    print(f"{tag} stablelm-12b plain training, {STABLELM_LAYERS} of 40 "
+          f"layers at published widths, {STABLELM_BATCH} x {STABLELM_SEQ} "
+          f"tokens, {MESH_TRAIN_STEPS} AdamW steps, one device and a 1x1 "
+          f"mesh", flush=True)
+    (c0, r0), (c1, r1) = mesh_train_runs(
+        torch, tag, argv, lambda run: [train.driver_batch(
+            run.gen, STABLELM_BATCH, STABLELM_SEQ, run.cfg.vocab_size)
+            for _ in range(MESH_TRAIN_STEPS)], smi)
+    n = STABLELM_LAYERS * MESH_TRAIN_STEPS
+    print(f"{tag} launches: mesh {c1}, one device {c0}; flash by route: "
+          f"mesh {r1}, one device {r0}", flush=True)
+    if not (c1 == c0 and r1 == r0 and r1["prefill_tc"] == n
+            and r1["backward_tc"] == n):
+        raise AssertionError(f"{tag} launches differ")
+    print(f"[time] path 26a ran {time.perf_counter() - t0:.1f}s", flush=True)
+    return c1
+
+
+def phase_mesh_federated(torch, dev, smi: str) -> None:
+    """Path 26b: path 20's federated step (danube, its DANUBE_LAYERS
+    layers, a client a pass) on a 1x1 mesh beside the same steps without
+    one, fed the one-device run's DAS selections, and the mesh step's
+    route (a client at a time by ``autograd.grad``) on one device
+    between them.  The mesh run bit for bit that route; each run held
+    to the one-device step (``torch.func`` a client a pass) as 26a's;
+    on all three one ``fedavg_agg`` a step, the same launches and flash
+    launches by route, K a layer a step."""
+    from repro_torch.launch import steps, train
+    t0 = time.perf_counter()
+    tag = "[path 26b]"
+    argv = ["--arch", "h2o-danube-3-4b", "--federated", str(DANUBE_K),
+            "--num-layers", str(DANUBE_LAYERS), "--clients-per-pass", "1",
+            "--batch", str(DANUBE_BATCH), "--seq", str(DANUBE_SEQ),
+            "--seed", str(SEED + 27)]
+    print(f"{tag} h2o-danube-3-4b federated, {DANUBE_LAYERS} of 24 layers "
+          f"at published widths, K={DANUBE_K}, {DANUBE_BATCH} x "
+          f"{DANUBE_SEQ} tokens, a client a pass, {MESH_TRAIN_STEPS} AdamW "
+          f"steps", flush=True)
+    runs = mesh_train_runs(
+        torch, tag, argv, lambda run: [train.driver_batch(
+            run.gen, DANUBE_BATCH, DANUBE_SEQ, run.cfg.vocab_size,
+            run.clients) for _ in range(MESH_TRAIN_STEPS)], smi,
+        same_route=lambda run: steps.federated_step(
+            run.ocfg, DANUBE_K, steps.client_grads_by_autograd(run.cfg)))
+    n = DANUBE_K * DANUBE_LAYERS * MESH_TRAIN_STEPS
+    print(f"{tag} launches (one device, its route, mesh): "
+          f"{[c for c, _ in runs]}; flash by route: {[r for _, r in runs]}",
+          flush=True)
+    (c0, r0) = runs[0]
+    if not (all(c == c0 and r == r0 for c, r in runs)
+            and c0["fedavg_agg"] == MESH_TRAIN_STEPS
+            and r0["prefill_tc"] == r0["backward_tc"] == n):
+        raise AssertionError(f"{tag} launches {runs}")
+    print(f"[time] path 26b ran {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 KERNELS = {
@@ -6020,8 +6269,9 @@ def main() -> int:
         phase_stablelm_card_vs_cpu(torch, dev)
         return 0
     if sys.argv[1:] == ["--mesh"]:
-        for label in ("25b", "25c", "25d", "25e"):
+        for label in ("25b", "25c", "25d", "25e", "25f"):
             phase_mesh_serve(torch, dev, label, smi)
+        phase_mesh_federated(torch, dev, smi)
         print(f"[time] chip_smoke --mesh ran "
               f"{time.perf_counter() - t_start:.1f}s", flush=True)
         return 0
@@ -6154,6 +6404,7 @@ def main() -> int:
     phase_stablelm_card_vs_cpu(torch, dev)
     phase_launch(torch, dev, None, wcfg, smi, path21)
     phase_mesh_serve(torch, dev, "25a", smi)
+    phase_mesh_train(torch, dev, smi)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=by_path[owner[name]][re.sub(

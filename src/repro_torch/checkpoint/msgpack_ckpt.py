@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.checkpoint import _msgpack
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.sharding.rules import is_dtensor
 
 Tensor = torch.Tensor
 
@@ -86,12 +87,21 @@ def _leaf_record(leaf) -> dict:
 def save(path: str, tree: Any, meta: Optional[dict] = None) -> None:
     """Write ``tree``'s leaves and ``meta`` to ``path`` atomically: a
     sibling ``.tmp`` file, fsynced, then renamed over ``path``, so a kill
-    at any point leaves the old complete file or the new one."""
+    at any point leaves the old complete file or the new one.  A tree of
+    DTensors (a model on a device mesh) is gathered, every rank taking
+    part, and rank 0 alone writes the file, the same bytes as the tree
+    on one device."""
+    flat = _flatten_with_paths(tree)
+    if any(is_dtensor(v) for v in flat.values()):
+        import torch.distributed as dist
+        flat = {k: v.full_tensor() if is_dtensor(v) else v
+                for k, v in flat.items()}
+        if dist.get_rank() != 0:
+            return
     payload = {
         "__version__": FORMAT_VERSION,
         "__meta__": meta or {},
-        "leaves": {k: _leaf_record(v)
-                   for k, v in _flatten_with_paths(tree).items()},
+        "leaves": {k: _leaf_record(v) for k, v in flat.items()},
     }
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:

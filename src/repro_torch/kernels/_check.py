@@ -3,22 +3,14 @@ bf16 result against its f32 answer."""
 
 from __future__ import annotations
 
-import sys
-
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.sharding.rules import is_dtensor
 
 # Two bf16 NaNs side by side, and one f32 NaN: shared memory filled with
 # it reads as NaN in either type.
 NAN_WORD = 0x7FC07FC0
-
-
-def is_dtensor(t) -> bool:
-    """Whether ``t`` is a DTensor (no DTensor exists before
-    ``torch.distributed.tensor`` is imported)."""
-    mod = sys.modules.get("torch.distributed.tensor")
-    return mod is not None and isinstance(t, mod.DTensor)
 
 
 def local_only(label: str, *tensors) -> None:

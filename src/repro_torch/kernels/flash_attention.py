@@ -455,13 +455,33 @@ def _repeat_heads(t: torch.Tensor, heads: int, mesh) -> torch.Tensor:
         b, s, heads, hd)
 
 
+class _NoHeads(torch.autograd.Function):
+    """A rank's empty output where its block holds no head (or no
+    sequence): differentiable in q, k and v, with zero gradients of their
+    shapes, so that the rank takes part in the backward's collectives;
+    launches no kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.likes = [(t.shape, t.dtype, t.device) for t in (q, k, v)]
+        return torch.empty_like(q)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return tuple(torch.zeros(shape, dtype=dtype, device=device)
+                     for shape, dtype, device in ctx.likes)
+
+
 def _flash_on_mesh(q, k, v, causal: bool, window: int, kv_len: int):
     """:func:`flash_attention` on DTensors: q, k and v laid out batch over
     ``data`` and heads over ``model`` (K/V repeated to the query heads
     unless both head counts split, the heads then uneven), and the
     wrapper called under ``local_map`` on each rank's (B_local, S,
     H_local, hd) block, which launches the kernel on the card.  The
-    output has q's layout."""
+    output has q's layout.  Differentiating through ``local_map`` runs
+    the kernel's backward on each rank's block (``_FlashAttention``);
+    the repeated K/V's gradients sum back onto the KV heads through the
+    repeat's own backward."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import local_map
     from repro_torch.launch.mesh import Mesh
@@ -478,7 +498,7 @@ def _flash_on_mesh(q, k, v, causal: bool, window: int, kv_len: int):
 
     def local(ql, kl, vl):
         if ql.numel() == 0:      # no head (or no sequence) on this rank
-            return torch.empty_like(ql)
+            return _NoHeads.apply(ql, kl, vl)
         return flash_attention(ql.contiguous(), kl.contiguous(),
                                vl.contiguous(), causal=causal,
                                window=window, kv_len=kv_len).contiguous()

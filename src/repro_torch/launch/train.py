@@ -20,9 +20,13 @@ reference's, makes no encoder inputs.
 Runs on the CUDA card unless ``--device cpu``; without a card it raises.
 All randomness comes from ``torch.Generator`` s seeded from ``--seed``
 (the reference draws from JAX keys, so the numbers differ).  The
-reference's host mesh line is the device's name here: the trainer runs
-on one device (``launch.mesh`` and ``sharding`` plan placements over
-several; the model itself has no path over several devices yet).
+reference's host mesh line is the device's name here: the CLI trains on
+one device, as the reference's on its one-device host mesh.  On a
+device mesh the same run is :func:`setup` with ``mesh=`` (a
+``launch.mesh.init_mesh`` mesh, one process a rank, every rank with the
+same arguments): the state is laid out on it and the steps run as
+DTensors (``launch.steps``); checkpoints gather each leaf and rank 0
+writes them.  The CLI has no mesh flag, as the reference's has none.
 """
 
 from __future__ import annotations
@@ -178,9 +182,10 @@ class Run:
     clients: Optional[Clients]
 
 
-def setup(args: argparse.Namespace) -> Run:
+def setup(args: argparse.Namespace, mesh=None) -> Run:
     """The model, optimizer, train state, step and (with ``--federated``)
-    the clients that ``main`` drives."""
+    the clients that ``main`` drives; on a ``mesh`` the state and the
+    steps are laid out on it."""
     dev = resolve_device(args.device)
     cfg = configs.get(args.arch)
     if args.reduced:
@@ -189,17 +194,17 @@ def setup(args: argparse.Namespace) -> Run:
         cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     ocfg = optim.OptimizerConfig(learning_rate=args.lr, warmup_steps=10)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    state = steps_lib.init_train_state(gen, cfg, ocfg)
+    state = steps_lib.init_train_state(gen, cfg, ocfg, mesh=mesh)
     clients = None
     if args.federated:
         step = steps_lib.make_federated_train_step(
             cfg, ocfg, num_clients=args.federated,
-            clients_per_pass=args.clients_per_pass or None)
+            clients_per_pass=args.clients_per_pass or None, mesh=mesh)
         clients = Clients.sample(
             torch.Generator(device=dev).manual_seed(args.seed + 1),
             args.federated)
     else:
-        step = steps_lib.make_train_step(cfg, ocfg)
+        step = steps_lib.make_train_step(cfg, ocfg, mesh=mesh)
     return Run(dev, cfg, ocfg, gen, state, step, clients)
 
 

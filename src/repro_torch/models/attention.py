@@ -99,12 +99,14 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, mesh=None
     return q, k, v
 
 
-def _project_q(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _project_q(p: Params, x: torch.Tensor, cfg: ModelConfig,
+               mesh=None) -> torch.Tensor:
     """x -> q (B,S,H,hd) of cross-attention: no RoPE and no q-norm."""
     q = x @ p["wq"].to(x.dtype)
     if cfg.use_bias:
         q = q + p["bq"].to(x.dtype)
-    return q.reshape(*q.shape[:2], cfg.num_heads, cfg.resolved_head_dim)
+    q = rules.constrain(q, mesh, "batch", None, "tensor")
+    return common.split_heads(q, cfg.num_heads, cfg.resolved_head_dim, mesh)
 
 
 def _maybe_rope(q: torch.Tensor, k: torch.Tensor,
@@ -128,9 +130,14 @@ def _maybe_rope(q: torch.Tensor, k: torch.Tensor,
 
 def _out_proj(p: Params, out: torch.Tensor, cfg: ModelConfig,
               mesh=None) -> torch.Tensor:
-    # Unevenly split heads gather before they merge (common.split_heads).
+    # Unevenly split heads gather before they merge (common.split_heads),
+    # and the merged dim stays whole so that the backward gathers the
+    # gradient before it splits the heads.
     out = rules.constrain(out, mesh, "batch", None, "tensor", None)
-    out = out.reshape(*out.shape[:2], -1) @ p["wo"].to(out.dtype)
+    out = out.reshape(*out.shape[:2], -1)
+    if mesh is not None and cfg.num_heads % mesh.axis_size("model"):
+        out = rules.constrain(out, mesh, "batch", None, None)
+    out = out @ p["wo"].to(out.dtype)
     if cfg.use_bias:
         out = out + p["bo"].to(out.dtype)
     return out
@@ -156,13 +163,13 @@ def forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     ``(out, (k, v) if return_kv else None)``; k is after RoPE.
     ``kv_override`` supplies precomputed (k, v) for cross-attention
     (:func:`cross_kv`): its query takes no RoPE and no q-norm, and
-    ``causal`` defaults to False.  On a ``mesh`` (self-attention only)
-    the output is the residual stream's layout."""
+    ``causal`` defaults to False.  On a ``mesh`` the output is the
+    residual stream's layout."""
     if kv_override is None:
         q, k, v = _project_qkv(p, x, cfg, mesh)
         q, k = _maybe_rope(q, k, positions, cfg, mesh)
     else:
-        q = _project_q(p, x, cfg)
+        q = _project_q(p, x, cfg, mesh)
         k, v = kv_override
         causal = False if causal is None else causal
     window = cfg.sliding_window if layer_window else 0
@@ -172,10 +179,11 @@ def forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return (out, (k, v)) if return_kv else (out, None)
 
 
-def cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig
+def cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig, mesh=None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K/V (B, S_enc, KV, hd) from the encoder output,
-    computed once at prefill."""
+    computed once at prefill; on a ``mesh`` batch over ``data`` and KV
+    heads over ``model``, as the self-attention projections."""
     hd = cfg.resolved_head_dim
     dt = enc_out.dtype
     k = enc_out @ p["wk"].to(dt)
@@ -183,8 +191,10 @@ def cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig
     if cfg.use_bias:
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    return (k.reshape(*k.shape[:2], cfg.num_kv_heads, hd),
-            v.reshape(*v.shape[:2], cfg.num_kv_heads, hd))
+    k = rules.constrain(k, mesh, "batch", None, "tensor")
+    v = rules.constrain(v, mesh, "batch", None, "tensor")
+    return (common.split_heads(k, cfg.num_kv_heads, hd, mesh),
+            common.split_heads(v, cfg.num_kv_heads, hd, mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -215,12 +225,13 @@ def decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     With ``cross_cache`` (the encoder's (k, v)) the query attends all of
     it, non-causal, and ``cache`` is returned untouched.  On a ``mesh``
     the cache is a DTensor (``transformer.init_cache``) and each rank
-    writes its shard."""
+    writes its shard; the cross-attention K/V are DTensors, and the
+    kernel reads each rank's."""
     if cross_cache is not None:
         k, v = cross_cache
-        out = flash_attention(_project_q(p, x, cfg).contiguous(), k, v,
+        out = flash_attention(_project_q(p, x, cfg, mesh).contiguous(), k, v,
                               causal=False, window=0, kv_len=k.shape[1])
-        return _out_proj(p, out, cfg), cache
+        return _out_proj(p, out, cfg, mesh), cache
     shape = (3, x.shape[0], 1) if cfg.mrope_sections else (x.shape[0], 1)
     positions = torch.full(shape, index, dtype=torch.long, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, cfg, mesh)

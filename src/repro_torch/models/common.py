@@ -91,9 +91,14 @@ def split_heads(t: torch.Tensor, heads: int, hd: int,
                 mesh=None) -> torch.Tensor:
     """(..., heads * hd) -> (..., heads, hd).  On a mesh whose ``model``
     axis does not divide ``heads``, the last dim gathers first: a DTensor
-    splits a sharded dim only into whole, even shards."""
+    splits a sharded dim only into whole, even shards.  The split heads
+    are then constrained whole as well, a no-op forward whose backward
+    gathers the gradient before it merges the heads back."""
     if mesh is not None and heads % mesh.axis_size("model"):
-        t = rules.constrain(t, mesh, "batch", *(None,) * (t.dim() - 1))
+        names = ("batch",) + (None,) * (t.dim() - 1)
+        t = rules.constrain(t, mesh, *names)
+        return rules.constrain(t.reshape(*t.shape[:-1], heads, hd), mesh,
+                               *names, None)
     return t.reshape(*t.shape[:-1], heads, hd)
 
 

@@ -329,10 +329,12 @@ def _moe_on_mesh(p: Params, x: torch.Tensor, cfg: ModelConfig, mesh
     by_group = Shard(1) if split else rep     # the buffers' group rows
     rows = _layout(mesh, by_group, rep)
     summed = _layout(mesh, Partial() if split else rep, rep)
+    # The router's gradient comes from the rank's tokens alone: partial
+    # over data where each data shard dispatches its own.
     xe, src, w, counts, psum = local_map(
         dispatch, out_placements=(rows, tok, tok, summed, summed),
-        in_placements=(tok, everywhere), device_mesh=dm,
-        redistribute_inputs=True)(x2d, p["router"])
+        in_placements=(tok, everywhere), in_grad_placements=(tok, summed),
+        device_mesh=dm, redistribute_inputs=True)(x2d, p["router"])
     # Expert-parallel where E splits over `model` (each rank its experts'
     # buffers), else each expert's F (partial sums over `model`).
     m = mesh.axis_size("model")
@@ -349,10 +351,16 @@ def _moe_on_mesh(p: Params, x: torch.Tensor, cfg: ModelConfig, mesh
     def experts(xl, *ws):
         return _experts(dict(zip(names, ws)), xl, cfg)
 
+    # Gradients: the weights' from the rank's groups alone (partial over
+    # data where the groups split), the buffers' from the rank's slice of
+    # F alone (partial over model where F splits).
+    by_data = Partial() if split else rep
     ye = local_map(
         experts, out_placements=_layout(mesh, by_group, y_plc),
         in_placements=(_layout(mesh, by_group, xe_plc),)
         + tuple(_layout(mesh, rep, w_plc[n]) for n in names),
+        in_grad_placements=(_layout(mesh, by_group, y_plc),)
+        + tuple(_layout(mesh, by_data, w_plc[n]) for n in names),
         device_mesh=dm, redistribute_inputs=True)(
         xe, *(p[n] for n in names)).redistribute(dm, rows)
     out = local_map(

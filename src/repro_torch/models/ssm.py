@@ -147,7 +147,11 @@ def _gate_out(p: Params, y: torch.Tensor, z: torch.Tensor,
 
 def _ssd_local_heads(xh, b, c, log_a, dt_s, chunk: int, mesh):
     """:func:`_ssd_chunked` on DTensors, each rank on its batch shard and
-    its local heads (all heads where ``model`` does not divide them)."""
+    its local heads (all heads where ``model`` does not divide them).
+    ``b`` and ``c`` are shared by the heads: a rank's gradient of them
+    comes from its heads alone, partial over ``model`` where the heads
+    split."""
+    from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
 
     def plc(shape, *names):
@@ -156,6 +160,11 @@ def _ssd_local_heads(xh, b, c, log_a, dt_s, chunk: int, mesh):
 
     bsz, _, nh, hp = xh.shape
     heads = plc(xh.shape, "batch", None, "tensor", None)
+    shared = [Partial() if h.is_shard() and h.dim == 2 else p
+              for h, p in zip(heads, plc(b.shape, "batch", None, None))]
+    grads = (heads, shared, shared, plc(log_a.shape, "batch", None,
+                                        "tensor"),
+             plc(dt_s.shape, "batch", None, "tensor"))
     return local_map(
         lambda *a: _ssd_chunked(*a, chunk),
         out_placements=(heads, plc((bsz, nh, b.shape[-1], hp), "batch",
@@ -164,7 +173,8 @@ def _ssd_local_heads(xh, b, c, log_a, dt_s, chunk: int, mesh):
                        plc(c.shape, "batch", None, None),
                        plc(log_a.shape, "batch", None, "tensor"),
                        plc(dt_s.shape, "batch", None, "tensor")),
-        device_mesh=mesh.device_mesh, redistribute_inputs=True)(
+        in_grad_placements=grads, device_mesh=mesh.device_mesh,
+        redistribute_inputs=True)(
         xh, b, c, log_a, dt_s)
 
 

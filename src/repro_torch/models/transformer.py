@@ -37,9 +37,11 @@ process a rank: inputs every rank holds whole are laid out batch over
 reference constrains it (batch over ``data``, the sequence over
 ``model``), the logits batch over ``data`` and vocabulary over
 ``model``; the decode cache lies batch over ``data`` and KV heads over
-``model`` where they divide, else ``head_dim`` (:func:`cache_spec`).
-An encoder-decoder raises on a mesh.  ``mesh=None`` runs the one-device
-code.  The reference casts every weight to the
+``model`` where they divide, else ``head_dim`` (:func:`cache_spec`),
+the cross-attention K/V of an encoder-decoder as the self-attention
+K/V.  The encoder (:func:`encode`) constrains its residual as the
+decoder does.  ``mesh=None`` runs the one-device code.  The reference
+casts every weight to the
 compute dtype at each use; :func:`serving_params` makes that copy once,
 after which the same casts are no-ops and a decode step reads only the
 compute-dtype weights.
@@ -233,9 +235,10 @@ def _block_full(bp: Params, spec: LayerSpec, x: torch.Tensor,
     if "cross" in bp and enc_out is not None:
         h = common.apply_norm(bp["norm_cross"], x, cfg.norm_type,
                               cfg.norm_eps)
-        kv = attention.cross_kv(bp["cross"], enc_out, cfg)
+        kv = attention.cross_kv(bp["cross"], enc_out, cfg, mesh)
         h, _ = attention.forward(bp["cross"], h, cfg, None,
-                                 layer_window=False, kv_override=kv)
+                                 layer_window=False, kv_override=kv,
+                                 mesh=mesh)
         x = x + h
         if collect_state:
             state = dict(state, cross_k=kv[0], cross_v=kv[1])
@@ -254,13 +257,11 @@ def embed_inputs(params: Params, inputs: torch.Tensor,
         x = inputs
     else:
         x = torch.nn.functional.embedding(inputs, params["embed"])
-    if mesh is not None:
-        return rules.residual_constrain(x, mesh, cfg.sequence_sharding).to(
-            common.dtype_of(cfg.dtype_compute))
+    x = rules.residual_constrain(x, mesh, cfg.sequence_sharding)
     x = x.to(common.dtype_of(cfg.dtype_compute))
     if cfg.pos_embedding == "absolute":
         pos = common.sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
-        x = x + pos[None].to(x.dtype)
+        x = x + rules.replicated(pos[None].to(x.dtype), mesh)
     return x
 
 
@@ -292,38 +293,37 @@ def default_positions(inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return pos[None].expand(3, b, s) if cfg.mrope_sections else pos
 
 
-def _on_mesh(inputs: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
+def _on_mesh(inputs: torch.Tensor, mesh) -> torch.Tensor:
     """An entry point's inputs on ``mesh``: a DTensor as it is, a tensor
-    every rank holds whole laid out batch over ``data``.  An
-    encoder-decoder raises."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name} is an encoder-decoder: its encoder and "
-            f"cross-attention have no mesh path yet")
+    every rank holds whole laid out batch over ``data``."""
     if _check.is_dtensor(inputs):
         return inputs
     return rules.distribute(inputs, mesh, "batch")
 
 
 def _encoder_out(params: Params, cfg: ModelConfig,
-                 encoder_inputs: Optional[torch.Tensor]):
+                 encoder_inputs: Optional[torch.Tensor], mesh=None):
     if not cfg.is_encdec:
         return None
     if encoder_inputs is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
                          f"encoder_inputs")
-    return encode(params, encoder_inputs, cfg)
+    return encode(params, encoder_inputs, cfg, mesh)
 
 
-def encode(params: Params, embeds: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
+def encode(params: Params, embeds: torch.Tensor, cfg: ModelConfig,
+           mesh=None) -> torch.Tensor:
     """Whisper's encoder over stub frame embeddings (B, S_enc, D):
-    non-causal attention blocks, then the encoder's final norm."""
-    x = embed_inputs(params, embeds, cfg)
+    non-causal attention blocks, then the encoder's final norm.  On a
+    ``mesh`` ``embeds`` is a DTensor or every rank's whole tensor, and
+    the residual is constrained as the decoder's."""
+    if mesh is not None:
+        embeds = _on_mesh(embeds, mesh)
+    x = embed_inputs(params, embeds, cfg, mesh)
     enc = params["encoder"]
     for g in range(cfg.encoder_layers):
         x, _, _ = _block_full(_group(enc["layers"]["pos0"], g), ENC_SPEC, x,
-                              cfg, None, False, causal=False)
+                              cfg, None, False, causal=False, mesh=mesh)
     return common.apply_norm(enc["final_norm"], x, cfg.norm_type,
                              cfg.norm_eps)
 
@@ -344,12 +344,13 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
     chunked cross-entropy (``launch.steps.chunked_xent``).
 
     On a ``mesh``: ``inputs`` a DTensor or the same tensor on every
-    rank; ``positions`` (every rank's whole tensor) as above; the
+    rank; ``positions`` (every rank's whole tensor) as above;
+    ``encoder_inputs`` a DTensor or every rank's whole tensor; the
     logits and aux loss DTensors.
     """
     if mesh is not None:
-        inputs = _on_mesh(inputs, cfg, mesh)
-    enc_out = _encoder_out(params, cfg, encoder_inputs)
+        inputs = _on_mesh(inputs, mesh)
+    enc_out = _encoder_out(params, cfg, encoder_inputs, mesh)
     x = embed_inputs(params, inputs, cfg, mesh)
     if positions is None and cfg.pos_embedding == "rope":
         positions = default_positions(inputs, cfg)
@@ -406,12 +407,13 @@ def _cache_constrain(x: torch.Tensor, mesh) -> torch.Tensor:
 
 def cache_spec(name: str, shape: Tuple[int, ...], mesh):
     """The spec of one stacked (num_groups, B, ...) decode-cache leaf on
-    ``mesh``: attention's K/V by :func:`_kv_names`; Mamba's conv buffer
+    ``mesh``: attention's K/V (cross-attention's too) by
+    :func:`_kv_names`; Mamba's conv buffer
     (G, B, K - 1, d_inner) with ``d_inner`` over ``model``; every other
     recurrent state (G, B, heads or d, ...) with its heads (sLSTM: d)
     over ``model``; batch over ``data``.  These are the layouts the
     reference's prefill and decode leave the cache in."""
-    if name in ("k", "v"):
+    if name in ("k", "v", "cross_k", "cross_v"):
         names = (None,) + _kv_names(shape[3], mesh)
     elif name == "conv":
         names = (None, "batch", None, "tensor")
@@ -500,8 +502,8 @@ def prefill(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
     encodes ``encoder_inputs`` and keeps each layer's cross-attention
     K/V.  On a ``mesh`` the logits and the cache are DTensors."""
     if mesh is not None:
-        inputs = _on_mesh(inputs, cfg, mesh)
-    enc_out = _encoder_out(params, cfg, encoder_inputs)
+        inputs = _on_mesh(inputs, mesh)
+    enc_out = _encoder_out(params, cfg, encoder_inputs, mesh)
     x = embed_inputs(params, inputs, cfg, mesh)
     positions = (default_positions(inputs, cfg)
                  if cfg.pos_embedding == "rope" else None)
@@ -540,11 +542,13 @@ def _embed_step(params: Params, tokens: torch.Tensor, index: int,
     reference's ``dynamic_slice`` clamps the row into it)."""
     if cfg.pos_embedding != "absolute":
         return embed_inputs(params, tokens, cfg, mesh)
-    x = torch.nn.functional.embedding(tokens, params["embed"]).to(
+    x = torch.nn.functional.embedding(tokens, params["embed"])
+    x = rules.residual_constrain(x, mesh, cfg.sequence_sharding).to(
         common.dtype_of(cfg.dtype_compute))
     row = min(index, cache_max_len(cache) - 1)
     pos = torch.arange(row, row + 1, device=x.device)
-    return x + common.sinusoid(pos, cfg.d_model)[None].to(x.dtype)
+    return x + rules.replicated(
+        common.sinusoid(pos, cfg.d_model)[None].to(x.dtype), mesh)
 
 
 def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
@@ -558,7 +562,7 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
     each rank writes its shard."""
     index = _index(index)
     if mesh is not None:
-        tokens = _on_mesh(tokens, cfg, mesh)
+        tokens = _on_mesh(tokens, mesh)
     x = _embed_step(params, tokens, index, cache, cfg, mesh)
     for g in range(cfg.num_groups):
         for i, spec in enumerate(cfg.pattern):
@@ -581,7 +585,7 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
                                       cfg.norm_eps)
                 h, _ = attention.decode(
                     bp["cross"], h, gc, index, cfg, layer_window=False,
-                    cross_cache=(gc["cross_k"], gc["cross_v"]))
+                    cross_cache=(gc["cross_k"], gc["cross_v"]), mesh=mesh)
                 x = x + h
             x, _ = _ffn(bp, spec, x, cfg, mesh)     # decode drops the aux
     return lm_logits(params, x, cfg, mesh), cache

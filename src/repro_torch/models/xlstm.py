@@ -333,15 +333,20 @@ def _whole_on_model(fn, mesh, n_out: int, batched: tuple, weights: tuple):
     """``fn(*batched, *weights)`` under ``local_map`` on each rank's batch
     shard, everything else whole: the ``batched`` tensors (batch first)
     and the ``n_out`` outputs laid out batch over ``data`` (where it
-    divides) and replicated over ``model``, the weights replicated."""
-    from torch.distributed.tensor import Replicate
+    divides) and replicated over ``model``, the weights replicated.  A
+    rank's weight gradient comes from its batch shard alone: partial
+    over the axes the batch splits over."""
+    from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
     whole = [Replicate()] * len(mesh.shape)
     batch = rules.placements(rules.constrain_spec(
         batched[0].shape, mesh, "batch"), mesh)
+    summed = [Partial() if p.is_shard() else Replicate() for p in batch]
     return local_map(fn, out_placements=(batch,) * n_out,
                      in_placements=(batch,) * len(batched)
                      + (whole,) * len(weights),
+                     in_grad_placements=(batch,) * len(batched)
+                     + (summed,) * len(weights),
                      device_mesh=mesh.device_mesh,
                      redistribute_inputs=True)(*batched, *weights)
 

@@ -8,6 +8,14 @@ each leaf back in its own dtype, as the reference does.
 The step count is an int32 tensor on the parameters' device, and the
 learning rate, the global norm and the clip scale are computed there
 from it: an optimizer step reads nothing back to the host.
+
+On a device mesh (parameters as DTensors, ``sharding.params.
+shard_params``) each moment is a DTensor in its parameter's placements
+and updates each rank's shard; the step count, the learning rate, the
+global norm and the clip scale are 0-dim DTensors replicated on the
+mesh.  The global norm sums every leaf's squares on each rank's shards
+and reduces that one scalar over the mesh once; a leaf replicated over
+an axis counts on the ranks at coordinate 0 of that axis alone.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from typing import Any, Tuple
 
 import torch
 
+from repro_torch.sharding.rules import is_dtensor
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Any
@@ -45,15 +54,27 @@ def _sdtype(cfg: OptimizerConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.state_dtype == "bfloat16" else F32
 
 
+def _replicated_like(t: Tensor, leaf: Tensor) -> Tensor:
+    """``t``, the same tensor on every rank, as a DTensor replicated on
+    ``leaf``'s mesh where ``leaf`` is a DTensor; else ``t`` itself."""
+    if not is_dtensor(leaf):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    dm = leaf.device_mesh
+    return DTensor.from_local(t, dm, [Replicate()] * dm.ndim,
+                              run_check=False)
+
+
 def init_state(params: Params, cfg: OptimizerConfig) -> dict:
-    """Zero moments shaped like ``params`` and a zero int32 step count,
-    on the parameters' device."""
-    device = tree_leaves(params)[0].device
-    count = torch.zeros((), dtype=torch.int32, device=device)
+    """Zero moments shaped (and on a mesh placed) like ``params`` and a
+    zero int32 step count, on the parameters' device."""
+    leaf = tree_leaves(params)[0]
+    count = _replicated_like(
+        torch.zeros((), dtype=torch.int32, device=leaf.device), leaf)
 
     def zeros():
-        return tree_map(lambda p: torch.zeros(p.shape, dtype=_sdtype(cfg),
-                                              device=p.device), params)
+        return tree_map(lambda p: torch.zeros_like(p, dtype=_sdtype(cfg)),
+                        params)
 
     if cfg.name == "sgd":
         if cfg.momentum > 0.0:
@@ -62,15 +83,46 @@ def init_state(params: Params, cfg: OptimizerConfig) -> dict:
     return {"mu": zeros(), "nu": zeros(), "count": count}
 
 
+def _sum_squares(x: Tensor) -> Tensor:
+    """The f32 sum of ``x``'s squares."""
+    return torch.sum(torch.square(x.to(F32)))
+
+
+def _owned_sum_squares(x: Tensor) -> Tensor:
+    """Of a DTensor laid out by shards and replicas, the f32 sum of its
+    local shard's squares on the ranks at coordinate 0 of each mesh axis
+    it is replicated over, and 0 on the others: summed over the mesh,
+    every value counts once."""
+    if any(p.is_partial() for p in x.placements):
+        raise ValueError("global_norm takes leaves laid out as their "
+                         "parameters, not partial sums")
+    coord = x.device_mesh.get_coordinate()
+    if any(c and not p.is_shard() for p, c in zip(x.placements, coord)):
+        return torch.zeros((), dtype=F32, device=x.device)
+    return _sum_squares(x.to_local())
+
+
 def global_norm(tree: Params) -> Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(F32)))
-                          for x in tree_leaves(tree)))
+    """The f32 norm of every leaf of ``tree`` together; of DTensors, a
+    0-dim DTensor replicated on their mesh, from one all-reduce over the
+    process group (the mesh's ranks, ``launch.mesh.init_mesh``)."""
+    leaves = tree_leaves(tree)
+    if not is_dtensor(leaves[0]):
+        return torch.sqrt(sum(_sum_squares(x) for x in leaves))
+    import torch.distributed as dist
+    if leaves[0].device_mesh.size() != dist.get_world_size():
+        raise ValueError("global_norm reduces over the process group, "
+                         "which the mesh must span")
+    total = sum(_owned_sum_squares(x) for x in leaves)
+    dist.all_reduce(total)
+    return _replicated_like(torch.sqrt(total), leaves[0])
 
 
 def _lr_at(cfg: OptimizerConfig, step: Tensor) -> Tensor:
     """The learning rate at ``step`` (an int32 device tensor), computed
     on its device."""
-    lr = torch.full((), cfg.learning_rate, dtype=F32, device=step.device)
+    lr = _replicated_like(torch.full((), cfg.learning_rate, dtype=F32,
+                                     device=step.device), step)
     if cfg.warmup_steps > 0:
         lr = lr * torch.clamp_max((step + 1) / cfg.warmup_steps, 1.0)
     if cfg.schedule == "cosine":

@@ -28,13 +28,16 @@ drops an axis whose dim does not divide by its shards
 uneven ``Shard`` (``torch.chunk``'s split: the last shards short or
 empty) taking the place of GSPMD's padding.  With ``mesh=None`` each
 returns its input itself.  A mesh that lays tensors out carries its
-``DeviceMesh`` (``launch.mesh.init_mesh``).
+``DeviceMesh`` (``launch.mesh.init_mesh``).  :func:`is_dtensor`,
+:func:`local` and :func:`like` let one code path take a tensor on one
+device or a DTensor's shard.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
@@ -178,6 +181,29 @@ def constrain_spec(shape: Sequence[int], mesh: Mesh,
         size = entry_size(resolve(name, mesh), mesh)
         names.append(name if size > 1 and dim % size == 0 else None)
     return spec(mesh, *names)
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (no DTensor exists before
+    ``torch.distributed.tensor`` is imported)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank; a plain tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def like(shard: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``shard``, this rank's block of a tensor laid out as ``t``, as a
+    DTensor in ``t``'s placements where ``t`` is one; else ``shard``."""
+    if not is_dtensor(t):
+        return shard
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(shard, t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
 
 
 def _lay_out(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:

@@ -6,7 +6,8 @@
 Rank RANK of a (data=DATA, model=MODEL) mesh rendezvouses through the
 ``FileStore`` at STORE, then for each case of CASES_JSON (name -> arch,
 ``reduced()`` overrides) loads ``DIR/<name>.npz`` (the reference's
-weights, flattened by '/', and the inputs), runs ``forward``,
+weights, flattened by '/', the inputs and an encoder-decoder's encoder
+inputs), runs ``forward``,
 ``prefill`` and three ``decode_step`` calls on the mesh, and rank 0
 writes ``DIR/port_<data>x<model>_<name>.npz`` with every output
 gathered (``full_tensor``) and ``.json`` with the placements of the
@@ -63,17 +64,21 @@ def serve(params, data: dict, cfg, mesh) -> tuple[dict, dict]:
     where on a mesh) and the specs of the logits and cache leaves."""
     inputs = torch.from_numpy(data["inputs"])
     tokens = torch.from_numpy(data["tokens"])
+    enc = (torch.from_numpy(data["encoder_inputs"])
+           if "encoder_inputs" in data else None)
     s = inputs.shape[1]
     steps = tokens.shape[1]
     # A copy: decode updates the cache in place.
     full = (lambda t: t.full_tensor()) if mesh is not None else (
         lambda t: t.clone())
     out, specs = {}, {}
-    logits, aux = transformer.forward(params, inputs, cfg, mesh=mesh)
+    logits, aux = transformer.forward(params, inputs, cfg,
+                                      encoder_inputs=enc, mesh=mesh)
     out["forward"], out["aux"] = full(logits), full(aux)
     if mesh is not None:
         specs["forward"] = spec_of(logits, mesh)
     logits, cache = transformer.prefill(params, inputs, cfg,
+                                        encoder_inputs=enc,
                                         pad_to=s + steps, mesh=mesh)
     out["prefill"] = full(logits)
     if mesh is not None:

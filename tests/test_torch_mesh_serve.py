@@ -1,7 +1,7 @@
 """Serving on a device mesh: the port's DTensor path against the JAX
 reference on the same mesh and against the port on one device.
 
-Seven cases at ``reduced(num_layers=2)`` in f32 compute (jamba at its
+Eight cases at ``reduced(num_layers=2)`` in f32 compute (jamba at its
 reduced period): h2o-danube-3-4b with GQA (4 query heads on 2 KV heads,
 a 16-slot sliding window that the 24-token prompt wraps), qwen2-vl-72b
 (embeddings in, M-RoPE), qwen3-moe-235b-a22b (``dense_grouped``, experts
@@ -9,8 +9,11 @@ on ``model``), jamba (Mamba, attention, MoE), xlstm-125m (sLSTM, mLSTM),
 qwen3-14b with 6 query heads on 3 KV heads, which do not split over
 ``model``: K/V repeated, the heads uneven on the 4-way axis, the cache
 on ``head_dim``; and mixtral-8x22b with 2 experts, expert-parallel on
-the 2-way axis and split on ``d_ff`` on the 4-way one.  Each case runs ``forward``, ``prefill`` (B = 2, 24
-tokens, padded for 3 more) and 3 ``decode_step`` calls.
+the 2-way axis and split on ``d_ff`` on the 4-way one; and
+whisper-small with its 12 heads (the encoder over 32 frame embeddings,
+cross-attention in every decoder block, its K/V in the decode cache).
+Each case runs ``forward``, ``prefill`` (B = 2, 24 tokens, padded for 3
+more) and 3 ``decode_step`` calls.
 
 The meshes are (data=2, model=2) and (data=1, model=4).  The port runs
 as 4 gloo ranks a mesh (``tests/_torch_mesh_ranks.py``, subprocesses
@@ -48,7 +51,7 @@ RANKS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                      "_torch_mesh_ranks.py")
 REF_TOL = 1e-4
 ONE_DEVICE_TOL = 1e-5
-B, S, STEPS = 2, 24, 3
+B, S, STEPS, S_ENC = 2, 24, 3, 32
 MESHES = ((2, 2), (1, 4))
 CASES = {
     "danube_gqa": ("h2o_danube_3_4b",
@@ -63,6 +66,8 @@ CASES = {
     "mixtral_2_experts": ("mixtral_8x22b",
                           dict(num_layers=2, num_experts=2,
                                sliding_window=16)),
+    "whisper": ("whisper_small",
+                dict(num_layers=2, num_heads=12, num_kv_heads=12)),
 }
 
 _REFERENCE = textwrap.dedent("""
@@ -110,10 +115,13 @@ _REFERENCE = textwrap.dedent("""
             params, specs)
         inputs = jnp.asarray(data["inputs"])
         tokens = jnp.asarray(data["tokens"])
+        enc = (jnp.asarray(data["encoder_inputs"])
+               if "encoder_inputs" in data else None)
         s, steps = inputs.shape[1], tokens.shape[1]
-        fwd = jax.jit(lambda p, x: transformer.forward(p, x, cfg, mesh))
-        pre = jax.jit(lambda p, x: transformer.prefill(p, x, cfg, mesh,
-                                                       pad_to=s + steps))
+        fwd = jax.jit(lambda p, x: transformer.forward(
+            p, x, cfg, mesh, encoder_inputs=enc))
+        pre = jax.jit(lambda p, x: transformer.prefill(
+            p, x, cfg, mesh, encoder_inputs=enc, pad_to=s + steps))
         dec = jax.jit(lambda p, t, c, i: transformer.decode_step(
             p, t, c, i, cfg, mesh))
         out, got = {}, {}
@@ -151,10 +159,15 @@ def _flatten(tree, prefix="p"):
     return {prefix: tree.numpy()}
 
 
-def _inputs(name: str, cfg, rng):
+def _inputs(name: str, cfg, rng) -> dict:
     if name == "qwen2_vl":       # the VLM's precomputed patch embeddings
-        return rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
-    return rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+        return {"inputs": rng.standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32)}
+    out = {"inputs": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.is_encdec:            # whisper's stub frame embeddings
+        out["encoder_inputs"] = rng.standard_normal(
+            (B, S_ENC, cfg.d_model)).astype(np.float32)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -169,7 +182,7 @@ def runs(tmp_path_factory):
         cfg = ranks.config(arch, over)
         params = transformer.init(torch.Generator().manual_seed(i), cfg)
         np.savez(os.path.join(out_dir, f"{name}.npz"),
-                 inputs=_inputs(name, cfg, rng),
+                 **_inputs(name, cfg, rng),
                  tokens=rng.integers(0, cfg.vocab_size,
                                      (B, STEPS)).astype(np.int32),
                  **_flatten(params))
